@@ -1,0 +1,272 @@
+"""Automatic kernel-statistics gathering at the aten level (paper §5,
+Algorithm 1) — the counterpart of ``repro.core.counting``.
+
+The reference walks a jaxpr.  PyTorch runs eagerly, so the port runs the
+kernel under :class:`~torch._subclasses.fake_tensor.FakeTensorMode` (no
+data, nothing executes) with a :class:`TorchDispatchMode` on top that
+sees every aten op the kernel dispatches and classifies it in the
+reference's feature vocabulary, so a reference ``Model`` expression and
+profile mean the same thing on both sides:
+
+  * arithmetic — ``f_op_<dtype>_<kind>`` by (kind, dtype); ``mm``/``bmm``
+    and friends count as *madd* sequences plus contiguous operand loads
+    and a contiguous result store, as the reference counts
+    ``dot_general``;
+  * memory — ``f_mem_<class>_<dtype>_<load|store>`` by access class:
+    ``contig`` (copies, fills, padding, ``where``), ``strided``
+    (transposes, flips), ``gather``/``scatter`` (indexing), ``concat``;
+  * sync — ``f_sync_launch_kernel`` once per counted call,
+    ``f_sync_loop_steps`` once per step of a :func:`counted_range` loop
+    (the port's stand-in for ``scan``/``fori_loop``), and
+    ``f_sync_grid_programs`` from the hand kernels' cost rules.
+
+Views (``view``, ``slice``, ``select``, ``expand``, ...) move no data in
+PyTorch and count nothing; the reference counts ``reshape``/``slice`` as
+contiguous stores, a difference recorded in ROADMAP queue C.
+
+A ``repro_torch::*`` custom op (a hand-written CUDA kernel) is priced by
+the cost rule registered for it with :func:`register_op_cost_rule` — the
+rules live in :mod:`repro_torch.analysis.kernelcost`, imported on first
+use — as the reference opens ``pallas_call`` with a registered handler.
+
+``f_vmem_*`` features are the port's own: on Hopper they mean
+shared-memory (or register) traffic inside a hand kernel, the on-chip
+class the reference's VMEM block traffic stands for.  The base model has
+no term for them; predictions list them as unmodeled.
+"""
+from __future__ import annotations
+
+import contextvars
+import importlib
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map
+
+
+class FeatureCounts(dict):
+    """Mapping feature-id → count (float).  Missing keys read as 0."""
+
+    def __missing__(self, key):
+        return 0.0
+
+    def add(self, key: str, value: float):
+        self[key] = self.get(key, 0.0) + float(value)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.float32`` → ``"float32"``: the reference's dtype spelling."""
+    return str(dtype).removeprefix("torch.")
+
+
+_ARITH = {
+    "add": "add", "sub": "add", "rsub": "add", "neg": "add", "abs": "add",
+    "mul": "mul", "square": "mul", "div": "div", "reciprocal": "div",
+    "maximum": "cmp", "minimum": "cmp", "clamp": "cmp", "clamp_min": "cmp",
+    "clamp_max": "cmp",
+    "exp": "transc", "log": "transc", "tanh": "transc", "sigmoid": "transc",
+    "rsqrt": "transc", "sqrt": "transc", "erf": "transc", "sin": "transc",
+    "cos": "transc", "exp2": "transc", "log1p": "transc", "expm1": "transc",
+    "cumsum": "add", "logcumsumexp": "transc", "cummax": "cmp",
+}
+
+_REDUCE = {"sum": "add", "mean": "add", "amax": "cmp", "amin": "cmp",
+           "prod": "mul", "argmax": "cmp", "argmin": "cmp", "any": "add",
+           "all": "add"}
+
+_MATMUL = {"mm", "bmm", "mv", "dot", "addmm", "baddbmm", "addmv"}
+
+_MEM_GATHER = {"index", "gather", "index_select", "take", "embedding"}
+_MEM_SCATTER = {"index_put", "scatter", "scatter_add", "scatter_reduce",
+                "index_add", "index_copy"}
+# transposes/flips are views in PyTorch, but the reference counts its
+# `transpose`/`rev` as strided traffic and the consumer reads strided
+_MEM_STRIDED = {"t", "transpose", "permute", "flip"}
+_MEM_CONCAT = {"cat", "stack"}
+_MEM_CONTIG = {"clone", "_to_copy", "copy", "constant_pad_nd", "zeros",
+               "ones", "full", "fill", "zeros_like", "ones_like",
+               "full_like", "where", "arange", "new_zeros", "new_ones",
+               "new_full", "masked_fill", "repeat"}
+
+# Deliberately free.  `roll` belongs here only for parity: the reference
+# on the installed jax counts nothing for jnp.roll (its concatenate sits
+# in a nested jit the walker does not open), so neither side's battery
+# exercises f_mem_concat — see ROADMAP queue C.
+ZERO_COST_OPS = frozenset({
+    "view", "_unsafe_view", "reshape", "_reshape_alias", "slice", "select",
+    "squeeze", "unsqueeze", "expand", "alias", "as_strided", "detach",
+    "lift_fresh", "empty", "empty_like", "new_empty", "empty_strided",
+    "_local_scalar_dense", "roll", "split", "split_with_sizes", "unbind",
+    "lt", "le", "gt", "ge", "eq", "ne", "logical_and", "logical_or",
+    "logical_not", "bitwise_and", "bitwise_or", "bitwise_not", "sign",
+    "isfinite", "isnan", "randn", "rand", "randint", "normal", "uniform",
+    "random", "bernoulli",
+})
+
+# ---------------------------------------------------------------------------
+# cost rules of the hand kernels (repro_torch::* custom ops)
+# ---------------------------------------------------------------------------
+
+#: op name ("repro_torch::matmul_tiled") → rule(*op_args) -> FeatureCounts
+_OP_COST_RULES: Dict[str, Callable[..., FeatureCounts]] = {}
+_RULE_MODULE = "repro_torch.analysis.kernelcost"
+
+
+def register_op_cost_rule(op: str,
+                          rule: Callable[..., FeatureCounts]) -> None:
+    """Price custom op ``op`` (``"namespace::name"``) with ``rule``,
+    called with the op's own arguments (fake tensors and ints) and
+    returning the op's whole cost."""
+    _OP_COST_RULES[op] = rule
+
+
+def _rule_for(op: str) -> Callable[..., FeatureCounts]:
+    if op not in _OP_COST_RULES:
+        importlib.import_module(_RULE_MODULE)    # registers on import
+    rule = _OP_COST_RULES.get(op)
+    if rule is None:
+        raise LookupError(
+            f"custom op {op!r} has no registered cost rule: the counter "
+            f"cannot price a hand kernel it does not know "
+            f"(register one in {_RULE_MODULE})")
+    return rule
+
+
+# ---------------------------------------------------------------------------
+# the walker
+# ---------------------------------------------------------------------------
+
+
+def _first_tensor(tree) -> Optional[torch.Tensor]:
+    for leaf in tree_flatten(tree)[0]:
+        if isinstance(leaf, torch.Tensor):
+            return leaf
+    return None
+
+
+def _count_op(func, args, kwargs, out, counts: FeatureCounts) -> None:
+    if func.namespace == "repro_torch":
+        name = f"{func.namespace}::{func.overloadpacket.__name__}"
+        for k, v in _rule_for(name)(*args, **kwargs).items():
+            counts.add(k, v)
+        return
+    if func.namespace != "aten":
+        return
+    op = func.overloadpacket.__name__.rstrip("_")   # in-place == out-of-place
+    res = _first_tensor(out)
+    if res is None or op in ZERO_COST_OPS:
+        return
+    dt = dtype_name(res.dtype)
+
+    if op in _MATMUL:
+        a, b = (args[1], args[2]) if op.startswith(("add", "baddbmm")) \
+            else (args[0], args[1])
+        counts.add(f"f_op_{dt}_madd", res.numel() * a.shape[-1])
+        for x in (a, b):
+            counts.add(f"f_mem_contig_{dtype_name(x.dtype)}_load", x.numel())
+        counts.add(f"f_mem_contig_{dt}_store", res.numel())
+        if op.startswith(("add", "baddbmm")):
+            counts.add(f"f_op_{dt}_add", res.numel())
+        return
+    if op == "pow":
+        exp = args[1] if len(args) > 1 else kwargs.get("exponent")
+        if isinstance(exp, int) or (isinstance(exp, float)
+                                    and exp.is_integer()):
+            # square-and-multiply, as the reference's integer_pow rule
+            y = int(exp)
+            p = abs(y)
+            if p >= 2:
+                n_mul = (p.bit_length() - 1) + (bin(p).count("1") - 1)
+                counts.add(f"f_op_{dt}_mul", res.numel() * n_mul)
+            if y < 0:
+                counts.add(f"f_op_{dt}_div", res.numel())
+        else:
+            counts.add(f"f_op_{dt}_transc", res.numel())
+        return
+    if op in ("max", "min"):
+        if func._overloadname == "other":       # elementwise
+            counts.add(f"f_op_{dt}_cmp", res.numel())
+        else:                                   # reduction
+            src = args[0]
+            counts.add(f"f_op_{dtype_name(src.dtype)}_cmp", src.numel())
+        return
+    if op in _ARITH:
+        counts.add(f"f_op_{dt}_{_ARITH[op]}", res.numel())
+        return
+    if op in _REDUCE:
+        src = args[0]
+        counts.add(f"f_op_{dtype_name(src.dtype)}_{_REDUCE[op]}", src.numel())
+        return
+    if op in _MEM_GATHER:
+        counts.add(f"f_mem_gather_{dt}_load", res.numel())
+        return
+    if op in _MEM_SCATTER:
+        upd = args[-1] if isinstance(args[-1], torch.Tensor) else res
+        counts.add(f"f_mem_scatter_{dtype_name(upd.dtype)}_store",
+                   upd.numel())
+        return
+    if op in _MEM_STRIDED:
+        counts.add(f"f_mem_strided_{dt}_load", res.numel())
+        counts.add(f"f_mem_strided_{dt}_store", res.numel())
+        return
+    if op in _MEM_CONCAT:
+        counts.add(f"f_mem_concat_{dt}_store", res.numel())
+        return
+    if op in _MEM_CONTIG:
+        counts.add(f"f_mem_contig_{dt}_store", res.numel())
+        return
+    # anything else: ignored, as the reference ignores unlisted primitives
+
+
+class _CountingMode(TorchDispatchMode):
+    def __init__(self, counts: FeatureCounts):
+        super().__init__()
+        self.counts = counts
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        _count_op(func, args, kwargs, out, self.counts)
+        return out
+
+
+#: the FeatureCounts of the count_fn call in progress, if any
+_ACTIVE: contextvars.ContextVar[Optional[FeatureCounts]] = \
+    contextvars.ContextVar("repro_torch_active_counts", default=None)
+
+
+def counted_range(n: int) -> Iterator[int]:
+    """``range(n)`` for a kernel's loop: while :func:`count_fn` runs it,
+    every step adds one ``f_sync_loop_steps`` (the reference's ``scan``
+    and ``fori_loop`` trip count); otherwise it is a plain range."""
+    counts = _ACTIVE.get()
+    for i in range(n):
+        if counts is not None:
+            counts.add("f_sync_loop_steps", 1.0)
+        yield i
+
+
+def count_fn(fn: Callable, *example_args: Any,
+             **example_kwargs: Any) -> FeatureCounts:
+    """Count features of ``fn`` at the example inputs' shapes and dtypes
+    (Algorithm 1).  Tensors may live on any device, ``meta`` included;
+    they are replaced by fake tensors, so nothing executes and no kernel
+    launches."""
+    counts = FeatureCounts()
+    fake = FakeTensorMode()
+
+    def to_fake(x):
+        return fake.from_tensor(x) if isinstance(x, torch.Tensor) else x
+
+    args = tree_map(to_fake, example_args)
+    kwargs = tree_map(to_fake, example_kwargs)
+    token = _ACTIVE.set(counts)
+    try:
+        with fake, _CountingMode(counts):
+            fn(*args, **kwargs)
+    finally:
+        _ACTIVE.reset(token)
+    counts.add("f_sync_launch_kernel", 1.0)
+    return counts

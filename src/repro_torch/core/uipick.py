@@ -1,0 +1,528 @@
+"""UIPiCK — parameterized measurement-kernel generators (paper §7.1) in
+PyTorch — the counterpart of ``repro.core.uipick``.
+
+Each generator owns a set of filter tags and an argument space; one
+kernel is produced per element of the Cartesian product of allowed
+values, filtered by the user's tags under one of the paper's four match
+conditions.  Generator names, tags, argument spaces and kernel names are
+the reference's, so the same tags select the same battery on both sides.
+
+A :class:`MeasurementKernel` is an eager PyTorch callable plus an
+argument builder ``make_args(device)``.  It is (a) *timed* on a device —
+with CUDA events around each call on the card, ``perf_counter`` for CPU
+tensors — and (b) *counted* by :mod:`repro_torch.core.counting` on
+``meta`` arguments, so counting allocates and runs nothing.
+
+Ported so far: the five generators the default and smoke batteries
+select (``matmul_sq``, ``flops_madd_pattern``, ``flops_dot_pattern``,
+``mem_stream``, ``empty_kernel``); the rest are in ROADMAP queue A.
+"""
+from __future__ import annotations
+
+import enum
+import hashlib
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, FrozenSet, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.counting import FeatureCounts, count_fn, counted_range
+from repro_torch.core.model import FeatureTable
+from repro_torch.device import DeviceLike, resolve_device
+
+
+class MatchCondition(enum.Enum):
+    IDENTICAL = 1   # generator tag set == user tags
+    SUBSET = 2      # generator tag set ⊆ user tags
+    SUPERSET = 3    # generator tag set ⊇ user tags (paper default)
+    INTERSECT = 4   # non-empty intersection
+
+
+@dataclass(frozen=True)
+class TimingStats:
+    """One timing measurement: the median drives calibration, ``std`` and
+    ``min`` are its noise metadata."""
+
+    median: float
+    std: Optional[float] = None
+    min: Optional[float] = None
+
+    @classmethod
+    def coerce(cls, value: "TimerResult") -> "TimingStats":
+        if isinstance(value, TimingStats):
+            return value
+        return cls(median=float(value))
+
+    def to_dict(self) -> Dict[str, float]:
+        d = {"median": float(self.median)}
+        if self.std is not None:
+            d["std"] = float(self.std)
+        if self.min is not None:
+            d["min"] = float(self.min)
+        return d
+
+
+TimerResult = Union[float, TimingStats]
+
+
+@dataclass
+class MeasurementKernel:
+    name: str
+    fn: Callable
+    make_args: Callable[[DeviceLike], tuple]
+    tags: Dict[str, Any]
+    sizes: Dict[str, int] = field(default_factory=dict)
+    _counts: Optional[FeatureCounts] = None
+
+    def counts(self) -> FeatureCounts:
+        """Feature counts at this kernel's shapes (meta arguments: no
+        allocation, no execution); computed once."""
+        if self._counts is None:
+            self._counts = count_fn(self.fn, *self.make_args("meta"))
+        return self._counts
+
+    def time_stats(self, *, trials: int = 20, warmup: int = 3,
+                   device: DeviceLike = "cuda") -> TimingStats:
+        """Seconds per call on ``device``, median/std/min over ``trials``
+        calls after ``warmup`` calls.  On the card each call sits between
+        two CUDA events, so a time is the device's span from the first
+        launch to the last, gaps between launches included."""
+        dev = resolve_device(device)
+        args = self.make_args(dev)
+        for _ in range(warmup):
+            self.fn(*args)
+        ts = []
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            for _ in range(trials):
+                start.record()
+                self.fn(*args)
+                end.record()
+                end.synchronize()
+                ts.append(start.elapsed_time(end) * 1e-3)
+        else:
+            for _ in range(trials):
+                t0 = time.perf_counter()
+                self.fn(*args)
+                ts.append(time.perf_counter() - t0)
+        return TimingStats(median=float(np.median(ts)),
+                           std=float(np.std(ts)), min=float(np.min(ts)))
+
+
+@dataclass
+class Generator:
+    name: str
+    gen_tags: FrozenSet[str]
+    arg_space: Dict[str, Tuple[Any, ...]]
+    build: Callable[..., MeasurementKernel]
+
+    def variants(self, constraints: Mapping[str, Tuple[Any, ...]]
+                 ) -> Iterable[MeasurementKernel]:
+        space = {}
+        for arg, allowed in self.arg_space.items():
+            if arg in constraints:
+                chosen = tuple(v for v in constraints[arg] if v in allowed)
+                if not chosen:
+                    return  # constraint excludes this generator entirely
+                space[arg] = chosen
+            else:
+                space[arg] = allowed
+        names = sorted(space)
+        for combo in itertools.product(*(space[n] for n in names)):
+            try:
+                yield self.build(**dict(zip(names, combo)))
+            except _SkipVariant:
+                continue
+
+
+class _SkipVariant(Exception):
+    """Raised by builders for incoherent argument combinations."""
+
+
+def _parse_value(s: str) -> Any:
+    if s in ("True", "False"):
+        return s == "True"
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    try:
+        return float(s)
+    except ValueError:
+        return s
+
+
+def parse_filter_tags(filter_tags: Sequence[str]
+                      ) -> Tuple[FrozenSet[str], Dict[str, Tuple[Any, ...]]]:
+    gen_tags: set = set()
+    variant: Dict[str, Tuple[Any, ...]] = {}
+    for t in filter_tags:
+        if ":" in t:
+            arg, vals = t.split(":", 1)
+            variant[arg] = tuple(_parse_value(v) for v in vals.split(","))
+        else:
+            gen_tags.add(t)
+    return frozenset(gen_tags), variant
+
+
+class KernelCollection:
+    def __init__(self, generators: Sequence[Generator]):
+        self.generators = list(generators)
+
+    def generate_kernels(
+        self,
+        filter_tags: Sequence[str],
+        generator_match_cond: MatchCondition = MatchCondition.SUPERSET,
+    ) -> List[MeasurementKernel]:
+        user_tags, constraints = parse_filter_tags(filter_tags)
+        out: List[MeasurementKernel] = []
+        for g in self.generators:
+            gt = g.gen_tags
+            if generator_match_cond is MatchCondition.IDENTICAL:
+                ok = gt == user_tags
+            elif generator_match_cond is MatchCondition.SUBSET:
+                ok = gt <= user_tags
+            elif generator_match_cond is MatchCondition.SUPERSET:
+                ok = gt >= user_tags
+            else:
+                ok = bool(gt & user_tags)
+            if ok:
+                out.extend(g.variants(constraints))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Feature-value gathering (paper fig. 3, step 3)
+# ---------------------------------------------------------------------------
+
+
+def default_timer(kernel: MeasurementKernel, trials: int, *,
+                  device: DeviceLike = "cuda") -> TimingStats:
+    """One real timing pass of ``kernel`` on ``device``."""
+    return kernel.time_stats(trials=trials, device=device)
+
+
+class CountingTimer:
+    """Injectable timer wrapper counting the timing passes that ran — the
+    observable behind prediction's zero-timing guarantee."""
+
+    def __init__(self, timer: Callable[[MeasurementKernel, int], TimerResult]
+                 = default_timer):
+        self._timer = timer
+        self.calls = 0
+
+    def __call__(self, kernel: MeasurementKernel, trials: int) -> TimerResult:
+        self.calls += 1
+        return self._timer(kernel, trials)
+
+
+def gather_feature_table(
+    features: Sequence[str],
+    kernels: Sequence[MeasurementKernel],
+    *,
+    trials: int = 20,
+    timer: Optional[Callable[[MeasurementKernel, int], TimerResult]] = None,
+) -> FeatureTable:
+    """Dense timing table: one row per kernel, one column per feature.
+    ``f_wall_time_*`` columns are measured (each kernel timed once
+    however many such columns there are); every other column is counted.
+    ``timer(kernel, trials)`` is injectable (deterministic tests); it may
+    return bare seconds or :class:`TimingStats`."""
+    features = list(features)
+    timer = timer or default_timer
+    wall_cols = [j for j, f in enumerate(features)
+                 if f.startswith("f_wall_time")]
+    count_cols = [(j, f) for j, f in enumerate(features)
+                  if not f.startswith("f_wall_time")]
+    values = np.zeros((len(kernels), len(features)), np.float64)
+    row_noise: Dict[str, Dict[str, float]] = {}
+    for i, k in enumerate(kernels):
+        counts = k.counts()
+        for j, f in count_cols:
+            values[i, j] = counts[f]
+        if wall_cols:
+            stats = TimingStats.coerce(timer(k, trials))
+            values[i, wall_cols] = stats.median
+            if stats.std is not None or stats.min is not None:
+                row_noise[k.name] = stats.to_dict()
+    return FeatureTable(features, values, [k.name for k in kernels],
+                        row_noise)
+
+
+def unit_hash(*parts: object) -> float:
+    """Deterministic draw in [0, 1) from the ':'-joined identity parts
+    (the reference's definition, so splits agree across packages)."""
+    digest = hashlib.sha256(":".join(str(p) for p in parts).encode())
+    return int(digest.hexdigest()[:12], 16) / float(16 ** 12)
+
+
+def holdout_split(table: FeatureTable, *, holdout_fraction: float = 0.25,
+                  salt: str = "holdout") -> Tuple[FeatureTable, FeatureTable]:
+    """Deterministic train/held-out split ranked by a hash of each row
+    name, holding out ``round(holdout_fraction · n)`` rows (both sides
+    non-empty) — the same variant lands on the same side on every
+    machine and in both packages."""
+    if len(table) < 2:
+        raise ValueError(
+            f"cannot split a {len(table)}-row table into train + holdout")
+    scores = {name: (unit_hash(salt, name), name)
+              for name in table.row_names}
+    order = sorted(range(len(table)), key=lambda i: scores[table.row_names[i]])
+    k = int(round(holdout_fraction * len(table)))
+    k = min(max(k, 1), len(table) - 1)
+    return table.select(sorted(order[k:])), table.select(sorted(order[:k]))
+
+
+# ---------------------------------------------------------------------------
+# Built-in generators
+# ---------------------------------------------------------------------------
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
+
+
+def _randn(shape: Tuple[int, ...], seed: int, device: DeviceLike,
+           dtype: torch.dtype) -> torch.Tensor:
+    """Standard normal data from ``seed`` (a ``torch.Generator`` on the
+    target device); shape-only on ``meta``."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev,
+                       dtype=torch.float32).to(dtype)
+
+
+# ---- matmul_sq: the paper's running example --------------------------------
+
+
+def _build_matmul_sq(*, n: int, dtype: str, prefetch: bool,
+                     tile: int) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+    if prefetch:
+        # k loop over [tile]-wide panels, the analogue of the paper's
+        # local-memory prefetch variant
+        if n % tile:
+            raise _SkipVariant
+        nk = n // tile
+
+        def fn(a, b):
+            acc = torch.zeros((n, n), dtype=a.dtype, device=a.device)
+            for i in counted_range(nk):
+                s = slice(i * tile, (i + 1) * tile)
+                acc = acc + a[:, s] @ b[s]
+            return acc
+    else:
+        def fn(a, b):
+            return a @ b
+
+    def make_args(device):
+        return _randn((n, n), 1, device, dt), _randn((n, n), 2, device, dt)
+
+    return MeasurementKernel(
+        name=f"matmul_sq_n{n}_{dtype}_pf{prefetch}_t{tile}",
+        fn=fn, make_args=make_args,
+        tags=dict(n=n, dtype=dtype, prefetch=prefetch, tile=tile),
+        sizes=dict(n=n))
+
+
+MATMUL_SQ = Generator(
+    "matmul_sq",
+    frozenset({"matmul_sq", "matmul"}),
+    arg_space=dict(
+        n=(256, 384, 512, 640, 768, 1024),
+        dtype=("float32", "bfloat16"),
+        prefetch=(True, False),
+        tile=(16, 32, 64, 128),
+    ),
+    build=_build_matmul_sq,
+)
+
+
+# ---- flops_madd_pattern: peak-FLOP microbenchmark ---------------------------
+
+
+def _build_madd(*, nelements: int, iters: int, dtype: str) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+
+    def fn(x, a, b):
+        # 8 independent accumulator streams, 8-way unrolled madd chain —
+        # the SHOC MaxFlops pattern (paper §7.1.2), one elementwise launch
+        # per op in eager PyTorch
+        xs = [x + i for i in range(8)]
+        for _ in counted_range(iters):
+            xs = [xi * a + b for xi in xs]
+        out = xs[0]
+        for xi in xs[1:]:
+            out = out + xi
+        return out
+
+    def make_args(device):
+        x = _randn((nelements,), 1, device, dt)
+        return (x, torch.tensor(1.000001, dtype=dt, device=device),
+                torch.tensor(1e-7, dtype=dt, device=device))
+
+    return MeasurementKernel(
+        name=f"madd_n{nelements}_i{iters}_{dtype}",
+        fn=fn, make_args=make_args,
+        tags=dict(nelements=nelements, iters=iters, dtype=dtype),
+        sizes=dict(nelements=nelements, iters=iters))
+
+
+FLOPS_MADD = Generator(
+    "flops_madd_pattern",
+    frozenset({"flops_madd_pattern", "flops"}),
+    arg_space=dict(
+        nelements=(4096, 16384, 65536),
+        iters=(64, 128, 256, 512),
+        dtype=("float32", "bfloat16"),
+    ),
+    build=_build_madd,
+)
+
+
+# ---- flops_dot_pattern: contraction madd throughput ------------------------
+
+
+def _build_dot(*, n_dot: int, iters: int, dtype: str) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+
+    def fn(z, w):
+        c = z
+        for _ in counted_range(iters):
+            # renormalize cheaply to avoid overflow across iterations
+            c = (c @ w) * 0.999
+        return c
+
+    def make_args(device):
+        z = _randn((n_dot, n_dot), 1, device, torch.float32)
+        w = _randn((n_dot, n_dot), 2, device, torch.float32)
+        if w.device.type != "meta":
+            w = w / torch.linalg.vector_norm(w, dim=0, keepdim=True)
+        return z.to(dt), w.to(dt)
+
+    return MeasurementKernel(
+        name=f"dotflops_n{n_dot}_i{iters}_{dtype}",
+        fn=fn, make_args=make_args,
+        tags=dict(n_dot=n_dot, iters=iters, dtype=dtype),
+        sizes=dict(n_dot=n_dot, iters=iters))
+
+
+FLOPS_DOT = Generator(
+    "flops_dot_pattern",
+    frozenset({"flops_dot_pattern", "flops"}),
+    arg_space=dict(
+        n_dot=(128, 256, 384),
+        iters=(16, 64, 128),
+        dtype=("float32", "bfloat16"),
+    ),
+    build=_build_dot,
+)
+
+
+# ---- mem_stream: global-memory access patterns ------------------------------
+
+
+def _build_stream(*, nelements: int, pattern: str, n_arrays: int,
+                  dtype: str) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+    side = int(np.sqrt(nelements))
+    shape: Tuple[int, ...] = (nelements,)
+
+    if pattern == "contig":
+        def fn(*arrs):
+            out = arrs[0]
+            for a in arrs[1:]:
+                out = out + a
+            return out
+    elif pattern == "strided":
+        shape = (side, side)
+
+        def fn(*arrs):
+            out = arrs[0].T
+            for a in arrs[1:]:
+                out = out + a.T   # transposed read
+            # a transpose is a view in PyTorch: materialize it, as XLA does
+            return out.contiguous()
+    elif pattern == "gather":
+        def fn(idx, *arrs):
+            out = arrs[0][idx]
+            for a in arrs[1:]:
+                out = out + a[idx]
+            return out
+    elif pattern == "shift":
+        # rolled access (the reference's jnp.roll)
+        def fn(*arrs):
+            out = torch.roll(arrs[0], 1)
+            for a in arrs[1:]:
+                out = out + torch.roll(a, 1)
+            return out
+    else:
+        raise _SkipVariant
+
+    def make_args(device):
+        arrs = tuple(_randn(shape, i, device, dt) for i in range(n_arrays))
+        if pattern != "gather":
+            return arrs
+        dev = torch.device(device)
+        if dev.type == "meta":
+            idx = torch.empty((nelements,), dtype=torch.int64, device=dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(9)
+            idx = torch.randint(0, nelements, (nelements,), generator=g,
+                                device=dev)
+        return (idx,) + arrs
+
+    return MeasurementKernel(
+        name=f"stream_{pattern}_n{nelements}_a{n_arrays}_{dtype}",
+        fn=fn, make_args=make_args,
+        tags=dict(nelements=nelements, pattern=pattern, n_arrays=n_arrays,
+                  dtype=dtype),
+        sizes=dict(nelements=nelements))
+
+
+MEM_STREAM = Generator(
+    "mem_stream",
+    frozenset({"mem_stream", "gmem"}),
+    arg_space=dict(
+        nelements=(262144, 1048576, 4194304, 16777216),
+        pattern=("contig", "strided", "gather", "shift"),
+        n_arrays=(1, 2, 4),
+        dtype=("float32", "bfloat16"),
+    ),
+    build=_build_stream,
+)
+
+
+# ---- empty / launch-overhead kernel ----------------------------------------
+
+
+def _build_empty(*, nelements: int) -> MeasurementKernel:
+    def fn(x):
+        return x
+
+    def make_args(device):
+        return (torch.zeros((nelements,), dtype=torch.float32,
+                            device=device),)
+
+    return MeasurementKernel(
+        name=f"empty_n{nelements}", fn=fn, make_args=make_args,
+        tags=dict(nelements=nelements), sizes=dict(nelements=nelements))
+
+
+EMPTY = Generator(
+    "empty_kernel",
+    frozenset({"empty_kernel", "launch"}),
+    arg_space=dict(nelements=(16, 1024, 65536)),
+    build=_build_empty,
+)
+
+
+ALL_GENERATORS: List[Generator] = [
+    MATMUL_SQ, FLOPS_MADD, FLOPS_DOT, MEM_STREAM, EMPTY,
+]

@@ -1,0 +1,125 @@
+"""Build the hand-written CUDA kernels into one shared library and bind
+them with :mod:`ctypes`.
+
+The sources under ``csrc/`` have a plain C interface (no PyTorch
+headers), so ``nvcc`` compiles each in seconds.  The build runs at first
+use, one ``nvcc`` per source started together, then one link, into
+``build/repro_torch_kernels/`` at the repository root.  The library's
+file name carries a hash of the sources and flags, so an edited source
+builds afresh and a finished library is reused.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises when that is not 0, since a
+refused launch (too many threads, too much shared memory) never runs and
+``torch.cuda.synchronize()`` would not report it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C entry point → argument types (pointers and the stream as c_void_p,
+#: so ctypes never truncates a 64-bit address to an int)
+SIGNATURES: Dict[str, List] = {
+    "repro_matmul_tiled_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_matmul_tiled_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_stencil5_f32": [_P, _P, _I, _I, _I, _I, _P],
+    "repro_dg_diff_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when the toolkit is absent."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA toolkit is needed to build the kernels")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:12]}.so"
+
+
+def build() -> Path:
+    """Compile the sources (in parallel) and link the shared library,
+    unless a library of these exact sources exists.  The compiler's
+    ``-Xptxas=-v`` report (registers, shared memory, spills per kernel)
+    is kept beside the library as ``ptxas.txt``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (name + ".o") for name in SOURCES]
+        procs = [subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        logs = []
+        for name, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        staged = Path(tmp) / lib.name
+        link = subprocess.run(
+            [compiler, *NVCC_FLAGS, "-shared", *map(str, objs),
+             "-o", str(staged)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (BUILD_DIR / "ptxas.txt").write_text("\n".join(logs))
+        os.replace(staged, lib)   # atomic: concurrent builders never tear
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call), with every entry
+    point's ``argtypes``/``restype`` declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point; raise if its launch reported an error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+

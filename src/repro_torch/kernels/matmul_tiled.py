@@ -1,0 +1,62 @@
+"""Tiled matrix product on Hopper — the counterpart of
+``repro.kernels.matmul_tiled`` (TPU kernel ``_matmul_kernel``).
+
+``repro_torch::matmul_tiled`` launches ``csrc/matmul_tiled.cu`` for CUDA
+tensors and runs the plain version for CPU tensors; the block sizes are
+the output tile each CUDA block owns and the k-panel it walks, the same
+tiling the cost rule (:mod:`repro_torch.analysis.kernelcost`) reports.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import matmul_ref
+
+#: launches of the CUDA kernel in this process (the wrapper adds one per
+#: launch; callers reset it to 0 to count one run)
+launches = 0
+
+#: output sub-tile a CUDA block loops over (kTileM, kTileN in the source)
+SUBTILE = (128, 128)
+
+_ENTRY = {torch.float32: "repro_matmul_tiled_f32",
+          torch.bfloat16: "repro_matmul_tiled_bf16"}
+
+
+@torch.library.custom_op("repro_torch::matmul_tiled", mutates_args=(),
+                         device_types="cpu")
+def matmul_tiled(a: torch.Tensor, b: torch.Tensor, block_m: int,
+                 block_n: int, block_k: int) -> torch.Tensor:
+    """a[M, K] @ b[K, N] → [M, N]; on the CPU the plain version (the
+    tiling does not change the result)."""
+    return matmul_ref(a, b)
+
+
+@matmul_tiled.register_kernel("cuda")
+def _matmul_tiled_cuda(a, b, block_m, block_n, block_k):
+    global launches
+    (m, k), (k2, n) = a.shape, b.shape
+    if a.dtype not in _ENTRY or b.dtype != a.dtype:
+        raise TypeError(f"matmul_tiled takes float32 or bfloat16 operands "
+                        f"of one dtype, got {a.dtype} and {b.dtype}")
+    if k != k2 or m % block_m or n % block_n or k % block_k:
+        raise ValueError(f"matmul_tiled: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} do not tile by "
+                         f"({block_m}, {block_n}, {block_k})")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul_tiled takes contiguous operands")
+    if b.device != a.device:
+        raise ValueError("matmul_tiled operands must share one device")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        _build.launch(_ENTRY[a.dtype], a.data_ptr(), b.data_ptr(),
+                      out.data_ptr(), m, n, k, block_m, block_n, block_k,
+                      torch.cuda.current_stream().cuda_stream)
+    launches += 1
+    return out
+
+
+@matmul_tiled.register_fake
+def _matmul_tiled_fake(a, b, block_m, block_n, block_k):
+    return a.new_empty((a.shape[0], b.shape[1]))

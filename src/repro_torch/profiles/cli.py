@@ -1,0 +1,236 @@
+"""``python -m repro_torch.calibrate`` — the once-per-machine calibration
+CLI; the counterpart of ``repro.profiles.cli``.
+
+Default command: UIPiCK filter tags → measurement kernels → feature
+table (counted on ``meta`` tensors, timed on ``--device``) →
+Levenberg-Marquardt fit → atomic profile save.
+
+Subcommand:
+
+    predict  profile + kernels (UIPiCK ``--tags`` and/or built-in
+             ``--kernel`` targets) → runtime predictions with the
+             cost-explanatory breakdown; zero kernel timings
+
+Examples::
+
+    # the default battery on the card, 8 trials per kernel
+    python -m repro_torch.calibrate --out machine_profile.json
+
+    # price the §8 hand kernels from it, without running them
+    python -m repro_torch.calibrate predict machine_profile.json \\
+        --kernel kernels.ops.matmul --kernel kernels.ops.stencil5 \\
+        --kernel kernels.ops.dg_diff --explain 3 --expect-zero-timings
+
+The reference's ``compare``, ``merge`` and ``gc`` subcommands and its
+``--zoo``, ``--cache-dir`` and ``--synthetic`` options are not ported
+yet (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import sys
+from pathlib import Path
+from typing import List, Optional
+
+from repro_torch.core.calibrate import fit_model
+from repro_torch.core.model import Model
+from repro_torch.core.uipick import (
+    ALL_GENERATORS,
+    CountingTimer,
+    KernelCollection,
+    MatchCondition,
+    default_timer,
+    gather_feature_table,
+)
+from repro_torch.device import resolve_device
+from repro_torch.profiles.fingerprint import DeviceFingerprint
+from repro_torch.profiles.presets import (
+    BASE_MODEL_EXPR,
+    CALIBRATION_TAGS,
+    DEFAULT_OUTPUT_FEATURE,
+    SMOKE_MODEL_EXPR,
+    SMOKE_TAGS,
+)
+from repro_torch.profiles.profile import (
+    MachineProfile,
+    ModelFit,
+    ProfileError,
+    save_profile,
+)
+
+_MATCH = {c.name.lower(): c for c in MatchCondition}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.calibrate",
+        description="Calibrate this machine's black-box cost model and "
+                    "save a reusable profile.  Subcommand: predict (see "
+                    "module docstring).")
+    ap.add_argument("--out", default="machine_profile.json",
+                    help="profile JSON destination (atomic write)")
+    ap.add_argument("--tags", nargs="+", default=None,
+                    help="UIPiCK filter tags (default: the full "
+                         "calibration battery)")
+    ap.add_argument("--match", choices=sorted(_MATCH), default="intersect",
+                    help="generator tag match condition (paper §7.1)")
+    ap.add_argument("--expr", default=None,
+                    help="model expression to calibrate "
+                         "(default: the base linear model)")
+    ap.add_argument("--output-feature", default=DEFAULT_OUTPUT_FEATURE,
+                    help="measured output feature id")
+    ap.add_argument("--name", default="base",
+                    help="name of the fit inside the profile")
+    ap.add_argument("--trials", type=int, default=8,
+                    help="timing trials per measurement kernel")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the tiny smoke battery + 2-parameter model")
+    ap.add_argument("--device", default="cuda",
+                    help="device to time the battery on (default cuda; "
+                         "'cpu' times the host)")
+    return ap
+
+
+def _calibrate(argv: Optional[List[str]]) -> int:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    fingerprint = DeviceFingerprint.local(device)
+    timer = CountingTimer(functools.partial(default_timer, device=device))
+    expr = args.expr or (SMOKE_MODEL_EXPR if args.smoke else BASE_MODEL_EXPR)
+    tags = args.tags or (SMOKE_TAGS if args.smoke else CALIBRATION_TAGS)
+    model = Model(args.output_feature, expr)
+    kernels = KernelCollection(ALL_GENERATORS).generate_kernels(
+        tags, generator_match_cond=_MATCH[args.match])
+    if not kernels:
+        print(f"no measurement kernels match tags {tags!r}", file=sys.stderr)
+        return 2
+    print(f"[calibrate] device={fingerprint.id} kernels={len(kernels)} "
+          f"trials={args.trials}")
+    table = gather_feature_table(model.all_features(), kernels,
+                                 trials=args.trials, timer=timer)
+    fit = fit_model(model, table, nonneg=True)
+    profile = MachineProfile(
+        fingerprint=fingerprint,
+        fits={args.name: ModelFit.from_fit(model, fit)},
+        trials=args.trials,
+        kernel_names=[k.name for k in kernels])
+    save_profile(profile, args.out)
+    print(f"[calibrate] fit residual={fit.residual_norm:.6g} "
+          f"converged={fit.converged} iterations={fit.iterations} "
+          f"params={fit.params}")
+    print(f"[calibrate] timings_performed={timer.calls}")
+    print(f"[calibrate] profile -> {args.out}")
+    return 0
+
+
+def _cmd_predict(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.calibrate predict",
+        description="Predict (and explain) kernel runtimes from a saved "
+                    "machine profile; features are counted on fake "
+                    "tensors, so no kernel runs and none is timed.")
+    ap.add_argument("profile", help="machine-profile JSON path")
+    ap.add_argument("--tags", nargs="+", default=None,
+                    help="UIPiCK filter tags selecting kernels to predict")
+    ap.add_argument("--kernel", action="append", default=[],
+                    metavar="NAME",
+                    help="built-in hand-kernel target (repeatable; e.g. "
+                         "kernels.ops.matmul — see "
+                         "repro_torch.analysis.targets), priced by its "
+                         "cost rule, never executed")
+    ap.add_argument("--match", choices=sorted(_MATCH), default="intersect",
+                    help="generator tag match condition")
+    ap.add_argument("--model", default=None,
+                    help="fit name inside the profile (default: "
+                         "ovl_flop_mem, or the profile's only fit)")
+    ap.add_argument("--json", dest="json_out", default=None,
+                    help="write predictions (with breakdowns) as JSON")
+    ap.add_argument("--explain", type=int, default=0, metavar="N",
+                    help="print the top-N breakdown terms per kernel")
+    ap.add_argument("--strict-scope", action="store_true",
+                    help="error on kernels whose counted work the model "
+                         "has no term for")
+    ap.add_argument("--expect-zero-timings", action="store_true",
+                    help="exit 1 if any kernel timing pass ran")
+    ap.add_argument("--device", default="cuda",
+                    help="this machine's device, reported beside the "
+                         "profile's fingerprint (default cuda)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.api import PerfSession, PredictionError
+    local = DeviceFingerprint.local(args.device)
+    try:
+        session = PerfSession.open(args.profile)
+    except ProfileError as e:
+        print(f"[predict] {e}", file=sys.stderr)
+        return 3
+    print(f"[predict] profile={session.profile.fingerprint.id} "
+          f"local={local.id}")
+    items: List = []
+    names: List[str] = []
+    if args.tags:
+        kernels = KernelCollection(ALL_GENERATORS).generate_kernels(
+            args.tags, generator_match_cond=_MATCH[args.match])
+        if not kernels:
+            print(f"[predict] no measurement kernels match tags "
+                  f"{args.tags!r}", file=sys.stderr)
+            return 2
+        items.extend(kernels)
+        names.extend(k.name for k in kernels)
+    if args.kernel:
+        from repro_torch.analysis.targets import kernel_targets
+        targets = {t.name: t for t in kernel_targets()}
+        for name in args.kernel:
+            t = targets.get(name)
+            if t is None:
+                print(f"[predict] unknown --kernel {name!r}; built-in "
+                      f"targets: {', '.join(sorted(targets))}",
+                      file=sys.stderr)
+                return 2
+            items.append((t.fn, t.args))
+            names.append(t.name)
+    if not items:
+        print("[predict] nothing to predict: pass --tags and/or --kernel",
+              file=sys.stderr)
+        return 2
+    try:
+        preds = session.predict_batch(items, model=args.model, names=names,
+                                      strict=args.strict_scope)
+    except PredictionError as e:
+        print(f"[predict] {e}", file=sys.stderr)
+        return 3
+    for p in preds:
+        if args.explain:
+            print(p.explain(top=args.explain))
+        else:
+            print(f"[predict] {p.kernel}: {p.seconds:.6g} s")
+    if args.json_out:
+        payload = {
+            "fingerprint": session.profile.fingerprint.id,
+            "model": preds[0].model,
+            "predictions": [p.to_dict() for p in preds],
+        }
+        Path(args.json_out).write_text(
+            json.dumps(payload, indent=2, sort_keys=True))
+        print(f"[predict] json -> {args.json_out}")
+    print(f"[predict] kernels={len(preds)} model={preds[0].model}")
+    print(f"[predict] timings_performed={session.timer.calls} "
+          f"batched_evals={session.eval_calls}")
+    if args.expect_zero_timings and session.timer.calls:
+        print(f"[predict] FAIL: prediction must never time kernels but "
+              f"{session.timer.calls} timing passes ran", file=sys.stderr)
+        return 1
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "predict":
+        return _cmd_predict(argv[1:])
+    return _calibrate(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
