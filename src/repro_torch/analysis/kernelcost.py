@@ -132,6 +132,44 @@ def dg_diff_cost(diff_mat: torch.Tensor, ut: torch.Tensor,
     return c
 
 
+def stream_strided_cost(arrays: Sequence[torch.Tensor], block: int,
+                        stride: int) -> FeatureCounts:
+    """Grid (n_out,); every input's block at i·stride, the output's at i;
+    the body sums the inputs into an f32 accumulator seeded with the
+    first, n_arrays − 1 adds per output element."""
+    (s,) = arrays[0].shape
+    n_out = s // (block * stride)
+    grid = (n_out,)
+    c = FeatureCounts()
+    c.add("f_op_float32_add", (len(arrays) - 1) * n_out * block)
+    for a in arrays:
+        _traffic(c, "in", a.dtype, block, block_fetches(grid, (0,)))
+    _traffic(c, "out", arrays[0].dtype, block, block_fetches(grid, (0,)))
+    c.add("f_sync_grid_programs", n_out)
+    return c
+
+
+def madd_throughput_cost(x: torch.Tensor, iters: int, block: int,
+                         a: float, b: float) -> FeatureCounts:
+    """Grid (S/block,); x and out blocks at i.  Per element: 8 seeds
+    ``x + i``, 8·iters steps of ``y·a + b`` (a mul and an add each, as
+    the reference counts them) and 7 adds to sum the chains; each
+    program runs the ``iters``-step loop once."""
+    (s,) = x.shape
+    dt = dtype_name(x.dtype)
+    grid = (s // block,)
+    c = FeatureCounts()
+    c.add(f"f_op_{dt}_mul", 8 * iters * s)
+    c.add(f"f_op_{dt}_add", (8 * iters + 8 + 7) * s)
+    _traffic(c, "in", x.dtype, block, block_fetches(grid, (0,)))
+    _traffic(c, "out", x.dtype, block, block_fetches(grid, (0,)))
+    c.add("f_sync_loop_steps", iters * grid[0])
+    c.add("f_sync_grid_programs", grid[0])
+    return c
+
+
 register_op_cost_rule("repro_torch::matmul_tiled", matmul_tiled_cost)
 register_op_cost_rule("repro_torch::stencil5", stencil5_cost)
 register_op_cost_rule("repro_torch::dg_diff", dg_diff_cost)
+register_op_cost_rule("repro_torch::stream_strided", stream_strided_cost)
+register_op_cost_rule("repro_torch::madd_throughput", madd_throughput_cost)

@@ -45,4 +45,12 @@ def kernel_targets() -> List[KernelTarget]:
             "kernels.ops.dg_diff",
             functools.partial(ops.dg_diff, block_e=256),
             (f32(3, 64, 64), f32(64, 1024))),
+        KernelTarget(
+            "kernels.ops.stream_strided",
+            functools.partial(ops.stream_strided, block=256, stride=2),
+            ([f32(8192), f32(8192)],)),
+        KernelTarget(
+            "kernels.ops.madd_throughput",
+            functools.partial(ops.madd_throughput, iters=32, block=1024),
+            (f32(4096),)),
     ]

@@ -16,14 +16,25 @@ times a kernel: counts come from :func:`repro_torch.core.counting.count_fn`
 """
 from __future__ import annotations
 
+import functools
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.api.engine import DEFAULT_MODEL, PredictEngine
 from repro_torch.api.prediction import Prediction
 from repro_torch.core.counting import FeatureCounts, count_fn
-from repro_torch.core.uipick import CountingTimer, MeasurementKernel
-from repro_torch.profiles.profile import MachineProfile, load_profile
+from repro_torch.core.uipick import (
+    CountingTimer,
+    MeasurementKernel,
+    default_timer,
+)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.profiles.fingerprint import DeviceFingerprint
+from repro_torch.profiles.profile import (
+    MachineProfile,
+    load_profile,
+    save_profile,
+)
 
 __all__ = ["DEFAULT_MODEL", "PerfSession", "PredictItem"]
 
@@ -38,7 +49,8 @@ class PerfSession:
     def __init__(self, profile: MachineProfile, *,
                  timer: Optional[CountingTimer] = None):
         self.profile = profile
-        # the timing seam; prediction must leave .calls at 0
+        # the timing seam; prediction must leave .calls where opening
+        # left it
         self.timer = timer if timer is not None else CountingTimer()
         self.predict_engine = PredictEngine(profile)
 
@@ -47,23 +59,54 @@ class PerfSession:
         return self.predict_engine.eval_calls
 
     @classmethod
-    def open(cls, source: Union[None, str, Path, MachineProfile]
-             ) -> "PerfSession":
-        """Open a session from a profile path or a :class:`MachineProfile`
-        (zero measurements).  ``None`` — calibrate this machine through
-        the model-zoo study — is not ported yet."""
+    def open(cls, source: Union[None, str, Path, MachineProfile, Any] = None,
+             *, tags: Optional[Sequence[str]] = None, trials: int = 8,
+             holdout_fraction: float = 0.25,
+             timer: Optional[Callable] = None,
+             device: DeviceLike = "cuda",
+             save_to: Union[None, str, Path] = None) -> "PerfSession":
+        """Open a prediction session.  ``source`` selects where the fitted
+        models come from:
+
+        * a **path** or a :class:`MachineProfile` — zero measurements;
+        * ``None`` — calibrate THIS machine on demand: the model-zoo study
+          (:func:`repro_torch.studies.run_study`: gather ``tags``, default
+          ``STUDY_TAGS``, fit the zoo, keep a holdout) timed on
+          ``device``, or through ``timer(kernel, trials)`` when one is
+          given (the fingerprint is then still ``device``'s);
+        * a **device object** with ``.fingerprint`` and ``.timer`` (a
+          :class:`~repro_torch.testing.synthdev.SyntheticDevice`) —
+          calibrate that device through its timer.
+
+        ``save_to`` keeps an on-demand calibration as a profile file.
+        The session's ``timer`` is the calibration's: its ``calls`` count
+        the study's timings, and prediction adds none."""
         if isinstance(source, MachineProfile):
             return cls(source)
         if isinstance(source, (str, Path)):
             return cls(load_profile(source))
+        from repro_torch.studies.study import run_study
+        from repro_torch.studies.zoo import STUDY_TAGS
+
         if source is None:
-            raise NotImplementedError(
-                "PerfSession.open(None) runs the model-zoo calibration "
-                "study, which the port does not have yet (ROADMAP.md queue "
-                "A item 10, studies); calibrate with `python -m "
-                "repro_torch.calibrate` and open the saved profile")
-        raise TypeError(f"PerfSession.open expects a profile path or a "
-                        f"MachineProfile, got {type(source).__name__}")
+            fingerprint = DeviceFingerprint.local(device)
+            base = timer or functools.partial(default_timer,
+                                              device=resolve_device(device))
+        elif hasattr(source, "fingerprint") and hasattr(source, "timer"):
+            fingerprint = source.fingerprint
+            base = timer or source.timer
+        else:
+            raise TypeError(
+                f"PerfSession.open expects a profile path, a "
+                f"MachineProfile, a device with .fingerprint/.timer, or "
+                f"None (this machine); got {type(source).__name__}")
+        counting = CountingTimer(base)
+        profile = run_study(fingerprint=fingerprint, timer=counting,
+                            tags=tags or STUDY_TAGS, trials=trials,
+                            holdout_fraction=holdout_fraction)
+        if save_to is not None:
+            save_profile(profile, save_to)
+        return cls(profile, timer=counting)
 
     def predict(self, fn: PredictItem, *args,
                 model: Optional[str] = None, name: Optional[str] = None,

@@ -180,6 +180,41 @@ def fit_model(
         iterations=int(it[best]), converged=bool(conv[best]))
 
 
+def fit_models(
+    models: Mapping[str, Model],
+    feature_table: FeatureTableLike,
+    *,
+    scale_by_output: bool = True,
+    nonneg: Optional[Mapping[str, bool]] = None,
+    seeds: int = 3,
+    warm_start: bool = True,
+    **solver_opts,
+) -> Dict[str, FitResult]:
+    """Fit several named models over ONE feature table (the paper's
+    one-battery-many-fits workflow).  With ``warm_start`` the fits chain
+    in ``models`` order: each model's nominal start takes the values
+    earlier (narrower-scope) fits recovered for the parameters they
+    share, so a nonlinear form only refines what a linear one found.
+    Order ``models`` narrowest first (the zoo's order).  ``nonneg`` maps
+    model name → nonnegativity constraint (default True)."""
+    table = as_feature_table(feature_table)
+    nonneg = dict(nonneg or {})
+    fits: Dict[str, FitResult] = {}
+    ladder: Dict[str, float] = {}
+    for name, model in models.items():
+        p0 = {n: ladder[n] for n in model.param_names if n in ladder} \
+            if warm_start and ladder else None
+        fit = fit_model(model, table, scale_by_output=scale_by_output,
+                        nonneg=nonneg.get(name, True), seeds=seeds,
+                        p0=p0, **solver_opts)
+        fits[name] = fit
+        # carry only positive estimates forward: a rate clamped to 0 by a
+        # narrow model is a worse start (and a degenerate scale) than an
+        # earlier model's coarse positive estimate
+        ladder.update({k: v for k, v in fit.params.items() if v > 0})
+    return fits
+
+
 def relative_errors(model: Model, params: Mapping[str, float],
                     table: FeatureTableLike) -> Dict[str, float]:
     """Per-row |pred − meas| / meas against the table's measured output

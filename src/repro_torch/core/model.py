@@ -293,6 +293,19 @@ class Model:
                    {**_FUNCS, **self._env(p_vec, features)})
         return _rows(out, features.shape[0])
 
+    def param_feature_map(self) -> Dict[str, List[str]]:
+        """Parameter name → the sorted features appearing in the same
+        top-level additive terms (the identifiability analysis names the
+        features behind a collinear pair with it)."""
+        out: Dict[str, set] = {p: set() for p in self.param_names}
+        for _sign, node in _signed_terms(self._tree.body):
+            names = {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
+            feats = {n for n in names if n.startswith("f_")}
+            for p in names:
+                if p.startswith("p_"):
+                    out[p] |= feats
+        return {p: sorted(fs) for p, fs in out.items()}
+
     def param_jacobian(self, p_vec, features) -> np.ndarray:
         """``∂ prediction / ∂ parameters``, ``[n_rows, n_params]`` float64
         — the least-squares design matrix linearized at ``p_vec``."""

@@ -9,9 +9,11 @@ the reference's, so the same tags select the same battery on both sides.
 
 A :class:`MeasurementKernel` is an eager PyTorch callable plus an
 argument builder ``make_args(device)``.  It is (a) *timed* on a device —
-with CUDA events around each call on the card, ``perf_counter`` for CPU
-tensors — and (b) *counted* by :mod:`repro_torch.core.counting` on
-``meta`` arguments, so counting allocates and runs nothing.
+on the card as one captured CUDA graph replayed between CUDA events (one
+dispatch per call, as the reference times one jitted executable),
+``perf_counter`` around eager calls for CPU tensors — and (b)
+*counted* by :mod:`repro_torch.core.counting` on ``meta`` arguments, so
+counting allocates and runs nothing.
 
 Ported so far: the five generators the default and smoke batteries
 select (``matmul_sq``, ``flops_madd_pattern``, ``flops_dot_pattern``,
@@ -23,6 +25,7 @@ import enum
 import hashlib
 import itertools
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, FrozenSet, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -84,28 +87,63 @@ class MeasurementKernel:
             self._counts = count_fn(self.fn, *self.make_args("meta"))
         return self._counts
 
+    def capture(self, args: tuple, *, warmup: int = 3
+                ) -> Tuple["torch.cuda.CUDAGraph", Any]:
+        """``self.fn(*args)`` on CUDA tensors, captured once into a CUDA
+        graph after ``warmup`` eager calls on a side stream; returns the
+        graph and the output it writes on each replay.  A kernel that
+        cannot be captured raises, naming the kernel."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                self.fn(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with warnings.catch_warnings():
+                # empty_kernel launches nothing: its graph is empty by design
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                with torch.cuda.graph(graph):
+                    out = self.fn(*args)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"measurement kernel {self.name!r} cannot be captured in a "
+                f"CUDA graph, so it cannot be timed as one dispatch: "
+                f"{e}") from e
+        return graph, out
+
     def time_stats(self, *, trials: int = 20, warmup: int = 3,
                    device: DeviceLike = "cuda") -> TimingStats:
         """Seconds per call on ``device``, median/std/min over ``trials``
-        calls after ``warmup`` calls.  On the card each call sits between
-        two CUDA events, so a time is the device's span from the first
-        launch to the last, gaps between launches included."""
+        calls after ``warmup`` calls.  On the card the kernel is captured
+        once into a CUDA graph and each trial is one ``replay()`` between
+        two CUDA events — one dispatch per call, as the reference times
+        one jitted executable; the graph and its memory pool are released
+        before returning."""
         dev = resolve_device(device)
         args = self.make_args(dev)
-        for _ in range(warmup):
-            self.fn(*args)
         ts = []
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            for _ in range(trials):
-                start.record()
-                self.fn(*args)
-                end.record()
-                end.synchronize()
-                ts.append(start.elapsed_time(end) * 1e-3)
+            with torch.cuda.device(dev):
+                graph, out = self.capture(args, warmup=warmup)
+                graph.replay()      # the first replay uploads the graph
+                torch.cuda.synchronize(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                for _ in range(trials):
+                    start.record()
+                    graph.replay()
+                    end.record()
+                    end.synchronize()
+                    ts.append(start.elapsed_time(end) * 1e-3)
+                del out
+                graph.reset()
+                del graph, args
+                torch.cuda.empty_cache()
         else:
+            for _ in range(warmup):
+                self.fn(*args)
             for _ in range(trials):
                 t0 = time.perf_counter()
                 self.fn(*args)

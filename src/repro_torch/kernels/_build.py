@@ -26,12 +26,13 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu")
+SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu",
+           "stream_strided.cu", "madd_throughput.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point → argument types (pointers and the stream as c_void_p,
 #: so ctypes never truncates a 64-bit address to an int)
 SIGNATURES: Dict[str, List] = {
@@ -39,6 +40,10 @@ SIGNATURES: Dict[str, List] = {
     "repro_matmul_tiled_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_stencil5_f32": [_P, _P, _I, _I, _I, _I, _P],
     "repro_dg_diff_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # a host array of input pointers, then n_arrays
+    "repro_stream_strided_f32": [ctypes.POINTER(_P), _I, _P, _I, _I, _I, _I,
+                                 _P],
+    "repro_madd_throughput_f32": [_P, _P, _I, _I, _F, _F, _P],
 }
 
 

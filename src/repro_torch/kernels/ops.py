@@ -10,10 +10,13 @@ custom op and prices it with its cost rule instead of running it.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from repro_torch.kernels import dg_diff as _dg
 from repro_torch.kernels import matmul_tiled as _mm
+from repro_torch.kernels import microbench as _mb
 from repro_torch.kernels import stencil5 as _st
 
 
@@ -46,3 +49,23 @@ def dg_diff(diff_mat: torch.Tensor, ut: torch.Tensor, *,
     if k % be:
         raise ValueError(f"dg_diff: K={k} does not tile by block_e={be}")
     return _dg.dg_diff(diff_mat, ut, be)
+
+
+def stream_strided(arrays: Sequence[torch.Tensor], *, block: int = 512,
+                   stride: int = 1) -> torch.Tensor:
+    (s,) = arrays[0].shape
+    n_out = s // (block * stride)
+    if n_out * block * stride != s:
+        raise ValueError(f"stream_strided: S={s} is not n_out·block·stride "
+                         f"for block={block}, stride={stride}")
+    return _mb.stream_strided(list(arrays), block, stride)
+
+
+def madd_throughput(x: torch.Tensor, *, iters: int = 256, block: int = 2048,
+                    a: float = 1.000001, b: float = 1e-7) -> torch.Tensor:
+    (s,) = x.shape
+    blk = min(block, s)
+    if s % blk:
+        raise ValueError(f"madd_throughput: S={s} does not tile by "
+                         f"block={blk}")
+    return _mb.madd_throughput(x, iters, blk, a, b)

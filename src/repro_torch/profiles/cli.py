@@ -3,27 +3,40 @@ CLI; the counterpart of ``repro.profiles.cli``.
 
 Default command: UIPiCK filter tags → measurement kernels → feature
 table (counted on ``meta`` tensors, timed on ``--device``) →
-Levenberg-Marquardt fit → atomic profile save.
+Levenberg-Marquardt fit → atomic profile save.  ``--zoo`` fits the whole
+model-zoo scope ladder over one battery with a held-out split (the
+cross-machine study artifact); ``--synthetic`` calibrates a synthetic
+ground-truth device instead of real hardware.
 
-Subcommand:
+Subcommands:
 
     predict  profile + kernels (UIPiCK ``--tags`` and/or built-in
              ``--kernel`` targets) → runtime predictions with the
              cost-explanatory breakdown; zero kernel timings
+    compare  ≥2 study profiles → per-model × per-variant held-out
+             relative-error report (markdown + JSON); ``--sweep`` adds
+             the per-zoo-rank accuracy/scope curve
 
 Examples::
 
     # the default battery on the card, 8 trials per kernel
     python -m repro_torch.calibrate --out machine_profile.json
 
-    # price the §8 hand kernels from it, without running them
+    # price the hand kernels from it, without running them
     python -m repro_torch.calibrate predict machine_profile.json \\
-        --kernel kernels.ops.matmul --kernel kernels.ops.stencil5 \\
-        --kernel kernels.ops.dg_diff --explain 3 --expect-zero-timings
+        --kernel kernels.ops.matmul --kernel kernels.ops.stream_strided \\
+        --explain 3 --expect-zero-timings
 
-The reference's ``compare``, ``merge`` and ``gc`` subcommands and its
-``--zoo``, ``--cache-dir`` and ``--synthetic`` options are not ported
-yet (ROADMAP.md queue A).
+    # the zoo study on the card and on a synthetic device, compared
+    python -m repro_torch.calibrate --zoo --out h100.json
+    python -m repro_torch.calibrate --zoo --synthetic apex --out apex.json
+    python -m repro_torch.calibrate compare h100.json apex.json --sweep
+    python -m repro_torch.calibrate predict h100.json --model lin_flop \\
+        --kernel kernels.ops.madd_throughput
+
+The reference's ``merge`` and ``gc`` subcommands and its
+``--cache-dir`` and ``--retime-rel-std`` options are not ported yet
+(ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -87,39 +100,105 @@ def build_parser() -> argparse.ArgumentParser:
                     help="timing trials per measurement kernel")
     ap.add_argument("--smoke", action="store_true",
                     help="use the tiny smoke battery + 2-parameter model")
+    ap.add_argument("--zoo", action="store_true",
+                    help="fit the whole model zoo over one battery with a "
+                         "held-out split (cross-machine study artifact)")
+    ap.add_argument("--holdout-fraction", type=float, default=0.25,
+                    help="held-out fraction of the battery (with --zoo)")
+    ap.add_argument("--synthetic", default=None, metavar="DEVICE",
+                    help="calibrate a synthetic ground-truth device "
+                         "(apex/bulk/citra) instead of real hardware")
+    ap.add_argument("--synthetic-noise", type=float, default=0.0,
+                    help="relative timing noise of the synthetic device")
+    ap.add_argument("--force", action="store_true",
+                    help="with --zoo: fit even when the static "
+                         "identifiability analysis finds zoo rungs the "
+                         "battery cannot determine")
     ap.add_argument("--device", default="cuda",
                     help="device to time the battery on (default cuda; "
                          "'cpu' times the host)")
     return ap
 
 
+def _noise_line(table) -> str:
+    s = table.noise_summary()
+    if not s:
+        return "wall-clock noise: n/a (no spread metadata)"
+    return (f"wall-clock noise: max rel std {s['max_rel_std'] * 100:.2f}% "
+            f"median {s['median_rel_std'] * 100:.2f}% "
+            f"over {int(s['rows'])} rows")
+
+
 def _calibrate(argv: Optional[List[str]]) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    fingerprint = DeviceFingerprint.local(device)
-    timer = CountingTimer(functools.partial(default_timer, device=device))
-    expr = args.expr or (SMOKE_MODEL_EXPR if args.smoke else BASE_MODEL_EXPR)
-    tags = args.tags or (SMOKE_TAGS if args.smoke else CALIBRATION_TAGS)
-    model = Model(args.output_feature, expr)
-    kernels = KernelCollection(ALL_GENERATORS).generate_kernels(
-        tags, generator_match_cond=_MATCH[args.match])
-    if not kernels:
-        print(f"no measurement kernels match tags {tags!r}", file=sys.stderr)
-        return 2
-    print(f"[calibrate] device={fingerprint.id} kernels={len(kernels)} "
-          f"trials={args.trials}")
-    table = gather_feature_table(model.all_features(), kernels,
-                                 trials=args.trials, timer=timer)
-    fit = fit_model(model, table, nonneg=True)
-    profile = MachineProfile(
-        fingerprint=fingerprint,
-        fits={args.name: ModelFit.from_fit(model, fit)},
-        trials=args.trials,
-        kernel_names=[k.name for k in kernels])
-    save_profile(profile, args.out)
-    print(f"[calibrate] fit residual={fit.residual_norm:.6g} "
-          f"converged={fit.converged} iterations={fit.iterations} "
-          f"params={fit.params}")
+    if args.synthetic:
+        from repro_torch.testing.synthdev import fleet_device
+        try:
+            synth = fleet_device(args.synthetic, noise=args.synthetic_noise,
+                                 output_feature=args.output_feature)
+        except (KeyError, ValueError) as e:
+            print(f"[calibrate] {e.args[0]}", file=sys.stderr)
+            return 2
+        fingerprint = synth.fingerprint
+        # a synthetic device's counts are traced on meta tensors; nothing
+        # runs on --device
+        timer = CountingTimer(synth.timer)
+    else:
+        device = resolve_device(args.device)
+        fingerprint = DeviceFingerprint.local(device)
+        timer = CountingTimer(functools.partial(default_timer,
+                                                device=device))
+
+    if args.zoo:
+        from repro_torch.studies import (
+            MODEL_ZOO, STUDY_SMOKE_TAGS, STUDY_TAGS, StudyError, run_study,
+        )
+        tags = args.tags or (STUDY_SMOKE_TAGS if args.smoke else STUDY_TAGS)
+        print(f"[calibrate] device={fingerprint.id} zoo="
+              f"{[e.name for e in MODEL_ZOO]} trials={args.trials}")
+        try:
+            profile = run_study(
+                fingerprint=fingerprint, timer=timer, tags=tags,
+                output_feature=args.output_feature, trials=args.trials,
+                holdout_fraction=args.holdout_fraction,
+                match=_MATCH[args.match], force=args.force)
+        except StudyError as e:
+            print(f"[calibrate] {e}", file=sys.stderr)
+            return 2
+        save_profile(profile, args.out)
+        print(f"[calibrate] kernels={len(profile.kernel_names)} "
+              f"held-out={len(profile.holdout)}")
+        print(f"[calibrate] {_noise_line(profile.holdout)}")
+        for name, mf in sorted(profile.fits.items()):
+            print(f"[calibrate] fit {name}: residual="
+                  f"{mf.fit.residual_norm:.6g} converged="
+                  f"{mf.fit.converged} params={mf.params}")
+    else:
+        expr = args.expr or (SMOKE_MODEL_EXPR if args.smoke
+                             else BASE_MODEL_EXPR)
+        tags = args.tags or (SMOKE_TAGS if args.smoke else CALIBRATION_TAGS)
+        model = Model(args.output_feature, expr)
+        kernels = KernelCollection(ALL_GENERATORS).generate_kernels(
+            tags, generator_match_cond=_MATCH[args.match])
+        if not kernels:
+            print(f"no measurement kernels match tags {tags!r}",
+                  file=sys.stderr)
+            return 2
+        print(f"[calibrate] device={fingerprint.id} kernels={len(kernels)} "
+              f"trials={args.trials}")
+        table = gather_feature_table(model.all_features(), kernels,
+                                     trials=args.trials, timer=timer)
+        fit = fit_model(model, table, nonneg=True)
+        profile = MachineProfile(
+            fingerprint=fingerprint,
+            fits={args.name: ModelFit.from_fit(model, fit)},
+            trials=args.trials,
+            kernel_names=[k.name for k in kernels])
+        save_profile(profile, args.out)
+        print(f"[calibrate] {_noise_line(table)}")
+        print(f"[calibrate] fit residual={fit.residual_norm:.6g} "
+              f"converged={fit.converged} iterations={fit.iterations} "
+              f"params={fit.params}")
     print(f"[calibrate] timings_performed={timer.calls}")
     print(f"[calibrate] profile -> {args.out}")
     return 0
@@ -215,7 +294,10 @@ def _cmd_predict(argv: List[str]) -> int:
         Path(args.json_out).write_text(
             json.dumps(payload, indent=2, sort_keys=True))
         print(f"[predict] json -> {args.json_out}")
-    print(f"[predict] kernels={len(preds)} model={preds[0].model}")
+    gmre = preds[0].diagnostics.get("holdout_gmre")
+    print(f"[predict] kernels={len(preds)} model={preds[0].model} "
+          f"held-out gmre="
+          f"{'n/a' if gmre is None else f'{gmre * 100:.2f}%'}")
     print(f"[predict] timings_performed={session.timer.calls} "
           f"batched_evals={session.eval_calls}")
     if args.expect_zero_timings and session.timer.calls:
@@ -225,10 +307,76 @@ def _cmd_predict(argv: List[str]) -> int:
     return 0
 
 
+def _cmd_compare(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.calibrate compare",
+        description="Cross-machine accuracy report from ≥2 study profiles "
+                    "(per-model × per-kernel-variant held-out relative "
+                    "error).")
+    ap.add_argument("profiles", nargs="+", help="machine-profile JSON paths")
+    ap.add_argument("--report", default=None,
+                    help="markdown report destination (default: stdout)")
+    ap.add_argument("--json", dest="json_out", default=None,
+                    help="JSON report destination")
+    ap.add_argument("--sweep", action="store_true",
+                    help="append the scope-vs-accuracy curve (held-out "
+                         "gmre per zoo rank) to the report and JSON")
+    args = ap.parse_args(argv)
+
+    from repro_torch.profiles.profile import load_profile
+    from repro_torch.studies import (
+        StudyError,
+        compare_profiles,
+        scope_accuracy_sweep,
+        sweep_to_markdown,
+    )
+    try:
+        report = compare_profiles([load_profile(p) for p in args.profiles])
+    except (StudyError, ProfileError, ValueError) as e:
+        # ValueError: malformed holdout data (zero outputs, missing
+        # feature columns) surfaced by the accuracy evaluation
+        print(f"[compare] {e}", file=sys.stderr)
+        return 3
+    md = report.to_markdown()
+    sweep = None
+    if args.sweep:
+        sweep = scope_accuracy_sweep(report)
+        md = md + "\n" + sweep_to_markdown(sweep)
+    if args.report:
+        Path(args.report).write_text(md)
+        print(f"[compare] report -> {args.report}")
+    else:
+        print(md)
+    if args.json_out:
+        payload = report.to_json_dict()
+        if sweep is not None:
+            payload["sweep"] = sweep["sweep"]
+        Path(args.json_out).write_text(
+            json.dumps(payload, indent=2, sort_keys=True))
+        print(f"[compare] json -> {args.json_out}")
+    for fp in report.machines:
+        summary = " ".join(f"{m}={report.summary[fp][m] * 100:.2f}%"
+                           for m in report.model_names
+                           if m in report.summary[fp])
+        print(f"[compare] {fp}: {summary}")
+    if sweep is not None:
+        for row in sweep["sweep"]:
+            rank = row["scope_rank"]
+            fleet = row["fleet_gmre"]
+            print(f"[compare] sweep rank="
+                  f"{'-' if rank is None else rank} {row['model']} "
+                  f"params={row['n_params']} fleet gmre="
+                  f"{'n/a' if fleet is None else f'{fleet * 100:.2f}%'}")
+    return 0
+
+
+_SUBCOMMANDS = {"predict": _cmd_predict, "compare": _cmd_compare}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "predict":
-        return _cmd_predict(argv[1:])
+    if argv and argv[0] in _SUBCOMMANDS:
+        return _SUBCOMMANDS[argv[0]](argv[1:])
     return _calibrate(argv)
 
 

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import uipick as tuipick
 from repro_torch.kernels import matmul_tiled as tmm
+from repro_torch.kernels import microbench as tmb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -88,3 +90,75 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         tops.matmul(torch.ones(64, 128, device=cuda).T,
                     torch.ones(64, 64, device=cuda))
+    with pytest.raises(TypeError):
+        tops.madd_throughput(torch.ones(1024, dtype=torch.bfloat16,
+                                        device=cuda))
+    with pytest.raises(ValueError, match="1 to 8 inputs"):
+        tops.stream_strided([torch.ones(1024, device=cuda)] * 9, block=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,block,stride,n_arrays", [
+    (8192, 256, 1, 1), (8192, 256, 2, 1), (8192, 256, 4, 1),
+    (8192, 256, 1, 3), (8192, 256, 2, 3), (8192, 256, 4, 3),
+    (8000, 250, 2, 3),          # block % 4 != 0: the one-float path
+])
+def test_stream_strided_kernel_on_card(cuda, S, block, stride, n_arrays):
+    arrs = [torch.from_numpy(rn(20 + j, S)).to(cuda)
+            for j in range(n_arrays)]
+    before = tmb.launches["stream_strided"]
+    got = tops.stream_strided(arrs, block=block, stride=stride)
+    assert tmb.launches["stream_strided"] == before + 1
+    _check(got, lambda *a: tref.stream_ref(list(a), block=block,
+                                           stride=stride), *arrs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,iters,block", [
+    (4096, 32, 1024), (4000, 32, 1000), (4096, 7, 4096)])
+def test_madd_throughput_kernel_on_card(cuda, S, iters, block):
+    x = torch.from_numpy(rn(30, S)).to(cuda)
+    before = tmb.launches["madd_throughput"]
+    got = tops.madd_throughput(x, iters=iters, block=block)
+    assert tmb.launches["madd_throughput"] == before + 1
+    _check(got, lambda v: tref.madd_ref(v, iters=iters), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,iters,block", [
+    (4096, 32, 1024), (4000, 32, 1000), (2 ** 20, 256, 2048)])
+def test_madd_throughput_chain_visible_on_card(cuda, S, iters, block):
+    """With a = 0.999, b = 0.01 every step moves the output far beyond
+    the tolerance (the reference's a and b move it ~2e-4 of itself over
+    256 steps), so a kernel that skips steps fails here."""
+    visible = dict(a=0.999, b=0.01)
+    x = torch.from_numpy(rn(31, S)).to(cuda)
+    got = tops.madd_throughput(x, iters=iters, block=block, **visible)
+    _check(got, lambda v: tref.madd_ref(v, iters=iters, **visible), x)
+    want = tref.madd_ref(x.double(), iters=iters, **visible)
+    room = TOL["float32"]["atol"] + TOL["float32"]["rtol"] * want.abs()
+    for short in (iters // 2, 0):
+        wrong = tref.madd_ref(x.double(), iters=short, **visible)
+        assert bool(((wrong - want).abs() > room).all())
+
+
+def _default_battery():
+    from repro_torch.profiles.presets import CALIBRATION_TAGS
+    return tuipick.KernelCollection(tuipick.ALL_GENERATORS) \
+        .generate_kernels(CALIBRATION_TAGS, tuipick.MatchCondition.INTERSECT)
+
+
+@pytest.mark.gpu
+def test_graph_replay_equals_eager_on_default_battery(cuda):
+    """Battery timing replays one captured CUDA graph per kernel; the
+    replay must compute what the eager call computes."""
+    kernels = _default_battery()
+    assert len(kernels) == 43
+    for k in kernels:
+        args = k.make_args(cuda)
+        eager = k.fn(*args)
+        graph, out = k.capture(args)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, eager, msg=k.name)
+        del graph, out, eager, args

@@ -135,7 +135,11 @@ def test_no_silent_fallback_to_the_host():
 
 
 def test_open_without_profile_names_the_missing_study():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+    """``open(None)`` runs the zoo study on this machine — on the card by
+    default, so without one it raises instead of studying the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         PerfSession.open(None)
 
 
@@ -207,6 +211,7 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 20
     for f in files:
         for mod in _imported_modules(f):
