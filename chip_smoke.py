@@ -12,7 +12,12 @@ Phases, each fatal on failure:
 2. hold every kernel against its plain PyTorch version on the card, at
    the reference test shapes (``tests/test_kernels.py`` tolerances) and
    at the main path's sizes, with TF32 off (float32 kernels against the
-   plain version evaluated in float64);
+   plain version evaluated in float64); the model-layer kernels
+   (``flash_attention``, ``mamba2_ssd``, ``slstm_cell``) also at the
+   widths of the port's gemma2-9b, zamba2-7b and xlstm-125m configs, and
+   each beside plain variants that drop one point of its semantics
+   (softcap, window, GQA head map, carried state, recurrence), which
+   must fail the same check;
 3. calibrate the default battery on the card through
    ``python -m repro_torch.calibrate`` (3 trials, one CUDA-graph replay
    per timing) into a temporary profile;
@@ -28,13 +33,20 @@ Phases, each fatal on failure:
    with each rung (zero timings), time them beside their plain versions,
    one library call and their bounds, and print predicted ÷ measured per
    kernel per rung;
-8. print one ``{"kernels": [...]}`` line, the card's name and power
-   limit, and the ``{"ok": true, "device": ...}`` line last.
+8. the model-layer kernels: CLI ``predict`` at the reference target
+   shapes from phase 3's profile, ``PerfSession`` at the real sizes under
+   the base fit and each zoo rung (zero timings, the unmodeled features
+   printed), then each kernel timed beside its plain version and its
+   bound, attention also beside ``torch.compile``'d ``flex_attention``;
+9. print one ``{"kernels": [...]}`` line (all eight kernels), the card's
+   name and power limit, and the ``{"ok": true, "device": ...}`` line
+   last.
 
 Launch counters are set to 0 before phase 3 and read after phase 5 (the
-three §8 kernels must have launched), and set to 0 again before phase 6
-and read after phase 7 (all five must have launched).  Without a card
-(or without the repository beside this file) it exits non-zero and
+three §8 kernels must have launched), set to 0 again before phase 6 and
+read after phase 7 (the five kernels of the zoo study), and again before
+phase 8 and read after it (the three model-layer kernels).  Without a
+card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
@@ -65,7 +77,9 @@ STENCIL_SHAPES = [(256, 256, 128, 128), (256, 512, 256, 256),
 DG_SHAPES = [(3, 64, 1024, 256), (1, 32, 512, 512)]
 
 STREAM_SHAPES = [(8192, 256, stride, n_arrays) for stride in (1, 2, 4)
-                 for n_arrays in (1, 3)]
+                 for n_arrays in (1, 3)] + [
+    # more inputs than one launch sums (8): groups of launches
+    (8192, 256, 1, 9), (8192, 256, 2, 17)]
 MADD_SHAPE = (4096, 32, 1024)       # S, iters, block
 
 # main-path sizes: each larger than the 50 MB L2
@@ -90,6 +104,38 @@ REAL_MADD_TOL = dict(rtol=2e-4, atol=2e-3)
 # inside the reference tolerance
 MADD_VISIBLE = dict(a=0.999, b=0.01)
 ZOO = ("lin_flop", "lin_flop_mem", "ovl_flop_mem")
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# q scaled so the scores reach tens: with unit inputs softcap 50 moves a
+# score by ~1e-4 of itself and a kernel ignoring it would pass
+ATTN_Q_SCALE = 8.0
+# real sizes: the widths of the port's configs, sequence and batch cut
+# for time (the plain sLSTM loops in Python over every step: S = 4096 of
+# prefill_32k's 32768)
+REAL_ATTN_S = 8192      # gemma2-9b, batch 1
+REAL_SSD_S = 8192       # zamba2-7b, batch 1
+REAL_SLSTM = (8, 4096)  # xlstm-125m, batch 8, S
+# the real-size SSD: the chunked form takes exp(la_i − la_j) from a
+# 256-long f32 cumsum where the plain version multiplies exp(da) step by
+# step, and y reaches ~150: the reference's own Pallas kernel at chunk
+# 256 (S = 1024, interpret mode) misses atol 2e-5 on 4e-5 of its outputs,
+# by up to 1.4e-4
+REAL_SSD_TOL = dict(rtol=2e-4, atol=1e-3)
+# bf16 attention at q × 8 (the check that carries the variants):
+# against the plain version in bf16, the reference's bf16 tolerance
+REAL_ATTN_TOL = TOL["bfloat16"]
+# bf16 attention at q × 1 against the plain version in f32 from the same
+# bf16 inputs.  Past the first few hundred rows the softmax spreads over
+# thousands of keys and |o| is ~0.02, so the element-wise bf16 atol of
+# 2e-2 alone would pass a kernel off by tens of percent there.  Each
+# output row (one query, one head: 256 values) is also held to a
+# relative L2 error of 1e-2, where the bf16 rounding of the output alone
+# is ~2e-3.  An element-wise 1e-2 / 1e-3 is not usable: in rows that
+# attend to a few keys the values cancel, and the rounding of p to bf16
+# before P·V (as the reference kernel rounds it) leaves elements 1.8×
+# over it
+REAL_ATTN_F32_TOL = dict(TOL["bfloat16"], row_rtol=1e-2)
 
 
 def log(msg: str) -> None:
@@ -120,23 +166,49 @@ def time_ms(fn, *args, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(ts))
 
 
-def check(kernel, plain, args, **tol) -> float:
-    """Assert the kernel's result is allclose to the plain version's on
-    the same inputs; return the max absolute error.  Float32 kernels are
-    held against the plain version evaluated on float64 copies, so the
-    error measured is the kernel's own and not the difference of two f32
-    summation orders; bf16 against the plain version in bf16."""
-    import numpy as np
+def excess(got, want, rtol, atol, row_rtol=None) -> float:
+    """How far ``got`` lies from ``want``, in units of the tolerance: the
+    worst element under |got − want| <= atol + rtol·|want| and, with
+    ``row_rtol``, the worst row (last axis) under ||got − want|| <=
+    row_rtol·||want||.  At most 1 passes; NaN fails."""
+    import torch
+    got, want = got.double(), want.double()
+    worst = ((got - want).abs() / (atol + rtol * want.abs())).max()
+    if row_rtol is not None:
+        rows = (got - want).norm(dim=-1) / (row_rtol * want.norm(dim=-1))
+        worst = torch.maximum(worst, rows.max())
+    return float(worst)
+
+
+def verify(kernel, plain, args, wrongs=(), **tol) -> float:
+    """Assert the kernel's result is within the tolerance of the plain
+    version's on the same inputs (:func:`excess`), then hold every plain
+    variant in ``wrongs`` ((label, fn) pairs) to failing that check;
+    return the kernel's max absolute error.  Float32 kernels are held
+    against the plain version evaluated on float64 copies, so the error
+    measured is the kernel's own and not the difference of two f32
+    summation orders; bf16 against the plain version in the dtype
+    ``plain`` computes in."""
     import torch
     got = kernel(*args)
     if got.dtype == torch.float32:
         args = tuple(x.double() for x in args)
     want = plain(*args)
-    torch.cuda.synchronize()
-    g = got.double().cpu().numpy()
-    w = want.double().cpu().numpy()
-    np.testing.assert_allclose(g, w, **tol)
-    return float(np.max(np.abs(g - w)))
+    err = float((got.double() - want.double()).abs().max())
+    worst = excess(got, want, **tol)
+    if not worst <= 1:
+        raise SystemExit(f"kernel disagrees with its plain version: max "
+                         f"|err| {err:.3g}, {worst:.3g}× the tolerance "
+                         f"({tol})")
+    log(f"  kernel within the tolerance (worst {worst:.3g}× it)")
+    for label, wrong in wrongs:
+        over = excess(got, wrong(*args), **tol)
+        if over <= 1:
+            raise SystemExit(f"the check cannot fail: the plain variant "
+                             f"'{label}' passes it too")
+        log(f"  variant '{label}' fails the check (worst {over:.3g}× the "
+            f"tolerance)")
+    return err
 
 
 def check_madd_rejects_short_chains(ref, x, iters) -> None:
@@ -173,26 +245,26 @@ def check_kernels(ops, ref, dev) -> dict:
             b = randn(rng, k, n).to(dev, tdt)
             mm = functools.partial(ops.matmul, block_m=bm, block_n=bn,
                                    block_k=bk)
-            err = check(mm, ref.matmul_ref, (a, b), **TOL[dt])
+            err = verify(mm, ref.matmul_ref, (a, b), **TOL[dt])
             log(f"matmul_tiled {dt} {(m, k, n)} blocks {(bm, bn, bk)}: "
                 f"max|err| {err:.3g} (rtol {TOL[dt]['rtol']}, "
                 f"atol {TOL[dt]['atol']})")
     for m, n, bm, bn in STENCIL_SHAPES:
         u = randn(rng, m, n).to(dev)
         st = functools.partial(ops.stencil5, block_m=bm, block_n=bn)
-        err = check(st, ref.stencil5_ref, (u,), **TOL["float32"])
+        err = verify(st, ref.stencil5_ref, (u,), **TOL["float32"])
         log(f"stencil5 {(m, n)} blocks {(bm, bn)}: max|err| {err:.3g}")
     for mm_, nn, kk, be in DG_SHAPES:
         d, ut = randn(rng, mm_, nn, nn).to(dev), randn(rng, nn, kk).to(dev)
         dg = functools.partial(ops.dg_diff, block_e=be)
-        err = check(dg, ref.dg_diff_ref, (d, ut), **TOL["float32"])
+        err = verify(dg, ref.dg_diff_ref, (d, ut), **TOL["float32"])
         log(f"dg_diff {(mm_, nn, kk)} block_e {be}: max|err| {err:.3g}")
 
     for size, block, stride, n_arrays in STREAM_SHAPES:
         arrs = [randn(rng, size).to(dev) for _ in range(n_arrays)]
         st = functools.partial(ops.stream_strided, block=block,
                                stride=stride)
-        err = check(lambda *a: st(list(a)),
+        err = verify(lambda *a: st(list(a)),
                     lambda *a: ref.stream_ref(list(a), block=block,
                                               stride=stride),
                     tuple(arrs), **TOL["float32"])
@@ -201,7 +273,7 @@ def check_kernels(ops, ref, dev) -> dict:
     size, iters, block = MADD_SHAPE
     x = randn(rng, size).to(dev)
     for kw in ({}, MADD_VISIBLE):
-        err = check(functools.partial(ops.madd_throughput, iters=iters,
+        err = verify(functools.partial(ops.madd_throughput, iters=iters,
                                       block=block, **kw),
                     functools.partial(ref.madd_ref, iters=iters, **kw),
                     (x,), **TOL["float32"])
@@ -215,24 +287,24 @@ def check_kernels(ops, ref, dev) -> dict:
     stream_arrs = tuple(randn(rng, size).to(dev) for _ in range(n_arrays))
     madd_s, madd_iters, madd_block = REAL_MADD
     errs = {
-        "matmul_tiled": check(
+        "matmul_tiled": verify(
             ops.matmul, ref.matmul_ref,
             (randn(rng, m, k).to(dev), randn(rng, k, n).to(dev)),
             **REAL_MATMUL_TOL),
-        "stencil5": check(ops.stencil5, ref.stencil5_ref,
+        "stencil5": verify(ops.stencil5, ref.stencil5_ref,
                           (randn(rng, *REAL_STENCIL).to(dev),),
                           **TOL["float32"]),
-        "dg_diff": check(ops.dg_diff, ref.dg_diff_ref,
+        "dg_diff": verify(ops.dg_diff, ref.dg_diff_ref,
                          (randn(rng, mm_, nn, nn).to(dev),
                           randn(rng, nn, kk).to(dev)), **TOL["float32"]),
-        "madd_throughput": check(
+        "madd_throughput": verify(
             functools.partial(ops.madd_throughput, iters=madd_iters,
                               block=madd_block),
             functools.partial(ref.madd_ref, iters=madd_iters),
             (randn(rng, madd_s).to(dev),), **REAL_MADD_TOL),
     }
     madd_x = randn(rng, madd_s).to(dev)
-    err = check(functools.partial(ops.madd_throughput, iters=madd_iters,
+    err = verify(functools.partial(ops.madd_throughput, iters=madd_iters,
                                   block=madd_block, **MADD_VISIBLE),
                 functools.partial(ref.madd_ref, iters=madd_iters,
                                   **MADD_VISIBLE),
@@ -241,7 +313,7 @@ def check_kernels(ops, ref, dev) -> dict:
         f"max|err| {err:.3g} ({TOL['float32']})")
     check_madd_rejects_short_chains(ref, madd_x, madd_iters)
     errs["stream_strided"] = max(
-        check(lambda *a, s=stride: ops.stream_strided(list(a), block=block,
+        verify(lambda *a, s=stride: ops.stream_strided(list(a), block=block,
                                                       stride=s),
               lambda *a, s=stride: ref.stream_ref(list(a), block=block,
                                                   stride=s),
@@ -250,6 +322,172 @@ def check_kernels(ops, ref, dev) -> dict:
     log(f"main-path sizes, max|err| vs plain: {errs} (matmul "
         f"{REAL_MATMUL_TOL}, madd_throughput {REAL_MADD_TOL}, others "
         f"{TOL['float32']})")
+    return errs
+
+
+def model_layer_sizes(configs) -> dict:
+    """The real sizes of the model-layer kernels: the widths of the
+    port's gemma2-9b, zamba2-7b and xlstm-125m configs."""
+    att = configs.get_config("gemma2-9b").attention
+    zamba = configs.get_config("zamba2-7b")
+    xl = configs.get_config("xlstm-125m")
+    batch, steps = REAL_SLSTM
+    return {
+        "attention": dict(B=1, S=REAL_ATTN_S, Hq=att.num_heads,
+                          Hkv=att.num_kv_heads, D=att.head_dim),
+        # the local layer (the row) and the global layer (its variant)
+        "local": dict(causal=True, window=att.window,
+                      softcap=att.logit_softcap),
+        "global": dict(causal=True, softcap=att.logit_softcap),
+        "ssd": dict(B=1, S=REAL_SSD_S, H=zamba.ssm.num_heads(zamba.d_model),
+                    P=zamba.ssm.head_dim, N=zamba.ssm.d_state,
+                    chunk=zamba.ssm.chunk_size),
+        "slstm": dict(B=batch, S=steps, H=xl.xlstm.num_heads,
+                      dh=xl.d_model // xl.xlstm.num_heads),
+    }
+
+
+def attn_inputs(gen, dev, dtype, B, S, Hq, Hkv, D, q_scale=1.0):
+    import torch
+    q = torch.randn(B, S, Hq, D, generator=gen, device=dev) * q_scale
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+    return tuple(t.to(dtype) for t in (q, k, v))
+
+
+def ssd_inputs(gen, dev, B, S, H, P, N, chunk=None):
+    """x·dt, dt·A (negative), B and C; ``chunk`` is ignored, so a size
+    dict from :func:`model_layer_sizes` can be passed whole."""
+    import torch
+    return (torch.randn(B, S, H, P, generator=gen, device=dev),
+            -torch.randn(B, S, H, generator=gen, device=dev).abs() * 0.1,
+            torch.randn(B, S, H, N, generator=gen, device=dev),
+            torch.randn(B, S, H, N, generator=gen, device=dev))
+
+
+def slstm_inputs(gen, dev, B, S, H, dh):
+    import torch
+    return (torch.randn(B, S, 4, H, dh, generator=gen, device=dev) * 0.5,
+            torch.randn(H, dh, 4, dh, generator=gen, device=dev) * 0.1,
+            torch.randn(4, H, dh, generator=gen, device=dev) * 0.1)
+
+
+def attention_f32(ref, kw, q, k, v):
+    """The plain attention in f32 from (bf16) inputs."""
+    return ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+
+
+def flex_library(kw, seq, dev):
+    """One PyTorch call computing the same attention:
+    ``torch.compile``'d ``flex_attention`` (the tanh softcap as its
+    score_mod, the causal and window masks as its block mask, GQA through
+    ``enable_gqa``) on [B, S, H, D] tensors viewed as [B, H, S, D].  Used
+    only to time the library here; the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    cap, window = kw.get("softcap"), kw.get("window")
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki if kw.get("causal", True) else qi >= 0
+        if window is not None:
+            keep = keep & (qi - ki < window)
+        return keep
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    mask = create_block_mask(mask_mod, None, None, seq, seq, device=dev)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call(q, k, v):
+        return flex(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    score_mod=softcap if cap is not None else None,
+                    block_mask=mask, scale=kw.get("scale"),
+                    enable_gqa=True).transpose(1, 2)
+    return call
+
+
+def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
+    """Phase 2 for the model-layer kernels: each against its plain
+    version at every ``tests/test_kernels.py`` case and at the real
+    sizes, with each plain variant held to failing; returns the max
+    absolute error at the real sizes per kernel."""
+    import functools
+
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for dt, tdt in (("float32", torch.float32),
+                    ("bfloat16", torch.bfloat16)):
+        for kw in variants.ATTN_KW:
+            for shape in variants.ATTN_SHAPES:
+                fa = functools.partial(ops.flash_attention, block_q=64,
+                                       block_k=64, **kw)
+                plain = functools.partial(ref.attention_ref, **kw)
+                err = verify(fa, plain, attn_inputs(gen, dev, tdt, *shape),
+                             **TOL[dt])
+                log(f"flash_attention {dt} {shape} {kw}: max|err| "
+                    f"{err:.3g}; q×{ATTN_Q_SCALE}:")
+                verify(fa, plain, attn_inputs(gen, dev, tdt, *shape,
+                                              q_scale=ATTN_Q_SCALE),
+                       variants.attention_variants_for(kw, shape[2],
+                                                       shape[3]),
+                       **TOL[dt])
+    for b, s, h, p, n, chunk in variants.SSD_SHAPES:
+        err = verify(functools.partial(ops.mamba2_ssd, chunk=chunk),
+                     ref.ssd_ref, ssd_inputs(gen, dev, b, s, h, p, n),
+                     [("no carried state", functools.partial(
+                         variants.ssd_without_carried_state, chunk=chunk))],
+                     **TOL["float32"])
+        log(f"mamba2_ssd {(b, s, h, p, n)} chunk {chunk}: max|err| {err:.3g}")
+    for shape in variants.SLSTM_SHAPES:
+        err = verify(ops.slstm_cell, ref.slstm_cell_ref,
+                     slstm_inputs(gen, dev, *shape),
+                     [("r = 0", variants.slstm_without_recurrence)],
+                     **TOL["float32"])
+        log(f"slstm_cell {shape}: max|err| {err:.3g}")
+
+    a = sizes["attention"]
+    errs = {"flash_attention": 0.0}
+    for layer in ("local", "global"):
+        kw = sizes[layer]
+        fa = functools.partial(ops.flash_attention, **kw)
+        skip = functools.partial(variants.attention_skip_last_kv_tile,
+                                 block_k=128, **kw)
+        # q × 1 against the plain version in f32: late rows, |o| ~ 0.02
+        err = verify(fa, functools.partial(attention_f32, ref, kw),
+                     attn_inputs(gen, dev, torch.bfloat16, **a),
+                     [("last kv tile skipped",
+                       lambda *t: skip(*(x.float() for x in t)))],
+                     **REAL_ATTN_F32_TOL)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        log(f"flash_attention bf16 {a} {layer} {kw} q×1: max|err| "
+            f"{err:.3g} vs f32 ({REAL_ATTN_F32_TOL})")
+        # q × 8 against the plain version in bf16, with the variants
+        err = verify(fa, functools.partial(ref.attention_ref, **kw),
+                     attn_inputs(gen, dev, torch.bfloat16, **a,
+                                 q_scale=ATTN_Q_SCALE),
+                     variants.attention_variants_for(kw, a["Hq"], a["Hkv"]),
+                     **REAL_ATTN_TOL)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        log(f"flash_attention bf16 {a} {layer} {kw} q×{ATTN_Q_SCALE}: "
+            f"max|err| {err:.3g} ({REAL_ATTN_TOL})")
+        torch.cuda.empty_cache()
+    ssd = sizes["ssd"]
+    errs["mamba2_ssd"] = verify(
+        functools.partial(ops.mamba2_ssd, chunk=ssd["chunk"]), ref.ssd_ref,
+        ssd_inputs(gen, dev, **ssd),
+        [("no carried state", functools.partial(
+            variants.ssd_without_carried_state, chunk=ssd["chunk"]))],
+        **REAL_SSD_TOL)
+    log(f"mamba2_ssd {ssd}: max|err| {errs['mamba2_ssd']:.3g} "
+        f"({REAL_SSD_TOL})")
+    errs["slstm_cell"] = verify(
+        ops.slstm_cell, ref.slstm_cell_ref,
+        slstm_inputs(gen, dev, **sizes["slstm"]),
+        [("r = 0", variants.slstm_without_recurrence)], **TOL["float32"])
+    log(f"slstm_cell {sizes['slstm']}: max|err| {errs['slstm_cell']:.3g} "
+        f"({TOL['float32']})")
     return errs
 
 
@@ -401,6 +639,138 @@ def time_zoo_kernels(ops, ref, dev, preds_by_rung, F):
     return rows
 
 
+def model_layer_cases(ops, ref, sizes) -> dict:
+    """The model-layer kernels at their real sizes: the wrapper, its
+    plain version, the input maker, the meta arguments to price, and the
+    work these inputs need (operations, bytes, peak rate).  Attention
+    counts only the unmasked (q, k) pairs and SSD only the i >= j half of
+    each chunk's L × L form; every byte once."""
+    import functools
+
+    import torch
+    a, ssd, sl = sizes["attention"], sizes["ssd"], sizes["slstm"]
+    meta = functools.partial(torch.empty, device="meta")
+    b, s, hq, hkv, d = a["B"], a["S"], a["Hq"], a["Hkv"], a["D"]
+    attn_bytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+
+    def attention(kw):
+        w = min(kw.get("window") or s, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w
+        return dict(
+            kernel=functools.partial(ops.flash_attention, **kw),
+            plain=functools.partial(ref.attention_ref, **kw),
+            inputs=lambda gen, dev: attn_inputs(gen, dev, torch.bfloat16,
+                                                **a),
+            meta=tuple(meta(b, s, h, d, dtype=torch.bfloat16)
+                       for h in (hq, hkv, hkv)),
+            work=(2 * b * hq * pairs * 2 * d, attn_bytes, PEAK_BF16_FLOPS),
+            plain_iters=5,
+            library=functools.partial(flex_library, kw, s),
+            library_plain=functools.partial(attention_f32, ref, kw))
+
+    el, n_chunks = ssd["chunk"], ssd["S"] // ssd["chunk"]
+    heads = ssd["B"] * ssd["H"]
+    p_, n_ = ssd["P"], ssd["N"]
+    sb, ss, sh, dh = sl["B"], sl["S"], sl["H"], sl["dh"]
+    return {
+        "flash_attention": attention(sizes["local"]),
+        "flash_attention_global": attention(sizes["global"]),
+        "mamba2_ssd": dict(
+            kernel=functools.partial(ops.mamba2_ssd, chunk=el),
+            plain=ref.ssd_ref,
+            inputs=lambda gen, dev: ssd_inputs(gen, dev, **ssd),
+            meta=(meta(ssd["B"], ssd["S"], ssd["H"], p_),
+                  meta(ssd["B"], ssd["S"], ssd["H"]),
+                  meta(ssd["B"], ssd["S"], ssd["H"], n_),
+                  meta(ssd["B"], ssd["S"], ssd["H"], n_)),
+            work=(2 * heads * n_chunks * (el * (el + 1) // 2 * (n_ + p_)
+                                          + 2 * el * p_ * n_),
+                  4 * heads * ssd["S"] * (2 * p_ + 2 * n_ + 1),
+                  PEAK_F32_FLOPS),
+            plain_iters=2),
+        "slstm_cell": dict(
+            kernel=ops.slstm_cell, plain=ref.slstm_cell_ref,
+            inputs=lambda gen, dev: slstm_inputs(gen, dev, **sl),
+            meta=(meta(sb, ss, 4, sh, dh), meta(sh, dh, 4, dh),
+                  meta(4, sh, dh)),
+            work=(2 * sb * ss * sh * dh * 4 * dh,
+                  4 * (sb * ss * 4 * sh * dh + sh * dh * 4 * dh + 4 * sh * dh
+                       + sb * ss * sh * dh),
+                  PEAK_F32_FLOPS),
+            plain_iters=2),
+    }
+
+
+def model_layer_path(calibrate_main, PerfSession, cases, dev, base_profile,
+                     zoo_profile) -> dict:
+    """Phase 8: predict the model-layer kernels with zero timings — CLI
+    ``predict`` at the reference target shapes, ``PerfSession`` at the
+    real sizes under the base fit and each zoo rung — then run each on
+    the card beside its plain version, one library call where there is
+    one, and its bound.  Returns one row per
+    kernel (flash_attention carries its global layer as a variant)."""
+    import math
+
+    import torch
+    rc = calibrate_main(["predict", str(base_profile),
+                         "--kernel", "kernels.ops.flash_attention",
+                         "--kernel", "kernels.ops.mamba2_ssd",
+                         "--kernel", "kernels.ops.slstm_cell",
+                         "--explain", "3", "--expect-zero-timings"])
+    if rc != 0:
+        raise SystemExit(f"predict of the model-layer kernels exited {rc}")
+    names = list(cases)
+    items = [(c["kernel"], c["meta"]) for c in cases.values()]
+    preds = {name: {} for name in names}
+    for path, rungs in ((base_profile, ("base",)), (zoo_profile, ZOO)):
+        session = PerfSession.open(path)
+        for rung in rungs:
+            for p in session.predict_batch(items, model=rung, names=names):
+                if not (math.isfinite(p.seconds) and p.seconds > 0):
+                    raise SystemExit(f"{rung} prediction {p.kernel}: "
+                                     f"{p.seconds}")
+                preds[p.kernel][rung] = p.seconds * 1e3
+                log(f"{p.kernel} {rung}: predicted {p.seconds * 1e3:.4g} ms, "
+                    f"unmodeled {sorted(p.unmodeled)}")
+        if session.timer.calls != 0:
+            raise SystemExit(f"model-layer prediction timed "
+                             f"{session.timer.calls} kernels")
+        log(f"model-layer prediction from {path.name}: timings_performed="
+            f"{session.timer.calls} batched_evals={session.eval_calls}")
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = {}
+    for name, case in cases.items():
+        args = case["inputs"](gen, dev)
+        ops_n, nbytes, peak = case["work"]
+        t_ops, t_bytes = ops_n / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        ms = time_ms(case["kernel"], *args)
+        lib_ms = None
+        if "library" in case:
+            lib = case["library"](dev)
+            t0 = time.perf_counter()
+            err = verify(lib, case["library_plain"], args,
+                         **REAL_ATTN_F32_TOL)
+            log(f"{name} library call agrees with the plain version: max "
+                f"|err| {err:.3g} ({REAL_ATTN_F32_TOL}; first call with "
+                f"its compile {time.perf_counter() - t0:.1f} s)")
+            lib_ms = time_ms(lib, *args)
+        rows[name] = {
+            "ms": ms,
+            "plain_ms": time_ms(case["plain"], *args,
+                                iters=case["plain_iters"], warmup=1),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+            "predicted_ms": preds[name],
+            "pred_over_meas": {r: v / ms for r, v in preds[name].items()},
+        }
+        del args
+        torch.cuda.empty_cache()
+    rows["flash_attention"]["global"] = rows.pop("flash_attention_global")
+    return rows
+
+
 def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
     """Phase 6-7's predictions: the zoo study on the card and on the
     synthetic device apex, ``compare --sweep``, and each kernel's
@@ -479,12 +849,15 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch import configs
     from repro_torch.analysis.targets import f32
     from repro_torch.api import PerfSession
-    from repro_torch.kernels import _build, dg_diff, matmul_tiled
-    from repro_torch.kernels import microbench, ops, ref, stencil5
+    from repro_torch.kernels import _build, dg_diff, flash_attention
+    from repro_torch.kernels import mamba2_ssd, matmul_tiled, microbench
+    from repro_torch.kernels import ops, ref, slstm_cell, stencil5
     from repro_torch.profiles import load_profile
     from repro_torch.profiles.cli import main as calibrate_main
+    from repro_torch.testing import variants
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -512,14 +885,19 @@ def main() -> int:
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     errs = check_kernels(ops, ref, dev)
+    sizes = model_layer_sizes(configs)
+    log(f"model-layer real sizes (port configs): {sizes}")
+    errs.update(check_model_kernels(ops, ref, variants, dev, sizes))
+    single = (matmul_tiled, stencil5, dg_diff, flash_attention, mamba2_ssd,
+              slstm_cell)
 
     def counts():
-        return {"matmul_tiled": matmul_tiled.launches,
-                "stencil5": stencil5.launches, "dg_diff": dg_diff.launches,
+        return {**{m.__name__.rsplit(".", 1)[1]: m.launches for m in single},
                 **microbench.launches}
 
     def zero_counts():
-        matmul_tiled.launches = stencil5.launches = dg_diff.launches = 0
+        for m in single:
+            m.launches = 0
         for name in microbench.launches:
             microbench.launches[name] = 0
 
@@ -600,16 +978,35 @@ def main() -> int:
                          ops, tmp)
     measured = time_zoo_kernels(ops, ref, dev, zoo_preds, F)
     launches = counts()
+    zoo_kernels = list(measured)
     log(f"launches on the zoo-study path: {launches}")
-    if not all(launches.values()):
+    if not all(launches[name] for name in zoo_kernels):
         raise SystemExit(f"a kernel of the zoo-study path never launched: "
                          f"{launches}")
+
+    # ---- 8. the model-layer kernels, counted -------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    measured.update(model_layer_path(
+        calibrate_main, PerfSession, model_layer_cases(ops, ref, sizes), dev,
+        profile_path, tmp / "h100_zoo.json"))
+    model_launches = {name: counts()[name] for name in
+                      ("flash_attention", "mamba2_ssd", "slstm_cell")}
+    log(f"launches on the model-layer path: {model_launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(model_launches.values()):
+        raise SystemExit(f"a model-layer kernel never launched: "
+                         f"{model_launches}")
+    launches.update(model_launches)
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
                "dg_diff": "src/repro/kernels/dg_diff.py:41",
                "stream_strided": "src/repro/kernels/microbench.py:44",
-               "madd_throughput": "src/repro/kernels/microbench.py:80"}
+               "madd_throughput": "src/repro/kernels/microbench.py:80",
+               "flash_attention": "src/repro/kernels/flash_attention.py:109",
+               "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:78",
+               "slstm_cell": "src/repro/kernels/slstm_cell.py:77"}
     rows = []
     for name, meas in measured.items():
         row = {"name": name, "route": "cuda",
@@ -620,7 +1017,8 @@ def main() -> int:
             row["predicted_ms"]["base"] = base_pred[name]
             row["pred_over_meas"]["base"] = base_pred[name] / meas["ms"]
         rows.append(row)
-        for tag, r in [("", row)] + [(f" {t}", row[t]) for t in ("stride4",)
+        for tag, r in [("", row)] + [(f" {t}", row[t])
+                                     for t in ("stride4", "global")
                                      if t in row]:
             ratios = " ".join(f"{rung} {v:.3g}"
                               for rung, v in r["pred_over_meas"].items())

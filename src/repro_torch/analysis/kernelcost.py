@@ -13,7 +13,9 @@ reference's feature vocabulary and by the reference's traffic rule:
   pipeline's revisit elision.  ``fetches × block elements`` lands in
   ``f_mem_contig_<dtype>_load``/``_store`` and, in bytes, in
   ``f_mem_hbm_bytes_in``/``_out``;
-* body work: the arithmetic the kernel does, by (kind, dtype);
+* body work: the arithmetic the kernel does, by (kind, dtype) — for the
+  model-layer kernels, the reference counter's count of one program's
+  body (nested ``jit``s opened) times the grid;
 * ``f_vmem_contig_<dtype>_store``: elements the CUDA kernel stages into
   shared memory (the port's on-chip class, see
   :mod:`repro_torch.core.counting`).
@@ -34,6 +36,9 @@ from repro_torch.core.counting import (
     dtype_name,
     register_op_cost_rule,
 )
+from repro_torch.kernels.flash_attention import TILE_K as FLASH_TILE_K
+from repro_torch.kernels.flash_attention import TILE_Q as FLASH_TILE_Q
+from repro_torch.kernels.mamba2_ssd import TILE as SSD_TILE
 from repro_torch.kernels.matmul_tiled import SUBTILE as MATMUL_SUBTILE
 from repro_torch.kernels.stencil5 import STRIP_ROWS as STENCIL_STRIP_ROWS
 
@@ -168,8 +173,128 @@ def madd_throughput_cost(x: torch.Tensor, iters: int, block: int,
     return c
 
 
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window, softcap, scale: float,
+                         block_q: int, block_k: int) -> FeatureCounts:
+    """Grid (B, Hq, Sq/bq, Skv/bk); Q block (bq, D) at (b, iq, h), K and
+    V (bk, D*) at (b, ik, h // G), O (bq, Dv) at (b, iq, h).  Every
+    visited tile is counted, masked or not, as the reference visits it.
+
+    Per program: ``q·kᵀ`` and ``p·v`` (bq·bk·(D + Dv) madds, f32 as the
+    reference counts ``dot_general`` by its output dtype), the scale,
+    the online softmax (row max, ``exp(s − m)``, the row sum, the
+    ``corr`` rescale of l and acc), two int32 position iotas offset by
+    ``program_id · block`` (one more for the window), and the softcap's
+    div, ``tanh`` and mul when set; the program with the last kv step
+    divides acc by ``max(l, 1e-30)``.  K and V change block every kv
+    step, so with more than one kv step they are fetched by every
+    program; with one, once per (batch, kv head)."""
+    b, sq, hq, d = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    nq, nk = sq // block_q, skv // block_k
+    grid = (b, hq, nq, nk)
+    programs = math.prod(grid)
+    tile = block_q * block_k
+    c = FeatureCounts()
+    c.add("f_op_float32_madd", programs * tile * (d + dv))
+    c.add("f_op_float32_mul", programs * (tile + block_q + block_q * dv))
+    c.add("f_op_float32_add",
+          programs * (2 * tile + 2 * block_q + block_q * dv))
+    c.add("f_op_float32_cmp", programs * (tile + block_q))
+    c.add("f_op_float32_transc", programs * (tile + block_q))
+    c.add("f_op_int32_add", programs * tile * (2 + (window is not None)))
+    c.add("f_op_int32_mul", programs * 2)
+    if softcap is not None:
+        c.add("f_op_float32_div", programs * tile)
+        c.add("f_op_float32_transc", programs * tile)
+        c.add("f_op_float32_mul", programs * tile)
+    finals = b * hq * nq
+    c.add("f_op_float32_cmp", finals * block_q)
+    c.add("f_op_float32_div", finals * block_q * dv)
+    qo_fetches = block_fetches(grid, (0, 1, 2))
+    kv_fetches = programs if nk > 1 else b * hkv
+    _traffic(c, "in", q.dtype, block_q * d, qo_fetches)
+    _traffic(c, "in", k.dtype, block_k * d, kv_fetches)
+    _traffic(c, "in", v.dtype, block_k * dv, kv_fetches)
+    _traffic(c, "out", q.dtype, block_q * dv, qo_fetches)
+    # the CUDA kernel stages, per 64-row query tile, Q once and per 64-row
+    # kv step the K tile, the V tile and the probabilities
+    q_tiles = b * hq * -(-sq // FLASH_TILE_Q)
+    kv_steps = -(-skv // FLASH_TILE_K)
+    c.add("f_vmem_contig_float32_store", q_tiles * (
+        FLASH_TILE_Q * d + kv_steps * (FLASH_TILE_K * (d + dv)
+                                       + FLASH_TILE_Q * FLASH_TILE_K)))
+    c.add("f_sync_grid_programs", programs)
+    return c
+
+
+def mamba2_ssd_cost(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+                    cm: torch.Tensor, chunk: int) -> FeatureCounts:
+    """Grid (B, H, S/chunk); every block — x (L, P), dt·A (L,), B and C
+    (L, N), y (L, P) — sits at (b, c, h), so each program fetches its
+    own.  Per program (L = chunk): ``cumsum`` (L adds), the L × L decay
+    ``exp(la_i − la_j)``, ``C·Bᵀ`` (L·L·N madds), ``(CB∘decay)·x``
+    (L·L·P), ``C·stateᵀ`` (L·N·P) scaled by ``exp(la)``, the weights
+    ``exp(la_L − la)``, ``(x∘w)ᵀ·B`` (L·P·N) and the state update."""
+    b, s, h, p = xdt.shape
+    n = bm.shape[-1]
+    el = chunk
+    grid = (b, h, s // chunk)
+    programs = math.prod(grid)
+    c = FeatureCounts()
+    c.add("f_op_float32_madd", programs * (el * el * (n + p)
+                                           + 2 * el * p * n))
+    c.add("f_op_float32_mul", programs * (el * el + 2 * el * p + p * n))
+    c.add("f_op_float32_add",
+          programs * (2 * el + el * el + p * n + el * p))
+    c.add("f_op_float32_transc", programs * (el * el + 2 * el + 1))
+    for t, width in ((xdt, p), (da, 1), (bm, n), (cm, n)):
+        _traffic(c, "in", t.dtype, el * width, programs)
+    _traffic(c, "out", xdt.dtype, el * p, programs)
+    # the CUDA kernel stages x, B and C of each chunk, dt·A, and one
+    # 64 × 64 tile of (C·Bᵀ)∘decay per tile pair on or below the diagonal
+    tiles = -(-el // SSD_TILE)
+    c.add("f_vmem_contig_float32_store", programs * (
+        el * (p + 2 * n + 1) + tiles * (tiles + 1) // 2 * SSD_TILE ** 2))
+    c.add("f_sync_grid_programs", programs)
+    return c
+
+
+def slstm_cell_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
+                    b_gates: torch.Tensor) -> FeatureCounts:
+    """Grid (B,); g_in (S, 4, H, dh) and y (S, H, dh) blocks per batch
+    row, r (H, dh, 4·dh) and b (4, H, dh) fetched once.  Per program S
+    steps (``f_sync_loop_steps``), each the block-diagonal recurrence
+    h·r[h] (H·dh·4dh madds) and per hidden unit the gating: the two adds
+    of ``g_in + rec + b`` per gate, ``log_sigmoid`` (as the reference's
+    ``jax.nn.log_sigmoid`` counts: 7 adds, a cmp, 2 transc), the
+    stabilizer max, ``exp``, ``tanh``, ``sigmoid`` and ``n``'s floor."""
+    b, s, _, h, dh = g_in.shape
+    units = b * s * h * dh
+    c = FeatureCounts()
+    c.add("f_op_float32_madd", b * s * h * dh * 4 * dh)
+    c.add("f_op_float32_add", 21 * units)
+    c.add("f_op_float32_mul", 4 * units)
+    c.add("f_op_float32_div", units)
+    c.add("f_op_float32_cmp", 3 * units)
+    c.add("f_op_float32_transc", 6 * units)
+    _traffic(c, "in", g_in.dtype, s * 4 * h * dh, b)
+    _traffic(c, "in", r_gates.dtype, r_gates.numel(), 1)
+    _traffic(c, "in", b_gates.dtype, b_gates.numel(), 1)
+    _traffic(c, "out", g_in.dtype, s * h * dh, b)
+    # the CUDA kernel stages, per step and (batch row, head), the 4·dh
+    # gate pre-activations and the dh new h values
+    c.add("f_vmem_contig_float32_store", b * s * h * 5 * dh)
+    c.add("f_sync_loop_steps", s * b)
+    c.add("f_sync_grid_programs", b)
+    return c
+
+
 register_op_cost_rule("repro_torch::matmul_tiled", matmul_tiled_cost)
 register_op_cost_rule("repro_torch::stencil5", stencil5_cost)
 register_op_cost_rule("repro_torch::dg_diff", dg_diff_cost)
 register_op_cost_rule("repro_torch::stream_strided", stream_strided_cost)
 register_op_cost_rule("repro_torch::madd_throughput", madd_throughput_cost)
+register_op_cost_rule("repro_torch::flash_attention", flash_attention_cost)
+register_op_cost_rule("repro_torch::mamba2_ssd", mamba2_ssd_cost)
+register_op_cost_rule("repro_torch::slstm_cell", slstm_cell_cost)

@@ -38,6 +38,16 @@ def kernel_targets() -> List[KernelTarget]:
                               block_k=128),
             (f32(128, 128), f32(128, 128))),
         KernelTarget(
+            "kernels.ops.flash_attention",
+            functools.partial(ops.flash_attention, causal=True, block_q=64,
+                              block_k=64),
+            (f32(2, 256, 8, 64), f32(2, 256, 2, 64), f32(2, 256, 2, 64))),
+        KernelTarget(
+            "kernels.ops.mamba2_ssd",
+            functools.partial(ops.mamba2_ssd, chunk=32),
+            (f32(2, 128, 4, 32), f32(2, 128, 4), f32(2, 128, 4, 16),
+             f32(2, 128, 4, 16))),
+        KernelTarget(
             "kernels.ops.stencil5",
             functools.partial(ops.stencil5, block_m=128, block_n=128),
             (f32(256, 256),)),
@@ -53,4 +63,8 @@ def kernel_targets() -> List[KernelTarget]:
             "kernels.ops.madd_throughput",
             functools.partial(ops.madd_throughput, iters=32, block=1024),
             (f32(4096),)),
+        KernelTarget(
+            "kernels.ops.slstm_cell",
+            ops.slstm_cell,
+            (f32(2, 24, 4, 4, 16), f32(4, 16, 4, 16), f32(4, 4, 16))),
     ]

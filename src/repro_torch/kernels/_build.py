@@ -27,7 +27,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu",
-           "stream_strided.cu", "madd_throughput.cu")
+           "stream_strided.cu", "madd_throughput.cu", "flash_attention.cu",
+           "mamba2_ssd.cu", "slstm_cell.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -44,6 +45,13 @@ SIGNATURES: Dict[str, List] = {
     "repro_stream_strided_f32": [ctypes.POINTER(_P), _I, _P, _I, _I, _I, _I,
                                  _P],
     "repro_madd_throughput_f32": [_P, _P, _I, _I, _F, _F, _P],
+    # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap, causal, window
+    "repro_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    "repro_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    # xdt, da, B, C, y, batch, S, H, P, N, chunk
+    "repro_mamba2_ssd_f32": [_P] * 5 + [_I] * 6 + [_P],
+    # g_in, r, b, y, batch, S, H, dh
+    "repro_slstm_cell_f32": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

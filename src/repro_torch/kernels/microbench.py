@@ -6,7 +6,8 @@
 block-stride memory stream) and ``repro_torch::madd_throughput``
 launches ``csrc/madd_throughput.cu`` (the 8-chain FMA peak-FLOP kernel)
 for CUDA tensors; CPU tensors run the plain versions.  ``launches``
-counts each kernel's launches by op name.
+counts each kernel's launches by op name: a stream of more than
+``ARRAYS_PER_LAUNCH`` inputs takes one launch per group of them.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from repro_torch.kernels.ref import madd_ref, stream_ref
 #: launches of each CUDA kernel in this process
 launches = {"stream_strided": 0, "madd_throughput": 0}
 
-#: inputs one stream_strided launch takes (kMaxArrays in the source)
-MAX_ARRAYS = 8
+#: inputs one stream_strided launch sums (kArraysPerLaunch in the source)
+ARRAYS_PER_LAUNCH = 8
 _MAX_ELEMS = 2 ** 31 - 1   # the kernels index with 32-bit integers
 
 
@@ -39,9 +40,6 @@ def stream_strided(arrays: List[torch.Tensor], block: int,
 def _stream_strided_cuda(arrays, block, stride):
     first = arrays[0]
     (s,) = first.shape
-    if not 1 <= len(arrays) <= MAX_ARRAYS:
-        raise ValueError(f"stream_strided kernel takes 1 to {MAX_ARRAYS} "
-                         f"inputs, got {len(arrays)}")
     for a in arrays:
         if a.dtype != torch.float32:
             raise TypeError(f"stream_strided takes float32, got {a.dtype}")
@@ -62,7 +60,7 @@ def _stream_strided_cuda(arrays, block, stride):
         _build.launch("repro_stream_strided_f32", ptrs, len(arrays),
                       out.data_ptr(), n_out, block, stride, int(vec4),
                       torch.cuda.current_stream().cuda_stream)
-    launches["stream_strided"] += 1
+    launches["stream_strided"] += -(-len(arrays) // ARRAYS_PER_LAUNCH)
     return out
 
 

@@ -10,13 +10,17 @@ custom op and prices it with its cost rule instead of running it.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import dg_diff as _dg
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_ssd as _ssd
 from repro_torch.kernels import matmul_tiled as _mm
 from repro_torch.kernels import microbench as _mb
+from repro_torch.kernels import slstm_cell as _sc
 from repro_torch.kernels import stencil5 as _st
 
 
@@ -30,6 +34,43 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
         raise ValueError(f"matmul: ({m}, {n}, {k}) does not tile by "
                          f"({bm}, {bn}, {bk})")
     return _mm.matmul_tiled(a, b, bm, bn, bk)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D*] → [B, Sq, Hq, Dv]."""
+    sq, skv, d = q.shape[1], k.shape[1], q.shape[3]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    bq, bk = min(block_q, sq), min(block_k, skv)
+    if sq % bq or skv % bk:
+        raise ValueError(f"flash_attention: Sq={sq}, Skv={skv} do not tile "
+                         f"by ({bq}, {bk})")
+    return _fa.flash_attention(q, k, v, causal, window, softcap, scale, bq,
+                               bk)
+
+
+def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """xdt: [B, S, H, P] (inputs pre-scaled by dt); da: [B, S, H] (dt·A);
+    Bm, Cm: [B, S, H, N] (groups pre-broadcast) → y: [B, S, H, P]."""
+    s = xdt.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"mamba2_ssd: S={s} does not tile by chunk={chunk}")
+    return _ssd.mamba2_ssd(xdt, da, Bm, Cm, chunk)
+
+
+def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
+               b_gates: torch.Tensor) -> torch.Tensor:
+    """g_in: [B, S, 4, H, dh]; r_gates: [H, dh, 4, dh]; b_gates:
+    [4, H, dh] → the hidden trajectory h: [B, S, H, dh]."""
+    if g_in.dim() != 5 or g_in.shape[2] != 4:
+        raise ValueError(f"slstm_cell: g_in must be [B, S, 4, H, dh], got "
+                         f"{tuple(g_in.shape)}")
+    return _sc.slstm_cell(g_in, r_gates, b_gates)
 
 
 def stencil5(u: torch.Tensor, *, block_m: int = 256,

@@ -4,11 +4,14 @@ Counterparts of ``repro.kernels.ref``.
 
 Like the reference they compute in float32 at least (bf16 inputs are
 widened); float64 inputs stay float64, so the card's check can evaluate
-the plain version on float64 copies of a kernel's inputs.
+the plain version on float64 copies of a kernel's inputs.  The SSD and
+sLSTM oracles are sequential Python loops over time, as the reference's
+``scan``s are.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -63,3 +66,71 @@ def madd_ref(x: torch.Tensor, *, iters: int, a: float = 1.000001,
     for xi in xs[1:]:
         out = out + xi
     return out.to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Full-materialization softmax attention with GQA (query head h
+    reads kv head h // G).  q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D*]
+    → [B, Sq, Hq, Dv]."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dv = v.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qr = _wide(q).reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, _wide(k)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, _wide(v))
+    return o.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def ssd_ref(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+            cm: torch.Tensor) -> torch.Tensor:
+    """Sequential SSD recurrence s_t = exp(da_t)·s_{t-1} + B_t ⊗ x_t,
+    y_t = C_t · s_t.  xdt: [B, S, H, P]; da: [B, S, H]; bm/cm:
+    [B, S, H, N]."""
+    bsz, steps, h, p = xdt.shape
+    x, a, bw, cw = _wide(xdt), _wide(da), _wide(bm), _wide(cm)
+    state = x.new_zeros((bsz, h, p, bm.shape[-1]))
+    ys = []
+    for t in range(steps):
+        state = state * torch.exp(a[:, t])[..., None, None] + torch.einsum(
+            "bhn,bhp->bhpn", bw[:, t], x[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", cw[:, t], state))
+    return torch.stack(ys, dim=1).to(xdt.dtype)
+
+
+def slstm_cell_ref(g_in: torch.Tensor, r_gates: torch.Tensor,
+                   b_gates: torch.Tensor) -> torch.Tensor:
+    """Sequential sLSTM with stabilized exponential gating.  g_in:
+    [B, S, 4, H, dh]; r_gates: [H, dh, 4, dh]; b_gates: [4, H, dh] →
+    h: [B, S, H, dh]."""
+    bsz, steps, _, h, dh = g_in.shape
+    g_all, r, bias = _wide(g_in), _wide(r_gates), _wide(b_gates)
+    c = n = m = hid = g_all.new_zeros((bsz, h, dh))
+    hs = []
+    for t in range(steps):
+        gg = g_all[:, t] + torch.einsum("bhd,hdge->bghe", hid, r) + bias
+        li, lf, z_raw, o_raw = gg.unbind(dim=1)
+        lf = F.logsigmoid(lf)
+        m_new = torch.maximum(lf + m, li)
+        ip = torch.exp(li - m_new)
+        fp = torch.exp(lf + m - m_new)
+        c = fp * c + ip * torch.tanh(z_raw)
+        n = fp * n + ip
+        hid = torch.sigmoid(o_raw) * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(hid)
+    return torch.stack(hs, dim=1).to(g_in.dtype)

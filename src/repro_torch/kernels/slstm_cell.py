@@ -1,0 +1,61 @@
+"""sLSTM recurrent cell on Hopper — the counterpart of
+``repro.kernels.slstm_cell`` (TPU kernel ``_slstm_kernel``).
+
+``repro_torch::slstm_cell`` launches ``csrc/slstm_cell.cu`` (one CUDA
+block per (batch row, head) running the whole time loop, one thread per
+gate column) for CUDA tensors and runs the plain sequential cell for CPU
+tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import slstm_cell_ref
+
+#: launches of the CUDA kernel in this process
+launches = 0
+
+#: largest head width dh the kernel takes (4·dh threads a block)
+MAX_DH = 256
+
+
+@torch.library.custom_op("repro_torch::slstm_cell", mutates_args=(),
+                         device_types="cpu")
+def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
+               b_gates: torch.Tensor) -> torch.Tensor:
+    """g_in[B, S, 4, H, dh], r_gates[H, dh, 4, dh], b_gates[4, H, dh] →
+    the hidden trajectory [B, S, H, dh]."""
+    return slstm_cell_ref(g_in, r_gates, b_gates)
+
+
+@slstm_cell.register_kernel("cuda")
+def _slstm_cell_cuda(g_in, r_gates, b_gates):
+    global launches
+    b, s, four, h, dh = g_in.shape
+    if any(t.dtype != torch.float32 for t in (g_in, r_gates, b_gates)):
+        raise TypeError(f"slstm_cell takes float32, got {g_in.dtype}, "
+                        f"{r_gates.dtype}, {b_gates.dtype}")
+    if four != 4 or r_gates.shape != (h, dh, 4, dh) \
+            or b_gates.shape != (4, h, dh):
+        raise ValueError(f"slstm_cell: shapes {tuple(g_in.shape)}, "
+                         f"{tuple(r_gates.shape)}, {tuple(b_gates.shape)}")
+    if dh > MAX_DH:
+        raise ValueError(f"slstm_cell kernel takes dh <= {MAX_DH}, got {dh}")
+    if not all(t.is_contiguous() for t in (g_in, r_gates, b_gates)):
+        raise ValueError("slstm_cell takes contiguous operands")
+    if r_gates.device != g_in.device or b_gates.device != g_in.device:
+        raise ValueError("slstm_cell operands must share one device")
+    out = torch.empty((b, s, h, dh), dtype=g_in.dtype, device=g_in.device)
+    with torch.cuda.device(g_in.device):
+        _build.launch("repro_slstm_cell_f32", g_in.data_ptr(),
+                      r_gates.data_ptr(), b_gates.data_ptr(), out.data_ptr(),
+                      b, s, h, dh, torch.cuda.current_stream().cuda_stream)
+    launches += 1
+    return out
+
+
+@slstm_cell.register_fake
+def _slstm_cell_fake(g_in, r_gates, b_gates):
+    b, s, _, h, dh = g_in.shape
+    return g_in.new_empty((b, s, h, dh))

@@ -14,10 +14,16 @@ import pytest
 import torch
 
 from repro_torch.core import uipick as tuipick
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba2_ssd as tssd
 from repro_torch.kernels import matmul_tiled as tmm
 from repro_torch.kernels import microbench as tmb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import slstm_cell as tsc
+from repro_torch.testing import variants
+from repro_torch.testing.variants import (ATTN_KW, ATTN_SHAPES, SLSTM_SHAPES,
+                                          SSD_SHAPES)
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -38,6 +44,14 @@ def _check(got, plain, *args, dt="float32"):
     np.testing.assert_allclose(got.double().cpu().numpy(),
                                plain(*args).double().cpu().numpy(),
                                **TOL[dt])
+
+
+def _reject(got, wrong, *args, dt="float32"):
+    """The plain variant ``wrong`` must fail the check ``got`` passed."""
+    if dt == "float32":
+        args = tuple(x.double() for x in args)
+    assert not np.allclose(got.double().cpu().numpy(),
+                           wrong(*args).double().cpu().numpy(), **TOL[dt])
 
 
 @pytest.fixture
@@ -93,8 +107,28 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         tops.madd_throughput(torch.ones(1024, dtype=torch.bfloat16,
                                         device=cuda))
-    with pytest.raises(ValueError, match="1 to 8 inputs"):
-        tops.stream_strided([torch.ones(1024, device=cuda)] * 9, block=256)
+    with pytest.raises(TypeError):
+        tops.flash_attention(*[torch.ones(1, 64, 2, 16, device=cuda,
+                                          dtype=torch.float64)] * 3)
+    with pytest.raises(ValueError):
+        tops.flash_attention(torch.ones(1, 64, 2, 512, device=cuda),
+                             *[torch.ones(1, 64, 1, 512, device=cuda)] * 2)
+    with pytest.raises(ValueError):
+        tops.mamba2_ssd(torch.ones(1, 64, 2, 128, device=cuda),
+                        torch.ones(1, 64, 2, device=cuda),
+                        *[torch.ones(1, 64, 2, 16, device=cuda)] * 2)
+    with pytest.raises(TypeError):
+        tops.slstm_cell(torch.ones(1, 4, 4, 2, 8, device=cuda,
+                                   dtype=torch.bfloat16),
+                        torch.ones(2, 8, 4, 8, device=cuda,
+                                   dtype=torch.bfloat16),
+                        torch.ones(4, 2, 8, device=cuda,
+                                   dtype=torch.bfloat16))
+    # more than 8 inputs take one launch per group of 8
+    before = tmb.launches["stream_strided"]
+    out = tops.stream_strided([torch.ones(1024, device=cuda)] * 9, block=256)
+    assert tmb.launches["stream_strided"] == before + 2
+    assert bool((out == 9).all())
 
 
 @pytest.mark.gpu
@@ -102,13 +136,15 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(cuda):
     (8192, 256, 1, 1), (8192, 256, 2, 1), (8192, 256, 4, 1),
     (8192, 256, 1, 3), (8192, 256, 2, 3), (8192, 256, 4, 3),
     (8000, 250, 2, 3),          # block % 4 != 0: the one-float path
+    # more inputs than one launch sums: groups of 8, in order
+    (8192, 256, 1, 9), (8192, 256, 2, 17), (8000, 250, 2, 9),
 ])
 def test_stream_strided_kernel_on_card(cuda, S, block, stride, n_arrays):
     arrs = [torch.from_numpy(rn(20 + j, S)).to(cuda)
             for j in range(n_arrays)]
     before = tmb.launches["stream_strided"]
     got = tops.stream_strided(arrs, block=block, stride=stride)
-    assert tmb.launches["stream_strided"] == before + 1
+    assert tmb.launches["stream_strided"] == before + -(-n_arrays // 8)
     _check(got, lambda *a: tref.stream_ref(list(a), block=block,
                                            stride=stride), *arrs)
 
@@ -140,6 +176,71 @@ def test_madd_throughput_chain_visible_on_card(cuda, S, iters, block):
     for short in (iters // 2, 0):
         wrong = tref.madd_ref(x.double(), iters=short, **visible)
         assert bool(((wrong - want).abs() > room).all())
+
+
+def _attention_inputs(dev, dt, B, S, Hq, Hkv, D, q_scale=1.0):
+    tdt = DTYPES[dt]
+    return (torch.from_numpy(rn(3, B, S, Hq, D) * q_scale).to(dev, tdt),
+            torch.from_numpy(rn(4, B, S, Hkv, D)).to(dev, tdt),
+            torch.from_numpy(rn(5, B, S, Hkv, D)).to(dev, tdt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", ATTN_KW)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", ATTN_SHAPES)
+def test_flash_attention_kernel_on_card(cuda, dt, kw, B, S, Hq, Hkv, D):
+    q, k, v = _attention_inputs(cuda, dt, B, S, Hq, Hkv, D)
+    before = tfa.launches
+    got = tops.flash_attention(q, k, v, block_q=64, block_k=64, **kw)
+    assert tfa.launches == before + 1
+    _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v, dt=dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", ATTN_KW)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", ATTN_SHAPES)
+def test_flash_attention_check_rejects_wrong_variants(cuda, dt, kw, B, S,
+                                                      Hq, Hkv, D):
+    """With q scaled by 8 the scores reach tens (unit inputs move them by
+    ~1e-4 of themselves under softcap 50): the kernel passes, and the
+    plain version without the softcap, without the window, or with the kv
+    head h % Hkv fails wherever it computes something different."""
+    q, k, v = _attention_inputs(cuda, dt, B, S, Hq, Hkv, D, q_scale=8.0)
+    got = tops.flash_attention(q, k, v, block_q=64, block_k=64, **kw)
+    _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v, dt=dt)
+    for _, wrong in variants.attention_variants_for(kw, Hq, Hkv):
+        _reject(got, wrong, q, k, v, dt=dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_mamba2_ssd_kernel_on_card(cuda, B, S, H, P, N, chunk):
+    xdt = torch.from_numpy(rn(6, B, S, H, P)).to(cuda)
+    da = torch.from_numpy(-np.abs(rn(7, B, S, H)) * 0.1).to(cuda)
+    bm = torch.from_numpy(rn(8, B, S, H, N)).to(cuda)
+    cm = torch.from_numpy(rn(9, B, S, H, N)).to(cuda)
+    before = tssd.launches
+    got = tops.mamba2_ssd(xdt, da, bm, cm, chunk=chunk)
+    assert tssd.launches == before + 1
+    _check(got, tref.ssd_ref, xdt, da, bm, cm)
+    # S > chunk: a kernel that drops the carried state fails
+    _reject(got, lambda *a: variants.ssd_without_carried_state(
+        *a, chunk=chunk), xdt, da, bm, cm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dh", SLSTM_SHAPES)
+def test_slstm_cell_kernel_on_card(cuda, B, S, H, dh):
+    g_in = torch.from_numpy(rn(50, B, S, 4, H, dh) * 0.5).to(cuda)
+    r = torch.from_numpy(rn(51, H, dh, 4, dh) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(52, 4, H, dh) * 0.1).to(cuda)
+    before = tsc.launches
+    got = tops.slstm_cell(g_in, r, b)
+    assert tsc.launches == before + 1
+    _check(got, tref.slstm_cell_ref, g_in, r, b)
+    _reject(got, variants.slstm_without_recurrence, g_in, r, b)
 
 
 def _default_battery():

@@ -51,7 +51,7 @@ def _close(port: torch.Tensor, ref):
 
 
 @pytest.mark.parametrize("stride", [1, 2, 4])
-@pytest.mark.parametrize("n_arrays", [1, 3])
+@pytest.mark.parametrize("n_arrays", [1, 3, 9])
 def test_stream_strided_matches_reference(stride, n_arrays):
     arrs = [rn(20 + j, 8192) for j in range(n_arrays)]
     want = jops.stream_strided([jnp.asarray(a) for a in arrs], block=256,
@@ -113,7 +113,7 @@ def _arith(counts):
 
 @pytest.mark.parametrize("S,block,stride,n_arrays", [
     (8192, 256, 2, 2), (8192, 256, 1, 1), (8192, 256, 4, 3),
-    (2 ** 26, 512, 4, 2)])
+    (8192, 256, 2, 9), (2 ** 26, 512, 4, 2)])
 def test_stream_cost_rule(S, block, stride, n_arrays):
     fn = functools.partial(tops.stream_strided, block=block, stride=stride)
     c = count_fn(fn, [f32(S) for _ in range(n_arrays)])
