@@ -6,9 +6,11 @@
 Phases, each fatal on failure:
 
 1. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
-   ``nvcc`` for sm_90a, print the seconds and the ptxas report, and hold
-   the SASS (``cuobjdump -sass``) of ``madd_throughput``'s chain loop to
-   8 FFMAs per step, so the compiler folded nothing;
+   ``nvcc`` for sm_90a, print the seconds and the ptxas report, hold the
+   ``matmul_tiled`` and ``flash_attention`` kernels to no register
+   spills, and hold the SASS (``cuobjdump -sass``) of
+   ``madd_throughput``'s chain loop to 8 FFMAs per step, so the compiler
+   folded nothing;
 2. hold every kernel against its plain PyTorch version on the card, at
    the reference test shapes (``tests/test_kernels.py`` tolerances) and
    at the main path's sizes, with TF32 off (float32 kernels against the
@@ -17,7 +19,8 @@ Phases, each fatal on failure:
    widths of the port's gemma2-9b, zamba2-7b and xlstm-125m configs, and
    each beside plain variants that drop one point of its semantics
    (softcap, window, GQA head map, carried state, recurrence), which
-   must fail the same check;
+   must fail the same check; attention logs the kv tiles it visits per
+   layer against a full sweep;
 3. calibrate the default battery on the card through
    ``python -m repro_torch.calibrate`` (3 trials, one CUDA-graph replay
    per timing) into a temporary profile;
@@ -38,9 +41,10 @@ Phases, each fatal on failure:
    the base fit and each zoo rung (zero timings, the unmodeled features
    printed), then each kernel timed beside its plain version and its
    bound, attention also beside ``torch.compile``'d ``flex_attention``;
-9. print one ``{"kernels": [...]}`` line (all eight kernels), the card's
-   name and power limit, and the ``{"ok": true, "device": ...}`` line
-   last.
+9. log ``matmul_tiled``'s and ``flash_attention``'s time ÷ their library
+   call's and their TFLOP/s on the needed work, print one
+   ``{"kernels": [...]}`` line (all eight kernels), the card's name and
+   power limit, and the ``{"ok": true, "device": ...}`` line last.
 
 Launch counters are set to 0 before phase 3 and read after phase 5 (the
 three §8 kernels must have launched), set to 0 again before phase 6 and
@@ -447,10 +451,19 @@ def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
                      **TOL["float32"])
         log(f"slstm_cell {shape}: max|err| {err:.3g}")
 
+    from repro_torch.kernels import flash_attention as fa_module
     a = sizes["attention"]
     errs = {"flash_attention": 0.0}
+    tile_q = fa_module.TILE_Q[torch.bfloat16]
     for layer in ("local", "global"):
         kw = sizes[layer]
+        heads = a["B"] * a["Hq"]
+        visited = heads * fa_module.kv_tiles_visited(
+            a["S"], a["S"], kw["causal"], kw.get("window"), tile_q)
+        full = heads * -(-a["S"] // tile_q) * -(-a["S"] // fa_module.TILE_K)
+        log(f"flash_attention {layer}: the kernel visits {visited} kv tiles "
+            f"({tile_q} query × {fa_module.TILE_K} key rows) of a full "
+            f"sweep's {full} ({visited / full:.1%})")
         fa = functools.partial(ops.flash_attention, **kw)
         skip = functools.partial(variants.attention_skip_last_kv_tile,
                                  block_k=128, **kw)
@@ -555,6 +568,49 @@ def check_madd_sass(sass: dict) -> None:
         f"{inner['FFMA'] // 8} steps × 8 chains per iteration")
 
 
+def ptxas_report(text: str) -> dict:
+    """Per kernel function in ``nvcc -Xptxas=-v`` output: (registers,
+    spill store bytes, spill load bytes)."""
+    import re
+    report, fn = {}, None
+    for line in text.splitlines():
+        if line.startswith("== "):   # the next source's report
+            fn = None
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w]+)'?", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if fn and m:
+            regs, stores, loads = report.get(fn, (0, 0, 0))
+            report[fn] = (regs, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m:
+            _, stores, loads = report.get(fn, (0, 0, 0))
+            report[fn] = (int(m.group(1)), stores, loads)
+    return report
+
+
+#: kernel functions held to no register spills, by name fragment
+NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel")
+
+
+def check_no_spills(text: str) -> None:
+    """Log registers and spills of the ``NO_SPILLS`` functions in a ptxas
+    report and fail if one spills."""
+    found = {fn: r for fn, r in ptxas_report(text).items()
+             if any(part in fn for part in NO_SPILLS)}
+    if not found:
+        raise SystemExit(f"the ptxas report names none of {NO_SPILLS}")
+    for fn, (regs, stores, loads) in sorted(found.items()):
+        log(f"ptxas {fn}: {regs} registers, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads")
+        if stores or loads:
+            raise SystemExit(f"{fn} spills registers")
+
+
 def time_zoo_kernels(ops, ref, dev, preds_by_rung, F):
     """Phase 7's timing: every kernel at its real size, its plain
     version, one library call where there is one, and its bound; returns
@@ -621,6 +677,7 @@ def time_zoo_kernels(ops, ref, dev, preds_by_rung, F):
         lib = case["library"]
         return {
             "ms": ms,
+            "tflops": ops_n / ms / 1e9,
             "plain_ms": time_ms(case["plain"], *case["args"]),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -757,6 +814,7 @@ def model_layer_path(calibrate_main, PerfSession, cases, dev, base_profile,
             lib_ms = time_ms(lib, *args)
         rows[name] = {
             "ms": ms,
+            "tflops": ops_n / ms / 1e9,
             "plain_ms": time_ms(case["plain"], *args,
                                 iters=case["plain_iters"], warmup=1),
             "bound_ms": max(t_ops, t_bytes),
@@ -871,12 +929,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    ptxas = _build.BUILD_DIR / "ptxas.txt"
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if any(w in line for w in ("registers", "spill", "==",
-                                       "entry function")):
-                log(f"ptxas {line.strip()}")
+    ptxas = _build.ptxas_report_path(lib)
+    if not ptxas.exists():
+        raise SystemExit(f"no ptxas report beside {lib.name}")
+    for line in ptxas.read_text().splitlines():
+        if any(w in line for w in ("registers", "spill", "==",
+                                   "entry function")):
+            log(f"ptxas {line.strip()}")
+    check_no_spills(ptxas.read_text())
     check_madd_sass(sass_counts(lib))
 
     # ---- 2. each kernel against its plain version ---------------------------
@@ -1029,6 +1089,14 @@ def main() -> int:
                 f"{'none' if lib_ms is None else f'{lib_ms:.4g} ms'}; "
                 f"pred/meas {ratios}")
 
+    for name, r in (("matmul_tiled", measured["matmul_tiled"]),
+                    ("flash_attention local", measured["flash_attention"]),
+                    ("flash_attention global",
+                     measured["flash_attention"]["global"])):
+        log(f"{name}: {r['ms']:.4g} ms = "
+            f"{r['ms'] / r['library_ms']:.3g}× its library call "
+            f"({r['library_ms']:.4g} ms), {r['tflops']:.4g} TFLOP/s on the "
+            f"needed work, {r['bound_ms'] / r['ms']:.1%} of its bound")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

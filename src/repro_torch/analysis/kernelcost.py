@@ -38,8 +38,10 @@ from repro_torch.core.counting import (
 )
 from repro_torch.kernels.flash_attention import TILE_K as FLASH_TILE_K
 from repro_torch.kernels.flash_attention import TILE_Q as FLASH_TILE_Q
+from repro_torch.kernels.flash_attention import kv_tiles_visited
 from repro_torch.kernels.mamba2_ssd import TILE as SSD_TILE
-from repro_torch.kernels.matmul_tiled import SUBTILE as MATMUL_SUBTILE
+from repro_torch.kernels.matmul_tiled import STAGE_K as MATMUL_STAGE_K
+from repro_torch.kernels.matmul_tiled import TILE as MATMUL_TILE
 from repro_torch.kernels.stencil5 import STRIP_ROWS as STENCIL_STRIP_ROWS
 
 BYTES_IN_FEATURE = "f_mem_hbm_bytes_in"
@@ -89,12 +91,13 @@ def matmul_tiled_cost(a: torch.Tensor, b: torch.Tensor, block_m: int,
     _traffic(c, "in", a.dtype, block_m * block_k, block_fetches(grid, (0, 2)))
     _traffic(c, "in", b.dtype, block_k * block_n, block_fetches(grid, (2, 1)))
     _traffic(c, "out", a.dtype, block_m * block_n, block_fetches(grid, (0, 1)))
-    # each k panel of A is staged once per 128-column sub-tile, of B once
-    # per 128-row sub-tile (csrc/matmul_tiled.cu)
-    sub_m = -(-block_m // MATMUL_SUBTILE[0])
-    sub_n = -(-block_n // MATMUL_SUBTILE[1])
+    # the CUDA kernel's own grid: each 128 × 128 output tile stages its
+    # A rows and B columns (as f32) once, 32 k deep a stage, zero-filled
+    # past the matrices (csrc/matmul_tiled.cu)
+    tiles = -(-m // MATMUL_TILE[0]) * -(-n // MATMUL_TILE[1])
+    depth = -(-k // MATMUL_STAGE_K) * MATMUL_STAGE_K
     c.add("f_vmem_contig_float32_store",
-          programs * (sub_n * block_m * block_k + sub_m * block_k * block_n))
+          tiles * depth * (MATMUL_TILE[0] + MATMUL_TILE[1]))
     c.add("f_sync_grid_programs", programs)
     return c
 
@@ -188,7 +191,9 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     div, ``tanh`` and mul when set; the program with the last kv step
     divides acc by ``max(l, 1e-30)``.  K and V change block every kv
     step, so with more than one kv step they are fetched by every
-    program; with one, once per (batch, kv head)."""
+    program; with one, once per (batch, kv head).  Only the port's
+    ``f_vmem_*`` staging term follows the CUDA kernel, which visits just
+    the kv tiles a query tile can see."""
     b, sq, hq, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     nq, nk = sq // block_q, skv // block_k
@@ -217,13 +222,15 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _traffic(c, "in", k.dtype, block_k * d, kv_fetches)
     _traffic(c, "in", v.dtype, block_k * dv, kv_fetches)
     _traffic(c, "out", q.dtype, block_q * dv, qo_fetches)
-    # the CUDA kernel stages, per 64-row query tile, Q once and per 64-row
-    # kv step the K tile, the V tile and the probabilities
-    q_tiles = b * hq * -(-sq // FLASH_TILE_Q)
-    kv_steps = -(-skv // FLASH_TILE_K)
-    c.add("f_vmem_contig_float32_store", q_tiles * (
-        FLASH_TILE_Q * d + kv_steps * (FLASH_TILE_K * (d + dv)
-                                       + FLASH_TILE_Q * FLASH_TILE_K)))
+    # the CUDA kernel stages, per query tile, Q once and per kv tile it
+    # visits (only those its rows can see) the K and V tiles — in bf16
+    # (tensor cores) as they are, in f32 (FMA) also the probabilities
+    tq = FLASH_TILE_Q[q.dtype]
+    visited = b * hq * kv_tiles_visited(sq, skv, causal, window, tq)
+    staged = b * hq * -(-sq // tq) * tq * d + visited * FLASH_TILE_K * (d + dv)
+    if q.dtype == torch.float32:
+        staged += visited * tq * FLASH_TILE_K
+    c.add(f"f_vmem_contig_{dtype_name(q.dtype)}_store", staged)
     c.add("f_sync_grid_programs", programs)
     return c
 

@@ -37,8 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point → argument types (pointers and the stream as c_void_p,
 #: so ctypes never truncates a 64-bit address to an int)
 SIGNATURES: Dict[str, List] = {
-    "repro_matmul_tiled_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "repro_matmul_tiled_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, c, M, N, K
+    "repro_matmul_tiled_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_matmul_tiled_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "repro_stencil5_f32": [_P, _P, _I, _I, _I, _I, _P],
     "repro_dg_diff_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # a host array of input pointers, then n_arrays
@@ -77,11 +78,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:12]}.so"
 
 
+def ptxas_report_path(lib: Path) -> Path:
+    """The compiler's ``-Xptxas=-v`` report (registers, shared memory,
+    spills per kernel) of the library ``lib``, named by the same hash."""
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build() -> Path:
     """Compile the sources (in parallel) and link the shared library,
-    unless a library of these exact sources exists.  The compiler's
-    ``-Xptxas=-v`` report (registers, shared memory, spills per kernel)
-    is kept beside the library as ``ptxas.txt``."""
+    unless a library of these exact sources exists.  The ptxas report is
+    written beside it (:func:`ptxas_report_path`) before the library
+    appears."""
     lib = library_path()
     if lib.exists():
         return lib
@@ -109,7 +116,7 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        (BUILD_DIR / "ptxas.txt").write_text("\n".join(logs))
+        ptxas_report_path(lib).write_text("\n".join(logs))
         os.replace(staged, lib)   # atomic: concurrent builders never tear
     return lib
 

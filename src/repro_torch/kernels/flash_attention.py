@@ -2,13 +2,16 @@
 ``repro.kernels.flash_attention`` (TPU kernel ``_flash_kernel``).
 
 ``repro_torch::flash_attention`` launches ``csrc/flash_attention.cu``
-(one CUDA block per 64-row query tile of a (batch, head), streaming the
-keys in 64-row tiles with the softmax state in registers) for CUDA
-tensors, f32 or bf16, and runs the plain version for CPU tensors.
+for CUDA tensors and runs the plain version for CPU tensors.  One CUDA
+block owns a query tile of a (batch, head) and streams the keys in
+``TILE_K``-row tiles with the softmax state in registers, visiting only
+the kv tiles its rows can see (:func:`kv_tile_range`): bf16 on the
+tensor cores (``mma.sync``) with 128-row query tiles, f32 as FMA with
+64-row ones (``TILE_Q``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,13 +21,41 @@ from repro_torch.kernels.ref import attention_ref
 #: launches of the CUDA kernel in this process
 launches = 0
 
-#: query rows a CUDA block owns, and key rows per inner step
-TILE_Q = TILE_K = 64
+#: query rows a CUDA block owns, by operand dtype, and key rows per
+#: inner step (kTileQ of each path, and kTileK, in the source)
+TILE_Q = {torch.bfloat16: 128, torch.float32: 64}
+TILE_K = 64
 #: largest head dimension (D and Dv) the kernel takes
 MAX_HEAD_DIM = 256
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
+
+
+def kv_tile_range(q_first: int, q_last: int, skv: int, causal: bool,
+                  window: Optional[int]) -> Tuple[int, int]:
+    """The kv tiles ``[lo, hi)`` query rows ``[q_first, q_last]`` can see,
+    as the kernel computes them: keys ``[max(0, q_first − window + 1),
+    min(Skv, q_last + 1))`` — the lower end only with a window, the upper
+    end only when causal (none under a causal mask with window 0) —
+    rounded out to whole ``TILE_K`` tiles."""
+    lo = max(0, q_first - window + 1) if window is not None else 0
+    hi = skv if not causal else 0 if window == 0 else min(skv, q_last + 1)
+    t_lo = lo // TILE_K
+    return (t_lo, -(-hi // TILE_K)) if lo < hi else (t_lo, t_lo)
+
+
+def kv_tiles_visited(sq: int, skv: int, causal: bool, window: Optional[int],
+                     tile_q: int) -> int:
+    """kv tiles the kernel stages for one (batch, head), summed over its
+    ``tile_q``-row query tiles (a full sweep stages ``ceil(Sq / tile_q) ·
+    ceil(Skv / TILE_K)``)."""
+    total = 0
+    for q0 in range(0, sq, tile_q):
+        lo, hi = kv_tile_range(q0, min(q0 + tile_q, sq) - 1, skv, causal,
+                               window)
+        total += hi - lo
+    return total
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
@@ -55,6 +86,9 @@ def _flash_attention_cuda(q, k, v, causal, window, softcap, scale, block_q,
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes head dims up to "
                          f"{MAX_HEAD_DIM}, got D={d}, Dv={dv}")
+    if window is not None and window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got "
+                         f"{window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")

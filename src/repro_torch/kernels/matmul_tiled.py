@@ -2,9 +2,12 @@
 ``repro.kernels.matmul_tiled`` (TPU kernel ``_matmul_kernel``).
 
 ``repro_torch::matmul_tiled`` launches ``csrc/matmul_tiled.cu`` for CUDA
-tensors and runs the plain version for CPU tensors; the block sizes are
-the output tile each CUDA block owns and the k-panel it walks, the same
-tiling the cost rule (:mod:`repro_torch.analysis.kernelcost`) reports.
+tensors and runs the plain version for CPU tensors.  The CUDA grid is
+the kernel's own — one block per ``TILE`` output tile, staging k
+``STAGE_K`` deep through a 3-stage ``cp.async`` ring and summing each
+16-deep slice into its own partial — whatever the block sizes are; those
+are the reference's grid, which the wrapper still checks and the cost
+rule (:mod:`repro_torch.analysis.kernelcost`) reports.
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ from repro_torch.kernels.ref import matmul_ref
 #: launch; callers reset it to 0 to count one run)
 launches = 0
 
-#: output sub-tile a CUDA block loops over (kTileM, kTileN in the source)
-SUBTILE = (128, 128)
+#: output tile of one CUDA block (kTileM, kTileN in the source) and the
+#: k depth of one stage of its ring (kStageK)
+TILE = (128, 128)
+STAGE_K = 32
 
 _ENTRY = {torch.float32: "repro_matmul_tiled_f32",
           torch.bfloat16: "repro_matmul_tiled_bf16"}
@@ -51,7 +56,7 @@ def _matmul_tiled_cuda(a, b, block_m, block_n, block_k):
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         _build.launch(_ENTRY[a.dtype], a.data_ptr(), b.data_ptr(),
-                      out.data_ptr(), m, n, k, block_m, block_n, block_k,
+                      out.data_ptr(), m, n, k,
                       torch.cuda.current_stream().cuda_stream)
     launches += 1
     return out

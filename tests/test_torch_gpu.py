@@ -68,6 +68,12 @@ def cuda():
     (128, 128, 128, 128, 128, 128),
     (256, 128, 512, 128, 128, 64),
     (512, 512, 256, 256, 128, 256),
+    # M, N, K not multiples of the kernel's own 128 × 128 tile, its
+    # 16-deep slice or its 3-slice ring
+    (192, 80, 320, 64, 64, 80),
+    (200, 72, 136, 8, 8, 8),
+    # N % 4 != 0: B staged element by element, C stored per element
+    (96, 40, 90, 32, 30, 40),
 ])
 def test_matmul_kernel_on_card(cuda, dt, m, k, n, bm, bn, bk):
     tdt = DTYPES[dt]
@@ -113,6 +119,9 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         tops.flash_attention(torch.ones(1, 64, 2, 512, device=cuda),
                              *[torch.ones(1, 64, 1, 512, device=cuda)] * 2)
+    with pytest.raises(ValueError, match="window"):
+        tops.flash_attention(*[torch.ones(1, 64, 2, 16, device=cuda)] * 3,
+                             window=-1)
     with pytest.raises(ValueError):
         tops.mamba2_ssd(torch.ones(1, 64, 2, 128, device=cuda),
                         torch.ones(1, 64, 2, device=cuda),
@@ -209,6 +218,46 @@ def test_flash_attention_check_rejects_wrong_variants(cuda, dt, kw, B, S,
     head h % Hkv fails wherever it computes something different."""
     q, k, v = _attention_inputs(cuda, dt, B, S, Hq, Hkv, D, q_scale=8.0)
     got = tops.flash_attention(q, k, v, block_q=64, block_k=64, **kw)
+    _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v, dt=dt)
+    for _, wrong in variants.attention_variants_for(kw, Hq, Hkv):
+        _reject(got, wrong, q, k, v, dt=dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,D,Dv,kw", [
+    # gemma's D = 256: a window inside one kv tile, and one that starts
+    # mid-sequence, so kv tiles are skipped below the window and above
+    # the diagonal
+    (512, 512, 256, 256, dict(causal=True, window=24)),
+    (512, 512, 256, 256, dict(causal=True, window=160, softcap=50.0)),
+    # a window without causal keeps every later key
+    (512, 512, 256, 256, dict(causal=False, window=100)),
+    # D not a multiple of 16: 16-byte staging (40), element staging (20),
+    # an odd Dv (stored element by element)
+    (256, 256, 40, 40, dict(causal=True)),
+    (256, 256, 20, 20, dict(causal=True, window=48)),
+    (128, 128, 48, 33, dict(causal=True, softcap=30.0)),
+    # Sq not a multiple of the kernel's query tile (128 bf16, 64 f32),
+    # and a ragged last kv tile
+    (160, 160, 64, 64, dict(causal=True)),
+    (96, 96, 128, 128, dict(causal=False, softcap=30.0)),
+    (96, 160, 64, 64, dict(causal=True, window=40)),
+])
+def test_flash_attention_kernel_edges_on_card(cuda, dt, Sq, Skv, D, Dv, kw):
+    """The tile skip, the padding of D and the ragged edges: q × 8 (scores
+    in the tens), the plain version at the reference tolerance, and each
+    plain variant that drops the window, the softcap or the GQA head map
+    fails."""
+    tdt = DTYPES[dt]
+    B, Hq, Hkv = 1, 4, 2
+    q = torch.from_numpy(rn(40, B, Sq, Hq, D) * 8.0).to(cuda, tdt)
+    k = torch.from_numpy(rn(41, B, Skv, Hkv, D)).to(cuda, tdt)
+    v = torch.from_numpy(rn(42, B, Skv, Hkv, Dv)).to(cuda, tdt)
+    before = tfa.launches
+    got = tops.flash_attention(q, k, v, block_q=32, block_k=32, **kw)
+    assert tfa.launches == before + 1
+    assert got.shape == (B, Sq, Hq, Dv)
     _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v, dt=dt)
     for _, wrong in variants.attention_variants_for(kw, Hq, Hkv):
         _reject(got, wrong, q, k, v, dt=dt)

@@ -7,12 +7,16 @@ the ``tests/test_kernels.py`` shapes and tolerances, on the same numpy
 inputs.  The CUDA kernels themselves run only on the card
 (``tests/test_torch_gpu.py``).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.analysis.targets import f32
+from repro_torch.core.counting import count_fn
 from repro_torch.kernels import dg_diff as tdg
 from repro_torch.kernels import matmul_tiled as tmm
 from repro_torch.kernels import ops as tops
@@ -45,6 +49,7 @@ def _close(port: torch.Tensor, ref, dt: str):
     (128, 128, 128, 128, 128, 128),
     (256, 128, 512, 128, 128, 64),
     (512, 512, 256, 256, 128, 256),
+    (192, 80, 320, 64, 64, 80),
 ])
 def test_matmul_matches_reference(dt, m, k, n, bm, bn, bk):
     (ja, ta), (jb, tb) = _both(rn(1, m, k), dt), _both(rn(2, k, n), dt)
@@ -87,3 +92,137 @@ def test_cpu_path_launches_nothing():
 def test_wrappers_reject_blocks_that_do_not_tile(call):
     with pytest.raises(ValueError):
         call()
+
+
+# ---------------------------------------------------------------------------
+# cost rules: only the port's staging term follows the CUDA kernels
+# ---------------------------------------------------------------------------
+
+_bf16 = functools.partial(torch.empty, dtype=torch.bfloat16, device="meta")
+
+#: (call, shapes) → every feature but ``f_vmem_*``: the reference
+#: kernels' features (madds, traffic, transcendentals, grid programs,
+#: ...), which no design of the CUDA kernels may move
+REFERENCE_FEATURES = {
+    "flash f32 (2, 256, 8, 2, 64) causal blocks 64": (
+        functools.partial(tops.flash_attention, causal=True, block_q=64,
+                          block_k=64),
+        (f32(2, 256, 8, 64), f32(2, 256, 2, 64), f32(2, 256, 2, 64)),
+        {"f_mem_contig_float32_load": 2359296,
+         "f_mem_contig_float32_store": 262144,
+         "f_mem_hbm_bytes_in": 9437184, "f_mem_hbm_bytes_out": 1048576,
+         "f_op_float32_add": 3178496, "f_op_float32_cmp": 1069056,
+         "f_op_float32_div": 262144, "f_op_float32_madd": 134217728,
+         "f_op_float32_mul": 2113536, "f_op_float32_transc": 1064960,
+         "f_op_int32_add": 2097152, "f_op_int32_mul": 512,
+         "f_sync_grid_programs": 256, "f_sync_launch_kernel": 1}),
+    "flash f32 (1, 128, 4, 4, 64) causal blocks 64": (
+        functools.partial(tops.flash_attention, causal=True, block_q=64,
+                          block_k=64),
+        (f32(1, 128, 4, 64), f32(1, 128, 4, 64), f32(1, 128, 4, 64)),
+        {"f_mem_contig_float32_load": 163840,
+         "f_mem_contig_float32_store": 32768,
+         "f_mem_hbm_bytes_in": 655360, "f_mem_hbm_bytes_out": 131072,
+         "f_op_float32_add": 198656, "f_op_float32_cmp": 67072,
+         "f_op_float32_div": 32768, "f_op_float32_madd": 8388608,
+         "f_op_float32_mul": 132096, "f_op_float32_transc": 66560,
+         "f_op_int32_add": 131072, "f_op_int32_mul": 32,
+         "f_sync_grid_programs": 16, "f_sync_launch_kernel": 1}),
+    "flash f32 (2, 512, 8, 2, 64) causal blocks 128, 64": (
+        functools.partial(tops.flash_attention, causal=True, block_q=128,
+                          block_k=64),
+        (f32(2, 512, 8, 64), f32(2, 512, 2, 64), f32(2, 512, 2, 64)),
+        {"f_mem_contig_float32_load": 4718592,
+         "f_mem_contig_float32_store": 524288,
+         "f_mem_hbm_bytes_in": 18874368, "f_mem_hbm_bytes_out": 2097152,
+         "f_op_float32_add": 12713984, "f_op_float32_cmp": 4268032,
+         "f_op_float32_div": 524288, "f_op_float32_madd": 536870912,
+         "f_op_float32_mul": 8454144, "f_op_float32_transc": 4259840,
+         "f_op_int32_add": 8388608, "f_op_int32_mul": 1024,
+         "f_sync_grid_programs": 512, "f_sync_launch_kernel": 1}),
+    "flash bf16 (1, 256, 4, 2, 64, Dv 32) softcap 50 blocks 64": (
+        functools.partial(tops.flash_attention, block_q=64, block_k=64,
+                          softcap=50.0),
+        (_bf16(1, 256, 4, 64), _bf16(1, 256, 2, 64), _bf16(1, 256, 2, 32)),
+        {"f_mem_contig_bfloat16_load": 458752,
+         "f_mem_contig_bfloat16_store": 32768,
+         "f_mem_hbm_bytes_in": 917504, "f_mem_hbm_bytes_out": 65536,
+         "f_op_float32_add": 663552, "f_op_float32_cmp": 267264,
+         "f_op_float32_div": 294912, "f_op_float32_madd": 25165824,
+         "f_op_float32_mul": 659456, "f_op_float32_transc": 528384,
+         "f_op_int32_add": 524288, "f_op_int32_mul": 128,
+         "f_sync_grid_programs": 64, "f_sync_launch_kernel": 1}),
+    "flash bf16 gemma2-9b local layer blocks 128": (
+        functools.partial(tops.flash_attention, causal=True, window=4096,
+                          softcap=50.0, block_q=128, block_k=128),
+        (_bf16(1, 8192, 16, 256), _bf16(1, 8192, 8, 256),
+         _bf16(1, 8192, 8, 256)),
+        {"f_mem_contig_bfloat16_load": 4328521728,
+         "f_mem_contig_bfloat16_store": 33554432,
+         "f_mem_hbm_bytes_in": 8657043456, "f_mem_hbm_bytes_out": 67108864,
+         "f_op_float32_add": 4311744512, "f_op_float32_cmp": 1082261504,
+         "f_op_float32_div": 1107296256, "f_op_float32_madd": 549755813888,
+         "f_op_float32_mul": 4303355904, "f_op_float32_transc": 2155872256,
+         "f_op_int32_add": 3221225472, "f_op_int32_mul": 131072,
+         "f_sync_grid_programs": 65536, "f_sync_launch_kernel": 1}),
+    "matmul (256, 384, 512) blocks 128": (
+        functools.partial(tops.matmul, block_m=128, block_n=128,
+                          block_k=128),
+        (f32(256, 512), f32(512, 384)),
+        {"f_mem_contig_float32_load": 786432,
+         "f_mem_contig_float32_store": 98304,
+         "f_mem_hbm_bytes_in": 3145728, "f_mem_hbm_bytes_out": 393216,
+         "f_op_float32_add": 393216, "f_op_float32_madd": 50331648,
+         "f_sync_grid_programs": 24, "f_sync_launch_kernel": 1}),
+    "matmul (128, 128, 128) blocks 128": (
+        functools.partial(tops.matmul, block_m=128, block_n=128,
+                          block_k=128),
+        (f32(128, 128), f32(128, 128)),
+        {"f_mem_contig_float32_load": 32768,
+         "f_mem_contig_float32_store": 16384,
+         "f_mem_hbm_bytes_in": 131072, "f_mem_hbm_bytes_out": 65536,
+         "f_op_float32_add": 16384, "f_op_float32_madd": 2097152,
+         "f_sync_grid_programs": 1, "f_sync_launch_kernel": 1}),
+    "matmul (512, 256, 128) blocks 64": (
+        functools.partial(tops.matmul, block_m=64, block_n=64, block_k=64),
+        (f32(512, 128), f32(128, 256)),
+        {"f_mem_contig_float32_load": 524288,
+         "f_mem_contig_float32_store": 131072,
+         "f_mem_hbm_bytes_in": 2097152, "f_mem_hbm_bytes_out": 524288,
+         "f_op_float32_add": 262144, "f_op_float32_madd": 16777216,
+         "f_sync_grid_programs": 64, "f_sync_launch_kernel": 1}),
+    "matmul 4096³ blocks 256": (
+        tops.matmul, (f32(4096, 4096), f32(4096, 4096)),
+        {"f_mem_contig_float32_load": 536870912,
+         "f_mem_contig_float32_store": 16777216,
+         "f_mem_hbm_bytes_in": 2147483648, "f_mem_hbm_bytes_out": 67108864,
+         "f_op_float32_add": 268435456, "f_op_float32_madd": 68719476736,
+         "f_sync_grid_programs": 4096, "f_sync_launch_kernel": 1}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFERENCE_FEATURES))
+def test_cost_rules_keep_the_reference_features(case):
+    """Redesigning a CUDA kernel moves only the port's ``f_vmem_*``
+    staging term: every feature the reference counts keeps its value."""
+    fn, args, want = REFERENCE_FEATURES[case]
+    got = count_fn(fn, *args)
+    assert {k: v for k, v in got.items()
+            if v and not k.startswith("f_vmem_")} == want
+
+
+@pytest.mark.parametrize("M,N,K,b", [
+    (256, 384, 512, 128), (128, 128, 128, 128), (512, 256, 128, 64),
+    (192, 320, 80, 16), (4096, 4096, 4096, 256)])
+def test_matmul_staging_term_follows_the_kernel_tile(M, N, K, b):
+    """One CUDA block per 128 × 128 output tile stages its A rows and B
+    columns once, 32 k deep a stage (zero-filled past the matrices),
+    whatever the reference's blocks are."""
+    bk = min(b, K)
+    c = count_fn(functools.partial(tops.matmul, block_m=min(b, M),
+                                   block_n=min(b, N), block_k=bk),
+                 f32(M, K), f32(K, N))
+    tiles = -(-M // 128) * -(-N // 128)
+    assert (tmm.TILE, tmm.STAGE_K) == ((128, 128), 32)
+    assert c["f_vmem_contig_float32_store"] == \
+        tiles * -(-K // 32) * 32 * (128 + 128)

@@ -236,6 +236,76 @@ def test_flash_attention_cost_rule_bf16_traffic():
                                         + B * Hkv * S * (D + Dv))
 
 
+def _tiles_with_unmasked_pairs(sq, skv, causal, window, tile_q):
+    """(query tile, kv tile) pairs that hold at least one unmasked (q, k)
+    pair, by brute force over the reference's mask."""
+    qpos, kpos = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    keep = np.ones((sq, skv), bool)
+    if causal:
+        keep &= qpos >= kpos
+    if window is not None:
+        keep &= qpos - kpos < window
+    nq, nk = -(-sq // tile_q), -(-skv // tfa.TILE_K)
+    padded = np.zeros((nq * tile_q, nk * tfa.TILE_K), bool)
+    padded[:sq, :skv] = keep
+    return int(padded.reshape(nq, tile_q, nk, tfa.TILE_K).any(
+        axis=(1, 3)).sum())
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,tile_q", [
+    (256, 256, True, None, 128), (256, 256, False, None, 64),
+    (512, 512, True, 24, 128), (512, 512, True, 160, 64),
+    (512, 512, False, 100, 128), (160, 96, True, 40, 64),
+    (96, 160, True, 40, 128), (192, 192, True, 0, 128),
+    (8192, 8192, True, 4096, 128), (8192, 8192, True, None, 128)])
+def test_kernel_visits_exactly_the_kv_tiles_with_unmasked_pairs(
+        sq, skv, causal, window, tile_q):
+    """The kv range the kernel walks per query tile is exact: every tile
+    outside it is fully masked (so skipping it changes nothing) and every
+    tile inside holds an unmasked pair."""
+    assert tfa.kv_tiles_visited(sq, skv, causal, window, tile_q) == \
+        _tiles_with_unmasked_pairs(sq, skv, causal, window, tile_q)
+
+
+def test_gemma_layers_visit_fewer_kv_tiles_than_a_full_sweep():
+    full = 64 * 128   # 128-row query tiles × 64-row kv tiles at S = 8192
+    assert tfa.kv_tiles_visited(8192, 8192, True, 4096, 128) == 3168
+    assert tfa.kv_tiles_visited(8192, 8192, True, None, 128) == 4160
+    assert tfa.kv_tiles_visited(8192, 8192, False, None, 128) == full
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,Dv,kw", [
+    (2, 256, 256, 8, 2, 64, 64, dict(causal=True)),
+    (1, 512, 512, 4, 2, 256, 256, dict(causal=True, window=160)),
+    (1, 160, 96, 4, 2, 48, 33, dict(causal=True, window=40)),
+    (1, 256, 256, 4, 2, 64, 32, dict(causal=False, softcap=50.0)),
+    (1, 8192, 8192, 16, 8, 256, 256,
+     dict(causal=True, window=4096, softcap=50.0)),
+])
+def test_flash_attention_staging_term_counts_visited_tiles(
+        dt, B, Sq, Skv, Hq, Hkv, D, Dv, kw):
+    """``f_vmem_*``: per query tile Q once, per visited kv tile K and V
+    (data elements, padding not counted); bf16 staged as bf16 with no
+    probability buffer, f32 as f32 with the 64 × 64 probabilities."""
+    tdt = DTYPES[dt][1]
+    tq = tfa.TILE_Q[tdt]
+    bk = 32
+    meta = functools.partial(torch.empty, dtype=tdt, device="meta")
+    c = count_fn(functools.partial(tops.flash_attention, block_q=32,
+                                   block_k=bk, **kw),
+                 meta(B, Sq, Hq, D), meta(B, Skv, Hkv, D),
+                 meta(B, Skv, Hkv, Dv))
+    visited = B * Hq * _tiles_with_unmasked_pairs(
+        Sq, Skv, kw["causal"], kw.get("window"), tq)
+    want = B * Hq * -(-Sq // tq) * tq * D + visited * 64 * (D + Dv)
+    if dt == "float32":
+        want += visited * 64 * 64
+    assert c[f"f_vmem_contig_{dt}_store"] == want
+    other = "bfloat16" if dt == "float32" else "float32"
+    assert c[f"f_vmem_contig_{other}_store"] == 0
+
+
 def _attn_program(q, k, v, m_prev, l_prev, acc, iq, ik, *, scale, causal,
                   window, softcap, bq, bk):
     """``_flash_kernel``'s per-program body with its refs as arrays."""
