@@ -7,8 +7,9 @@ Phases, each fatal on failure:
 
 1. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
    ``nvcc`` for sm_90a, print the seconds and the ptxas report, hold the
-   ``matmul_tiled`` and ``flash_attention`` kernels to no register
-   spills, and hold the SASS (``cuobjdump -sass``) of
+   ``matmul_tiled``, ``flash_attention``, ``dg_diff`` and
+   ``stream_strided`` kernels to no register spills (``NO_SPILLS``),
+   and hold the SASS (``cuobjdump -sass``) of
    ``madd_throughput``'s chain loop to 8 FFMAs per step, so the compiler
    folded nothing;
 2. hold every kernel against its plain PyTorch version on the card, at
@@ -41,10 +42,16 @@ Phases, each fatal on failure:
    the base fit and each zoo rung (zero timings, the unmodeled features
    printed), then each kernel timed beside its plain version and its
    bound, attention also beside ``torch.compile``'d ``flex_attention``;
-9. log ``matmul_tiled``'s and ``flash_attention``'s time ÷ their library
-   call's and their TFLOP/s on the needed work, print one
-   ``{"kernels": [...]}`` line (all eight kernels), the card's name and
-   power limit, and the ``{"ok": true, "device": ...}`` line last.
+9. time ``dg_diff`` and ``stream_strided`` (stride 1 and 4) in turns
+   with their library call (:func:`time_in_turns`: 5 rounds of kernel,
+   library, library, kernel) and log the median ratio, three lines; log
+   ``matmul_tiled``'s, ``flash_attention``'s, ``dg_diff``'s and
+   ``stream_strided``'s time ÷ their library call's, their TFLOP/s on
+   the needed work and their share of the bound; print one
+   ``{"kernels": [...]}`` line (all eight kernels; ``ms`` and
+   ``library_ms`` are phase 7's and 8's :func:`time_ms`; the in-turns
+   median rides along as ``in_turns_ratio``), the card's name and power
+   limit, and the ``{"ok": true, "device": ...}`` line last.
 
 Launch counters are set to 0 before phase 3 and read after phase 5 (the
 three §8 kernels must have launched), set to 0 again before phase 6 and
@@ -168,6 +175,22 @@ def time_ms(fn, *args, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         ts.append(start.elapsed_time(end))
     return float(np.median(ts))
+
+
+def time_in_turns(kernel, library, args, rounds: int = 5) -> dict:
+    """Kernel ÷ library timed in turns: both warmed, then ``rounds``
+    rounds of kernel, library, library, kernel, each a :func:`time_ms`
+    median of 10; a round's ratio is its two kernel times over its two
+    library times.  Returns the median ratio and each round's."""
+    import numpy as np
+    for fn in (kernel, library):
+        time_ms(fn, *args)
+    ratios = []
+    for _ in range(rounds):
+        k1, l1, l2, k2 = (time_ms(fn, *args)
+                          for fn in (kernel, library, library, kernel))
+        ratios.append((k1 + k2) / (l1 + l2))
+    return {"median": float(np.median(ratios)), "rounds": ratios}
 
 
 def excess(got, want, rtol, atol, row_rtol=None) -> float:
@@ -594,7 +617,8 @@ def ptxas_report(text: str) -> dict:
 
 
 #: kernel functions held to no register spills, by name fragment
-NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel")
+NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
+             "dg_diff_kernel", "stream_kernel")
 
 
 def check_no_spills(text: str) -> None:
@@ -615,7 +639,7 @@ def time_zoo_kernels(ops, ref, dev, preds_by_rung, F):
     """Phase 7's timing: every kernel at its real size, its plain
     version, one library call where there is one, and its bound; returns
     one JSON row per kernel (stream_strided carries its stride-4
-    variant)."""
+    variant) and the cases (callables and inputs) they were timed on."""
     import functools
 
     import numpy as np
@@ -693,7 +717,7 @@ def time_zoo_kernels(ops, ref, dev, preds_by_rung, F):
         if "variant" in case:
             tag, var = case["variant"]
             rows[name][tag] = measure(var, preds_by_rung[f"{name}_{tag}"])
-    return rows
+    return rows, cases
 
 
 def model_layer_cases(ops, ref, sizes) -> dict:
@@ -1036,7 +1060,7 @@ def main() -> int:
     zero_counts()
     zoo_preds = zoo_path(calibrate_main, load_profile, PerfSession, f32,
                          ops, tmp)
-    measured = time_zoo_kernels(ops, ref, dev, zoo_preds, F)
+    measured, zoo_cases = time_zoo_kernels(ops, ref, dev, zoo_preds, F)
     launches = counts()
     zoo_kernels = list(measured)
     log(f"launches on the zoo-study path: {launches}")
@@ -1058,6 +1082,22 @@ def main() -> int:
         raise SystemExit(f"a model-layer kernel never launched: "
                          f"{model_launches}")
     launches.update(model_launches)
+
+    # the two kernels nearest their library call, timed again in turns
+    # with it (after the counted paths, so these launches count nowhere)
+    stream = zoo_cases["stream_strided"]
+    for name, case, row in (
+            ("dg_diff", zoo_cases["dg_diff"], measured["dg_diff"]),
+            ("stream_strided", stream, measured["stream_strided"]),
+            ("stream_strided stride4", stream["variant"][1],
+             measured["stream_strided"]["stride4"])):
+        turns = time_in_turns(case["kernel"], case["library"], case["args"])
+        row["in_turns_ratio"] = turns["median"]
+        log(f"{name} in turns with its library call: kernel ÷ library "
+            f"{turns['median']:.4g} (median of {len(turns['rounds'])} "
+            f"rounds: " + " ".join(f"{x:.4g}" for x in turns["rounds"])
+            + ")")
+    del zoo_cases, stream
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
@@ -1092,7 +1132,11 @@ def main() -> int:
     for name, r in (("matmul_tiled", measured["matmul_tiled"]),
                     ("flash_attention local", measured["flash_attention"]),
                     ("flash_attention global",
-                     measured["flash_attention"]["global"])):
+                     measured["flash_attention"]["global"]),
+                    ("dg_diff", measured["dg_diff"]),
+                    ("stream_strided", measured["stream_strided"]),
+                    ("stream_strided stride4",
+                     measured["stream_strided"]["stride4"])):
         log(f"{name}: {r['ms']:.4g} ms = "
             f"{r['ms'] / r['library_ms']:.3g}× its library call "
             f"({r['library_ms']:.4g} ms), {r['tflops']:.4g} TFLOP/s on the "

@@ -36,6 +36,7 @@ from repro_torch.core.counting import (
     dtype_name,
     register_op_cost_rule,
 )
+from repro_torch.kernels.dg_diff import slab_width as dg_slab_width
 from repro_torch.kernels.flash_attention import TILE_K as FLASH_TILE_K
 from repro_torch.kernels.flash_attention import TILE_Q as FLASH_TILE_Q
 from repro_torch.kernels.flash_attention import kv_tiles_visited
@@ -135,7 +136,11 @@ def dg_diff_cost(diff_mat: torch.Tensor, ut: torch.Tensor,
     _traffic(c, "in", diff_mat.dtype, n * n, block_fetches(grid, (0,)))
     _traffic(c, "in", ut.dtype, n * block_e, block_fetches(grid, (1,)))
     _traffic(c, "out", ut.dtype, n * block_e, block_fetches(grid, (0, 1)))
-    c.add("f_vmem_contig_float32_store", programs * n * n)   # D_m staged
+    # the CUDA kernel's own grid: one block per slab of dg_slab_width(N)
+    # elements stages each element of ut once (the last slab only its
+    # part of K) and every D_m once (csrc/dg_diff.cu)
+    slabs = -(-k // dg_slab_width(n))
+    c.add("f_vmem_contig_float32_store", n * k + slabs * m * n * n)
     c.add("f_sync_grid_programs", programs)
     return c
 

@@ -9,7 +9,7 @@ file name carries a hash of the sources and flags, so an edited source
 builds afresh and a finished library is reused.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`launch` raises when that is not 0, since a
+``cudaGetLastError()``; :func:`launch_on` raises when that is not 0, since a
 refused launch (too many threads, too much shared memory) never runs and
 ``torch.cuda.synchronize()`` would not report it.
 """
@@ -25,6 +25,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu",
            "stream_strided.cu", "madd_throughput.cu", "flash_attention.cu",
@@ -33,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 #: C entry point → argument types (pointers and the stream as c_void_p,
 #: so ctypes never truncates a 64-bit address to an int)
 SIGNATURES: Dict[str, List] = {
@@ -41,10 +43,12 @@ SIGNATURES: Dict[str, List] = {
     "repro_matmul_tiled_f32": [_P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_tiled_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "repro_stencil5_f32": [_P, _P, _I, _I, _I, _I, _P],
-    "repro_dg_diff_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # a host array of input pointers, then n_arrays
+    # d, ut, out, M, N, K
+    "repro_dg_diff_f32": [_P, _P, _P, _I, _I, _I, _P],
+    # a host array of input pointers, n_arrays, out, n_out, block, stride,
+    # vec4, then the output-block divisor's magic and shift
     "repro_stream_strided_f32": [ctypes.POINTER(_P), _I, _P, _I, _I, _I, _I,
-                                 _P],
+                                 _U, _I, _P],
     "repro_madd_throughput_f32": [_P, _P, _I, _I, _F, _F, _P],
     # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap, causal, window
     "repro_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
@@ -135,11 +139,24 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point; raise if its launch reported an error."""
+def launch_on(device, name: str, *args) -> None:
+    """Call C entry point ``name`` on ``device``'s current stream (passed
+    as the last argument) and raise if its launch reported an error.
+    ``device`` is made current only when it is not.
+
+    The stream comes from ``torch._C._cuda_getCurrentRawStream``, a
+    private call (checked against torch 2.11.0+cu128; the card test
+    ``test_raw_stream_is_the_current_stream`` holds it to the public
+    ``torch.cuda.current_stream(device).cuda_stream``), which builds no
+    ``torch.cuda.Stream`` object: host time a call that a card waiting on
+    its next kernel would otherwise spend idle."""
     lib = library()
-    err = getattr(lib, name)(*args)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = getattr(lib, name)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, name)(*args, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-

@@ -10,17 +10,25 @@
 // 3.35 TB/s.  With stride > 1 only every stride-th input block is read,
 // so the bytes (and the bound) shrink by the stride.
 //
-// What the design does about it: the TPU grid walked one block per step;
-// here every thread owns four consecutive outputs at a time (one float4)
-// and the grid strides over all n_out·block outputs, so each warp reads
-// and writes 512 contiguous bytes per input and the input rows that are
-// skipped are never touched.  The inputs' pointers travel by value in a
-// small struct (kArraysPerLaunch of them), so a launch needs no
-// device-side pointer table; more inputs take more launches, each after
-// the first seeding its sum with `out` and adding the next group, which
-// keeps the reference's f32 order (array 0, then 1, 2, ... in turn).
+// What the design does about it: one pass, one CUDA block per
+// kThreads · kPerThread outputs (float4, or floats on the one-float
+// path), sized from the work.  Each thread owns kPerThread outputs
+// kThreads apart, so every warp access is 32 neighbouring float4 (512
+// contiguous bytes) of an input or of out, and the input rows that are
+// skipped are never touched.  A thread issues all of its loads (every
+// output of every input, through __restrict__ locals, with the streaming
+// hint ld.global.cs) before its first add, then adds in input order and
+// stores with st.global.cs: nothing is read twice, so nothing should stay
+// in L2.  The output block of an index comes from a multiply by the
+// host's magic number and a shift (exact for indices below 2^31, the
+// wrapper's bound), not from a division.  The inputs' pointers travel by
+// value (kArraysPerLaunch of them) and the kernel is instantiated for each
+// count, so no load waits on a test of the count.  More inputs take more
+// launches, each after the first seeding its sum with `out` and adding
+// the next group, which keeps the reference's f32 order (array 0, then 1,
+// 2, ...).
 // When block is not a multiple of 4 (or a pointer is not 16-byte
-// aligned) the same loop runs one float per thread.
+// aligned) the same kernel runs one float per output.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -28,94 +36,121 @@ namespace {
 
 constexpr int kArraysPerLaunch = 8;
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;   // 16 resident blocks per SM
+constexpr int kPerThread = 4;   // outputs a thread owns, kThreads apart
+constexpr unsigned kPerBlock = kThreads * kPerThread;
 
 struct Inputs {
   const float* p[kArraysPerLaunch];
 };
 
-// Indices are 32-bit: the wrapper admits arrays of fewer than 2^31
-// elements, so every output and source index fits.  The loop over inputs
-// is unrolled to kArraysPerLaunch with a guard, so each pointer is read
-// from the launch parameters at a constant offset.  With `accumulate` the
-// sum starts from out (the earlier groups' sum) instead of input 0.
+// Output index o (in units of T) reads input index
+// o + (o / block)·block·(stride − 1); o / block = (o · magic) >> shift.
+struct Index {
+  unsigned magic;
+  unsigned shift;
+  unsigned skip;    // block·(stride − 1)
+};
+
+__device__ __forceinline__ unsigned source(unsigned o, const Index& x) {
+  const unsigned i =
+      (unsigned)(((unsigned long long)o * x.magic) >> x.shift);
+  return o + i * x.skip;
+}
+
+__device__ __forceinline__ void add(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ void add(float& a, float b) { a += b; }
+
+// kArrays inputs; with `accumulate` the sum starts from out (the earlier
+// groups' sum) instead of input 0.  Indices are 32-bit: the wrapper
+// admits arrays of fewer than 2^31 elements.
+template <int kArrays, typename T>
 __global__ void __launch_bounds__(kThreads)
-stream_vec4_kernel(Inputs in, int n_arrays, int accumulate,
-                   float4* __restrict__ out, unsigned n_out4,
-                   unsigned block4, unsigned stride) {
-  for (unsigned o = blockIdx.x * kThreads + threadIdx.x; o < n_out4;
-       o += gridDim.x * kThreads) {
-    const unsigned i = o / block4;
-    const unsigned src = i * stride * block4 + (o - i * block4);
-    float4 acc = accumulate ? out[o]
-                            : reinterpret_cast<const float4*>(in.p[0])[src];
+stream_kernel(Inputs in, int accumulate, T* __restrict__ out,
+              unsigned n_out, Index x) {
+  const unsigned o0 = blockIdx.x * kPerBlock + threadIdx.x;
+  unsigned src[kPerThread];
+  bool ok[kPerThread];
 #pragma unroll
-    for (int j = 0; j < kArraysPerLaunch; ++j) {
-      if ((accumulate || j > 0) && j < n_arrays) {
-        const float4 v = reinterpret_cast<const float4*>(in.p[j])[src];
-        acc.x += v.x;
-        acc.y += v.y;
-        acc.z += v.z;
-        acc.w += v.w;
-      }
+  for (int v = 0; v < kPerThread; ++v) {
+    const unsigned o = o0 + v * kThreads;
+    ok[v] = o < n_out;
+    src[v] = source(o, x);
+  }
+  T got[kArrays][kPerThread];
+#pragma unroll
+  for (int j = 0; j < kArrays; ++j) {
+    const T* __restrict__ p = reinterpret_cast<const T*>(in.p[j]);
+#pragma unroll
+    for (int v = 0; v < kPerThread; ++v)
+      if (ok[v]) got[j][v] = __ldcs(p + src[v]);
+  }
+  T acc[kPerThread];
+#pragma unroll
+  for (int v = 0; v < kPerThread; ++v) {
+    if (!ok[v]) continue;
+    if (accumulate) {
+      acc[v] = __ldcs(out + o0 + v * kThreads);
+      add(acc[v], got[0][v]);
+    } else {
+      acc[v] = got[0][v];
     }
-    out[o] = acc;
+#pragma unroll
+    for (int j = 1; j < kArrays; ++j) add(acc[v], got[j][v]);
+    __stcs(out + o0 + v * kThreads, acc[v]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-stream_scalar_kernel(Inputs in, int n_arrays, int accumulate,
-                     float* __restrict__ out, unsigned n_out,
-                     unsigned block, unsigned stride) {
-  for (unsigned o = blockIdx.x * kThreads + threadIdx.x; o < n_out;
-       o += gridDim.x * kThreads) {
-    const unsigned i = o / block;
-    const unsigned src = i * stride * block + (o - i * block);
-    float acc = accumulate ? out[o] : in.p[0][src];
-#pragma unroll
-    for (int j = 0; j < kArraysPerLaunch; ++j) {
-      if ((accumulate || j > 0) && j < n_arrays) acc += in.p[j][src];
+// Launch the instantiation for n inputs (kArrays counts up to n).
+template <typename T, int kArrays = 1>
+cudaError_t launch(const Inputs& in, int n, int accumulate, T* out,
+                   unsigned n_out, const Index& x, cudaStream_t s) {
+  if (n != kArrays) {
+    if constexpr (kArrays < kArraysPerLaunch) {
+      return launch<T, kArrays + 1>(in, n, accumulate, out, n_out, x, s);
+    } else {
+      return cudaErrorInvalidValue;
     }
-    out[o] = acc;
   }
-}
-
-int grid_for(unsigned work) {
-  const unsigned blocks = (work + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  const unsigned grid = (n_out + kPerBlock - 1) / kPerBlock;
+  stream_kernel<kArrays, T><<<grid, kThreads, 0, s>>>(in, accumulate, out,
+                                                      n_out, x);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // ptrs: host array of n_arrays device pointers (copied, a group of
 // kArraysPerLaunch at a time, into the launches' parameters); vec4: 1
-// when block % 4 == 0 and every pointer is 16-byte aligned.  Launches
-// ceil(n_arrays / kArraysPerLaunch) kernels in order on the stream.
-// Returns the first nonzero cudaGetLastError(), or cudaErrorInvalidValue
-// for n_arrays < 1.
+// when block % 4 == 0 and every pointer is 16-byte aligned; magic, shift:
+// the wrapper's multiplier for dividing an output index by block (by
+// block / 4 when vec4).  Launches ceil(n_arrays / kArraysPerLaunch)
+// kernels in order on the stream.  Returns the first nonzero
+// cudaGetLastError(), or cudaErrorInvalidValue for n_arrays < 1.
 extern "C" int repro_stream_strided_f32(const void* const* ptrs,
                                         int n_arrays, void* out, int n_out,
                                         int block, int stride, int vec4,
+                                        unsigned magic, int shift,
                                         void* stream) {
   if (n_arrays < 1) return (int)cudaErrorInvalidValue;
   const unsigned total = (unsigned)n_out * (unsigned)block;
   if (total == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
+  const unsigned width = vec4 ? (unsigned)block / 4 : (unsigned)block;
+  const Index x = {magic, (unsigned)shift, width * (unsigned)(stride - 1)};
   for (int first = 0; first < n_arrays; first += kArraysPerLaunch) {
     const int n = n_arrays - first < kArraysPerLaunch ? n_arrays - first
                                                       : kArraysPerLaunch;
     Inputs in = {};
     for (int j = 0; j < n; ++j) in.p[j] = (const float*)ptrs[first + j];
     const int accumulate = first > 0;
-    if (vec4) {
-      const unsigned total4 = total / 4;
-      stream_vec4_kernel<<<grid_for(total4), kThreads, 0, s>>>(
-          in, n, accumulate, (float4*)out, total4, block / 4, stride);
-    } else {
-      stream_scalar_kernel<<<grid_for(total), kThreads, 0, s>>>(
-          in, n, accumulate, (float*)out, total, block, stride);
-    }
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        vec4 ? launch(in, n, accumulate, (float4*)out, total / 4, x, s)
+             : launch(in, n, accumulate, (float*)out, total, x, s);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

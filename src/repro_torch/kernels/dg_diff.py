@@ -1,9 +1,15 @@
 """DG element-wise differentiation on Hopper — the counterpart of
 ``repro.kernels.dg_diff`` (TPU kernel ``_dg_kernel``).
 
-``repro_torch::dg_diff`` launches ``csrc/dg_diff.cu`` for CUDA tensors
-(D_m resident in shared memory across the element sweep) and runs the
-plain version for CPU tensors.
+``dg_diff_cuda`` launches ``csrc/dg_diff.cu`` on CUDA tensors; the
+custom op ``repro_torch::dg_diff`` runs the plain version on CPU tensors
+and gives the counter its fake impl.  The CUDA grid is the
+kernel's own: one block per slab of ``slab_width(N)`` elements stages
+its ``SLAB_FLOATS`` floats of ut in shared memory once and computes all
+M outputs of the slab, walking m with D_m staged beside it, whatever
+``block_e`` is; ``block_e`` is the reference's grid, which the wrapper
+still checks and the cost rule (:mod:`repro_torch.analysis.kernelcost`)
+reports.
 """
 from __future__ import annotations
 
@@ -18,6 +24,15 @@ launches = 0
 #: unit-node counts the CUDA kernel is instantiated for
 SUPPORTED_N = (8, 16, 32, 64)
 
+#: floats of ut one CUDA block stages (N rows × its slab width;
+#: kSlabFloats in the source)
+SLAB_FLOATS = 8192
+
+
+def slab_width(n: int) -> int:
+    """Elements of one CUDA block's slab at N = ``n`` (E in the source)."""
+    return SLAB_FLOATS // n
+
 
 @torch.library.custom_op("repro_torch::dg_diff", mutates_args=(),
                          device_types="cpu")
@@ -27,8 +42,10 @@ def dg_diff(diff_mat: torch.Tensor, ut: torch.Tensor,
     return dg_diff_ref(diff_mat, ut)
 
 
-@dg_diff.register_kernel("cuda")
-def _dg_diff_cuda(diff_mat, ut, block_e):
+def dg_diff_cuda(diff_mat: torch.Tensor, ut: torch.Tensor,
+                 block_e: int) -> torch.Tensor:
+    """Check the operands, launch ``csrc/dg_diff.cu``, count the
+    launch."""
     global launches
     m, n, n2 = diff_mat.shape
     n3, k = ut.shape
@@ -45,11 +62,9 @@ def _dg_diff_cuda(diff_mat, ut, block_e):
         raise ValueError("dg_diff takes contiguous operands")
     if ut.device != diff_mat.device:
         raise ValueError("dg_diff operands must share one device")
-    out = torch.empty((m, n, k), dtype=ut.dtype, device=ut.device)
-    with torch.cuda.device(ut.device):
-        _build.launch("repro_dg_diff_f32", diff_mat.data_ptr(),
-                      ut.data_ptr(), out.data_ptr(), m, n, k, block_e,
-                      torch.cuda.current_stream().cuda_stream)
+    out = ut.new_empty((m, n, k))
+    _build.launch_on(ut.device, "repro_dg_diff_f32", diff_mat.data_ptr(),
+                     ut.data_ptr(), out.data_ptr(), m, n, k)
     launches += 1
     return out
 

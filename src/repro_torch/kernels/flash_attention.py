@@ -1,8 +1,9 @@
 """Flash attention on Hopper — the counterpart of
 ``repro.kernels.flash_attention`` (TPU kernel ``_flash_kernel``).
 
-``repro_torch::flash_attention`` launches ``csrc/flash_attention.cu``
-for CUDA tensors and runs the plain version for CPU tensors.  One CUDA
+``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` on CUDA
+tensors; the custom op ``repro_torch::flash_attention`` runs the plain
+version on CPU tensors and gives the counter its fake impl.  One CUDA
 block owns a query tile of a (batch, head) and streams the keys in
 ``TILE_K``-row tiles with the softmax state in registers, visiting only
 the kv tiles its rows can see (:func:`kv_tile_range`): bf16 on the
@@ -69,9 +70,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap=softcap, scale=scale)
 
 
-@flash_attention.register_kernel("cuda")
-def _flash_attention_cuda(q, k, v, causal, window, softcap, scale, block_q,
-                          block_k):
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: Optional[int],
+                         softcap: Optional[float], scale: float,
+                         block_q: int, block_k: int) -> torch.Tensor:
+    """Check the operands, launch ``csrc/flash_attention.cu``, count the
+    launch."""
     global launches
     b, sq, hq, d = q.shape
     b2, skv, hkv, d2 = k.shape
@@ -97,12 +101,10 @@ def _flash_attention_cuda(q, k, v, causal, window, softcap, scale, block_q,
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention operands must share one device")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        _build.launch(_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
-                      dv, scale, 0.0 if softcap is None else softcap,
-                      int(causal), -1 if window is None else window,
-                      torch.cuda.current_stream().cuda_stream)
+    _build.launch_on(q.device, _ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
+                     dv, scale, 0.0 if softcap is None else softcap,
+                     int(causal), -1 if window is None else window)
     launches += 1
     return out
 

@@ -1,10 +1,11 @@
 """Mamba-2 SSD chunked scan on Hopper — the counterpart of
 ``repro.kernels.mamba2_ssd`` (TPU kernel ``_ssd_kernel``).
 
-``repro_torch::mamba2_ssd`` launches ``csrc/mamba2_ssd.cu`` (one CUDA
-block per (batch, head) walking the chunks in order, the [P, N] state in
-shared memory) for CUDA tensors and runs the plain sequential recurrence
-for CPU tensors.
+``mamba2_ssd_cuda`` launches ``csrc/mamba2_ssd.cu`` (one CUDA block per
+(batch, head) walking the chunks in order, the [P, N] state in shared
+memory) on CUDA tensors; the custom op ``repro_torch::mamba2_ssd`` runs
+the plain sequential recurrence on CPU tensors and gives the counter its
+fake impl.
 """
 from __future__ import annotations
 
@@ -31,8 +32,10 @@ def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     return ssd_ref(xdt, da, bm, cm)
 
 
-@mamba2_ssd.register_kernel("cuda")
-def _mamba2_ssd_cuda(xdt, da, bm, cm, chunk):
+def mamba2_ssd_cuda(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+                    cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Check the operands, launch ``csrc/mamba2_ssd.cu``, count the
+    launch."""
     global launches
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
@@ -53,10 +56,9 @@ def _mamba2_ssd_cuda(xdt, da, bm, cm, chunk):
     if any(t.device != xdt.device for t in (da, bm, cm)):
         raise ValueError("mamba2_ssd operands must share one device")
     out = torch.empty_like(xdt)
-    with torch.cuda.device(xdt.device):
-        _build.launch("repro_mamba2_ssd_f32", xdt.data_ptr(), da.data_ptr(),
-                      bm.data_ptr(), cm.data_ptr(), out.data_ptr(), b, s, h,
-                      p, n, chunk, torch.cuda.current_stream().cuda_stream)
+    _build.launch_on(xdt.device, "repro_mamba2_ssd_f32", xdt.data_ptr(),
+                     da.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                     out.data_ptr(), b, s, h, p, n, chunk)
     launches += 1
     return out
 

@@ -1,8 +1,9 @@
 """Tiled matrix product on Hopper — the counterpart of
 ``repro.kernels.matmul_tiled`` (TPU kernel ``_matmul_kernel``).
 
-``repro_torch::matmul_tiled`` launches ``csrc/matmul_tiled.cu`` for CUDA
-tensors and runs the plain version for CPU tensors.  The CUDA grid is
+``matmul_tiled_cuda`` launches ``csrc/matmul_tiled.cu`` on CUDA tensors;
+the custom op ``repro_torch::matmul_tiled`` runs the plain version on
+CPU tensors and gives the counter its fake impl.  The CUDA grid is
 the kernel's own — one block per ``TILE`` output tile, staging k
 ``STAGE_K`` deep through a 3-stage ``cp.async`` ring and summing each
 16-deep slice into its own partial — whatever the block sizes are; those
@@ -38,8 +39,10 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, block_m: int,
     return matmul_ref(a, b)
 
 
-@matmul_tiled.register_kernel("cuda")
-def _matmul_tiled_cuda(a, b, block_m, block_n, block_k):
+def matmul_tiled_cuda(a: torch.Tensor, b: torch.Tensor, block_m: int,
+                      block_n: int, block_k: int) -> torch.Tensor:
+    """Check the operands, launch ``csrc/matmul_tiled.cu``, count the
+    launch."""
     global launches
     (m, k), (k2, n) = a.shape, b.shape
     if a.dtype not in _ENTRY or b.dtype != a.dtype:
@@ -54,10 +57,8 @@ def _matmul_tiled_cuda(a, b, block_m, block_n, block_k):
     if b.device != a.device:
         raise ValueError("matmul_tiled operands must share one device")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        _build.launch(_ENTRY[a.dtype], a.data_ptr(), b.data_ptr(),
-                      out.data_ptr(), m, n, k,
-                      torch.cuda.current_stream().cuda_stream)
+    _build.launch_on(a.device, _ENTRY[a.dtype], a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), m, n, k)
     launches += 1
     return out
 

@@ -2,17 +2,20 @@
 ``repro.kernels.microbench`` (TPU kernels ``_stream_kernel`` and
 ``_madd_kernel``).
 
-``repro_torch::stream_strided`` launches ``csrc/stream_strided.cu`` (the
-block-stride memory stream) and ``repro_torch::madd_throughput``
-launches ``csrc/madd_throughput.cu`` (the 8-chain FMA peak-FLOP kernel)
-for CUDA tensors; CPU tensors run the plain versions.  ``launches``
+``stream_strided_cuda`` launches ``csrc/stream_strided.cu`` (the
+block-stride memory stream) and ``madd_throughput_cuda`` launches
+``csrc/madd_throughput.cu`` (the 8-chain FMA peak-FLOP kernel) on CUDA
+tensors; the custom ops ``repro_torch::stream_strided`` and
+``repro_torch::madd_throughput`` run the plain versions on CPU tensors
+and give the counter their fake impls.  ``launches``
 counts each kernel's launches by op name: a stream of more than
 ``ARRAYS_PER_LAUNCH`` inputs takes one launch per group of them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -27,6 +30,20 @@ ARRAYS_PER_LAUNCH = 8
 _MAX_ELEMS = 2 ** 31 - 1   # the kernels index with 32-bit integers
 
 
+@functools.lru_cache(maxsize=None)
+def magic_divisor(d: int) -> Tuple[int, int]:
+    """(magic, shift) with ``(n * magic) >> shift == n // d`` for every
+    ``0 <= n < 2**31`` and ``1 <= d < 2**31``; ``magic`` fits 32 bits.
+    The stream kernel finds an output index's block this way.
+
+    shift = 31 + ceil(log2 d), magic = ceil(2^shift / d).  With
+    e = magic·d − 2^shift (0 <= e < d), n·magic / 2^shift = n/d +
+    n·e / (d·2^shift), and n·e < 2^31·2^ceil(log2 d) = 2^shift keeps the
+    excess below 1/d, which cannot carry n/d past an integer."""
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
+
+
 @torch.library.custom_op("repro_torch::stream_strided", mutates_args=(),
                          device_types="cpu")
 def stream_strided(arrays: List[torch.Tensor], block: int,
@@ -36,8 +53,10 @@ def stream_strided(arrays: List[torch.Tensor], block: int,
     return stream_ref(arrays, block=block, stride=stride)
 
 
-@stream_strided.register_kernel("cuda")
-def _stream_strided_cuda(arrays, block, stride):
+def stream_strided_cuda(arrays: List[torch.Tensor], block: int,
+                        stride: int) -> torch.Tensor:
+    """Check the inputs, launch ``csrc/stream_strided.cu`` (one launch
+    per group of ``ARRAYS_PER_LAUNCH`` inputs), count the launches."""
     first = arrays[0]
     (s,) = first.shape
     for a in arrays:
@@ -52,14 +71,14 @@ def _stream_strided_cuda(arrays, block, stride):
         raise ValueError(f"stream_strided kernel indexes with 32 bits; "
                          f"{s} elements is too many")
     n_out = s // (block * stride)
-    out = torch.empty(n_out * block, dtype=first.dtype, device=first.device)
+    out = first.new_empty(n_out * block)
     ptrs = (ctypes.c_void_p * len(arrays))(*[a.data_ptr() for a in arrays])
     vec4 = block % 4 == 0 and all(
         p % 16 == 0 for p in (*ptrs, out.data_ptr()))
-    with torch.cuda.device(first.device):
-        _build.launch("repro_stream_strided_f32", ptrs, len(arrays),
-                      out.data_ptr(), n_out, block, stride, int(vec4),
-                      torch.cuda.current_stream().cuda_stream)
+    magic, shift = magic_divisor(block // 4 if vec4 else block)
+    _build.launch_on(first.device, "repro_stream_strided_f32", ptrs,
+                     len(arrays), out.data_ptr(), n_out, block, stride,
+                     int(vec4), magic, shift)
     launches["stream_strided"] += -(-len(arrays) // ARRAYS_PER_LAUNCH)
     return out
 
@@ -78,8 +97,10 @@ def madd_throughput(x: torch.Tensor, iters: int, block: int, a: float,
     return madd_ref(x, iters=iters, a=a, b=b)
 
 
-@madd_throughput.register_kernel("cuda")
-def _madd_throughput_cuda(x, iters, block, a, b):
+def madd_throughput_cuda(x: torch.Tensor, iters: int, block: int, a: float,
+                         b: float) -> torch.Tensor:
+    """Check the input, launch ``csrc/madd_throughput.cu``, count the
+    launch."""
     if x.dtype != torch.float32:
         raise TypeError(f"madd_throughput takes float32, got {x.dtype}")
     if x.dim() != 1 or x.shape[0] % block:
@@ -91,10 +112,8 @@ def _madd_throughput_cuda(x, iters, block, a, b):
         raise ValueError(f"madd_throughput kernel indexes with 32 bits; "
                          f"{x.shape[0]} elements is too many")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.launch("repro_madd_throughput_f32", x.data_ptr(),
-                      out.data_ptr(), x.shape[0], iters, a, b,
-                      torch.cuda.current_stream().cuda_stream)
+    _build.launch_on(x.device, "repro_madd_throughput_f32", x.data_ptr(),
+                     out.data_ptr(), x.shape[0], iters, a, b)
     launches["madd_throughput"] += 1
     return out
 

@@ -2,11 +2,13 @@
 ``repro.kernels.ops``, with the reference's keyword names and block
 defaults.
 
-Each wrapper clamps its blocks to the array (as the reference does),
-checks that they tile it, and calls the registered custom op: CUDA
-tensors reach the hand kernel (or raise), CPU tensors run the plain
-version.  The counter (:mod:`repro_torch.core.counting`) meets the same
-custom op and prices it with its cost rule instead of running it.
+Each wrapper clamps its blocks to the array (as the reference does) and
+checks that they tile it.  A tensor with data on the card goes straight
+to the kernel's launcher (``*_cuda``: the hand kernel, or raise); any
+other tensor meets the kernel's custom op, which runs the plain version
+on the CPU and has no CUDA kernel.  The counter
+(:mod:`repro_torch.core.counting`) passes fake tensors, so it meets the
+op and prices it with its cost rule instead of running it.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import dg_diff as _dg
 from repro_torch.kernels import flash_attention as _fa
@@ -22,6 +25,13 @@ from repro_torch.kernels import matmul_tiled as _mm
 from repro_torch.kernels import microbench as _mb
 from repro_torch.kernels import slstm_cell as _sc
 from repro_torch.kernels import stencil5 as _st
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds data on the card, so the wrapper launches the
+    kernel itself: the dispatcher's round trip into a ``custom_op`` is
+    host time that a card idle between short kernels waits for."""
+    return t.is_cuda and not isinstance(t, FakeTensor)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
@@ -33,7 +43,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
     if m % bm or n % bn or k % bk:
         raise ValueError(f"matmul: ({m}, {n}, {k}) does not tile by "
                          f"({bm}, {bn}, {bk})")
-    return _mm.matmul_tiled(a, b, bm, bn, bk)
+    fn = _mm.matmul_tiled_cuda if _on_card(a) else _mm.matmul_tiled
+    return fn(a, b, bm, bn, bk)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,8 +59,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq % bq or skv % bk:
         raise ValueError(f"flash_attention: Sq={sq}, Skv={skv} do not tile "
                          f"by ({bq}, {bk})")
-    return _fa.flash_attention(q, k, v, causal, window, softcap, scale, bq,
-                               bk)
+    fn = _fa.flash_attention_cuda if _on_card(q) else _fa.flash_attention
+    return fn(q, k, v, causal, window, softcap, scale, bq, bk)
 
 
 def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
@@ -60,7 +71,8 @@ def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"mamba2_ssd: S={s} does not tile by chunk={chunk}")
-    return _ssd.mamba2_ssd(xdt, da, Bm, Cm, chunk)
+    fn = _ssd.mamba2_ssd_cuda if _on_card(xdt) else _ssd.mamba2_ssd
+    return fn(xdt, da, Bm, Cm, chunk)
 
 
 def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
@@ -70,7 +82,8 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
     if g_in.dim() != 5 or g_in.shape[2] != 4:
         raise ValueError(f"slstm_cell: g_in must be [B, S, 4, H, dh], got "
                          f"{tuple(g_in.shape)}")
-    return _sc.slstm_cell(g_in, r_gates, b_gates)
+    fn = _sc.slstm_cell_cuda if _on_card(g_in) else _sc.slstm_cell
+    return fn(g_in, r_gates, b_gates)
 
 
 def stencil5(u: torch.Tensor, *, block_m: int = 256,
@@ -80,7 +93,8 @@ def stencil5(u: torch.Tensor, *, block_m: int = 256,
     if m % bm or n % bn:
         raise ValueError(f"stencil5: ({m}, {n}) does not tile by "
                          f"({bm}, {bn})")
-    return _st.stencil5(u, bm, bn)
+    fn = _st.stencil5_cuda if _on_card(u) else _st.stencil5
+    return fn(u, bm, bn)
 
 
 def dg_diff(diff_mat: torch.Tensor, ut: torch.Tensor, *,
@@ -89,7 +103,8 @@ def dg_diff(diff_mat: torch.Tensor, ut: torch.Tensor, *,
     be = min(block_e, k)
     if k % be:
         raise ValueError(f"dg_diff: K={k} does not tile by block_e={be}")
-    return _dg.dg_diff(diff_mat, ut, be)
+    fn = _dg.dg_diff_cuda if _on_card(ut) else _dg.dg_diff
+    return fn(diff_mat, ut, be)
 
 
 def stream_strided(arrays: Sequence[torch.Tensor], *, block: int = 512,
@@ -99,7 +114,9 @@ def stream_strided(arrays: Sequence[torch.Tensor], *, block: int = 512,
     if n_out * block * stride != s:
         raise ValueError(f"stream_strided: S={s} is not n_out·block·stride "
                          f"for block={block}, stride={stride}")
-    return _mb.stream_strided(list(arrays), block, stride)
+    fn = (_mb.stream_strided_cuda if _on_card(arrays[0])
+          else _mb.stream_strided)
+    return fn(list(arrays), block, stride)
 
 
 def madd_throughput(x: torch.Tensor, *, iters: int = 256, block: int = 2048,
@@ -109,4 +126,6 @@ def madd_throughput(x: torch.Tensor, *, iters: int = 256, block: int = 2048,
     if s % blk:
         raise ValueError(f"madd_throughput: S={s} does not tile by "
                          f"block={blk}")
-    return _mb.madd_throughput(x, iters, blk, a, b)
+    fn = (_mb.madd_throughput_cuda if _on_card(x)
+          else _mb.madd_throughput)
+    return fn(x, iters, blk, a, b)

@@ -1,10 +1,11 @@
 """sLSTM recurrent cell on Hopper — the counterpart of
 ``repro.kernels.slstm_cell`` (TPU kernel ``_slstm_kernel``).
 
-``repro_torch::slstm_cell`` launches ``csrc/slstm_cell.cu`` (one CUDA
-block per (batch row, head) running the whole time loop, one thread per
-gate column) for CUDA tensors and runs the plain sequential cell for CPU
-tensors.
+``slstm_cell_cuda`` launches ``csrc/slstm_cell.cu`` (one CUDA block per
+(batch row, head) running the whole time loop, one thread per gate
+column) on CUDA tensors; the custom op ``repro_torch::slstm_cell`` runs
+the plain sequential cell on CPU tensors and gives the counter its fake
+impl.
 """
 from __future__ import annotations
 
@@ -29,8 +30,10 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
     return slstm_cell_ref(g_in, r_gates, b_gates)
 
 
-@slstm_cell.register_kernel("cuda")
-def _slstm_cell_cuda(g_in, r_gates, b_gates):
+def slstm_cell_cuda(g_in: torch.Tensor, r_gates: torch.Tensor,
+                    b_gates: torch.Tensor) -> torch.Tensor:
+    """Check the operands, launch ``csrc/slstm_cell.cu``, count the
+    launch."""
     global launches
     b, s, four, h, dh = g_in.shape
     if any(t.dtype != torch.float32 for t in (g_in, r_gates, b_gates)):
@@ -47,10 +50,9 @@ def _slstm_cell_cuda(g_in, r_gates, b_gates):
     if r_gates.device != g_in.device or b_gates.device != g_in.device:
         raise ValueError("slstm_cell operands must share one device")
     out = torch.empty((b, s, h, dh), dtype=g_in.dtype, device=g_in.device)
-    with torch.cuda.device(g_in.device):
-        _build.launch("repro_slstm_cell_f32", g_in.data_ptr(),
-                      r_gates.data_ptr(), b_gates.data_ptr(), out.data_ptr(),
-                      b, s, h, dh, torch.cuda.current_stream().cuda_stream)
+    _build.launch_on(g_in.device, "repro_slstm_cell_f32", g_in.data_ptr(),
+                     r_gates.data_ptr(), b_gates.data_ptr(), out.data_ptr(),
+                     b, s, h, dh)
     launches += 1
     return out
 

@@ -1,9 +1,10 @@
 """Five-point stencil on Hopper — the counterpart of
 ``repro.kernels.stencil5`` (TPU kernel ``_stencil_kernel``).
 
-``repro_torch::stencil5`` launches ``csrc/stencil5.cu`` for CUDA tensors
-(zero padding handled in the kernel: no padded copy is written) and runs
-the plain version for CPU tensors.
+``stencil5_cuda`` launches ``csrc/stencil5.cu`` on CUDA tensors (zero
+padding handled in the kernel: no padded copy is written); the custom op
+``repro_torch::stencil5`` runs the plain version on CPU tensors and
+gives the counter its fake impl.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ def stencil5(u: torch.Tensor, block_m: int, block_n: int) -> torch.Tensor:
     return stencil5_ref(u)
 
 
-@stencil5.register_kernel("cuda")
-def _stencil5_cuda(u, block_m, block_n):
+def stencil5_cuda(u: torch.Tensor, block_m: int,
+                  block_n: int) -> torch.Tensor:
+    """Check the input, launch ``csrc/stencil5.cu``, count the launch."""
     global launches
     m, n = u.shape
     if u.dtype != torch.float32:
@@ -42,10 +44,8 @@ def _stencil5_cuda(u, block_m, block_n):
     if not u.is_contiguous():
         raise ValueError("stencil5 takes a contiguous input")
     out = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        _build.launch("repro_stencil5_f32", u.data_ptr(), out.data_ptr(),
-                      m, n, block_m, block_n,
-                      torch.cuda.current_stream().cuda_stream)
+    _build.launch_on(u.device, "repro_stencil5_f32", u.data_ptr(),
+                     out.data_ptr(), m, n, block_m, block_n)
     launches += 1
     return out
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import uipick as tuipick
+from repro_torch.kernels import dg_diff as tdg
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba2_ssd as tssd
 from repro_torch.kernels import matmul_tiled as tmm
@@ -103,6 +104,45 @@ def test_dg_diff_kernel_on_card(cuda, M, N, K, be):
     _check(got, tref.dg_diff_ref, d, ut)
 
 
+def _unaligned(x: np.ndarray, dev) -> torch.Tensor:
+    """``x`` on the card, contiguous, one float past a 16-byte boundary."""
+    t = torch.empty(x.size + 1, device=dev)[1:].view(x.shape)
+    t.copy_(torch.from_numpy(x))
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 3, 5])
+@pytest.mark.parametrize("N", [8, 16, 32, 64])
+@pytest.mark.parametrize("K", ["ragged", 250])
+def test_dg_diff_kernel_edges_on_card(cuda, M, N, K):
+    """K not a multiple of the kernel's slab (the last slab masked, K % 4
+    == 0), and K = 250 with block_e 250 (rows not 16-byte aligned: the
+    one-float path)."""
+    if K == "ragged":
+        K = 2 * tdg.slab_width(N) + 36
+    d = torch.from_numpy(rn(13, M, N, N)).to(cuda)
+    ut = torch.from_numpy(rn(14, N, K)).to(cuda)
+    before = tdg.launches
+    got = tops.dg_diff(d, ut, block_e=K)
+    assert tdg.launches == before + 1
+    _check(got, tref.dg_diff_ref, d, ut)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["d", "ut"])
+def test_dg_diff_kernel_on_unaligned_operands(cuda, which):
+    """A contiguous operand whose pointer is not 16-byte aligned takes the
+    one-float path."""
+    M, N, K = 3, 64, 1024
+    d, ut = rn(15, M, N, N), rn(16, N, K)
+    d = _unaligned(d, cuda) if which == "d" else torch.from_numpy(d).to(cuda)
+    ut = _unaligned(ut, cuda) if which == "ut" else \
+        torch.from_numpy(ut).to(cuda)
+    _check(tops.dg_diff(d, ut, block_e=256), tref.dg_diff_ref, d, ut)
+
+
 @pytest.mark.gpu
 def test_cuda_path_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
@@ -141,6 +181,26 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
+def test_raw_stream_is_the_current_stream(cuda):
+    """The wrappers launch on the stream of a private torch call
+    (``torch._C._cuda_getCurrentRawStream`` in ``_build.launch_on``): it
+    must be the public current stream, on a side stream too, and a kernel
+    launched there must run on it."""
+    idx = torch.cuda.current_device()
+    raw = torch._C._cuda_getCurrentRawStream
+    assert raw(idx) == torch.cuda.current_stream(idx).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    x = torch.ones(1 << 20, device=cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        assert raw(idx) == side.cuda_stream != torch.cuda.default_stream(
+            idx).cuda_stream
+        out = tops.stream_strided([x, x], block=512)
+    side.synchronize()
+    assert bool((out == 2).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("S,block,stride,n_arrays", [
     (8192, 256, 1, 1), (8192, 256, 2, 1), (8192, 256, 4, 1),
     (8192, 256, 1, 3), (8192, 256, 2, 3), (8192, 256, 4, 3),
@@ -151,6 +211,29 @@ def test_cuda_path_raises_on_what_the_kernel_does_not_take(cuda):
 def test_stream_strided_kernel_on_card(cuda, S, block, stride, n_arrays):
     arrs = [torch.from_numpy(rn(20 + j, S)).to(cuda)
             for j in range(n_arrays)]
+    before = tmb.launches["stream_strided"]
+    got = tops.stream_strided(arrs, block=block, stride=stride)
+    assert tmb.launches["stream_strided"] == before + -(-n_arrays // 8)
+    _check(got, lambda *a: tref.stream_ref(list(a), block=block,
+                                           stride=stride), *arrs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,block,stride,n_arrays,aligned", [
+    # inputs one float past a 16-byte boundary: the one-float path
+    (8192, 256, 1, 2, False), (8192, 256, 4, 3, False),
+    (8192, 256, 2, 9, False), (8192, 256, 1, 17, False),
+    # block % 4 == 0 but not a multiple of a thread's 4 outputs or of a
+    # CUDA block's 1024: output blocks straddle threads and CUDA blocks,
+    # the last CUDA block ragged
+    (12000, 12, 1, 2, True), (20640, 516, 4, 3, True),
+    (12 * 3 * 700, 12, 3, 9, True), (516 * 2 * 40, 516, 2, 17, True),
+])
+def test_stream_strided_kernel_edges_on_card(cuda, S, block, stride,
+                                             n_arrays, aligned):
+    arrs = [rn(40 + j, S) for j in range(n_arrays)]
+    arrs = [torch.from_numpy(a).to(cuda) if aligned else _unaligned(a, cuda)
+            for a in arrs]
     before = tmb.launches["stream_strided"]
     got = tops.stream_strided(arrs, block=block, stride=stride)
     assert tmb.launches["stream_strided"] == before + -(-n_arrays // 8)

@@ -13,14 +13,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels import ops as jops
 from repro_torch.analysis.targets import f32
 from repro_torch.core.counting import count_fn
 from repro_torch.kernels import dg_diff as tdg
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba2_ssd as tssd
 from repro_torch.kernels import matmul_tiled as tmm
+from repro_torch.kernels import microbench as tmb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import slstm_cell as tsc
 from repro_torch.kernels import stencil5 as tst
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
@@ -81,6 +86,53 @@ def test_cpu_path_launches_nothing():
     tops.stencil5(torch.ones(8, 8))
     tops.dg_diff(torch.ones(1, 8, 8), torch.ones(8, 16))
     assert (tmm.launches, tst.launches, tdg.launches) == before
+
+
+def _e(*shape):
+    return torch.empty(shape, device="cuda")
+
+
+#: op name → (wrapper call on tensors made where it runs, output shape,
+#: that kernel's launch count)
+FAKE_CARD_CALLS = {
+    "matmul_tiled": (lambda: tops.matmul(_e(64, 32), _e(32, 16)), (64, 16),
+                     lambda: tmm.launches),
+    "stencil5": (lambda: tops.stencil5(_e(32, 32)), (32, 32),
+                 lambda: tst.launches),
+    "dg_diff": (lambda: tops.dg_diff(_e(3, 8, 8), _e(8, 64), block_e=32),
+                (3, 8, 64), lambda: tdg.launches),
+    "stream_strided": (lambda: tops.stream_strided([_e(1024)] * 2, block=256,
+                                                   stride=2), (512,),
+                       lambda: tmb.launches["stream_strided"]),
+    "madd_throughput": (lambda: tops.madd_throughput(_e(2048)), (2048,),
+                        lambda: tmb.launches["madd_throughput"]),
+    "flash_attention": (lambda: tops.flash_attention(
+        _e(1, 64, 2, 16), _e(1, 64, 1, 16), _e(1, 64, 1, 16), block_q=32,
+        block_k=32), (1, 64, 2, 16), lambda: tfa.launches),
+    "mamba2_ssd": (lambda: tops.mamba2_ssd(_e(1, 64, 2, 8), _e(1, 64, 2),
+                                           _e(1, 64, 2, 4), _e(1, 64, 2, 4),
+                                           chunk=32), (1, 64, 2, 8),
+                   lambda: tssd.launches),
+    "slstm_cell": (lambda: tops.slstm_cell(_e(1, 4, 4, 2, 8), _e(2, 8, 4, 8),
+                                           _e(4, 2, 8)), (1, 4, 2, 8),
+                   lambda: tsc.launches),
+}
+
+
+@pytest.mark.parametrize("op", sorted(FAKE_CARD_CALLS))
+def test_fake_card_tensors_meet_the_op_and_launch_nothing(op):
+    """The one route to a kernel: a wrapper launches only on a tensor with
+    data on the card.  Fake tensors on ``cuda`` (what the counter passes)
+    meet the custom op, whose fake impl gives the output's shape, and the
+    op has no CUDA kernel of its own to reach."""
+    call, shape, launches = FAKE_CARD_CALLS[op]
+    before = launches()
+    with FakeTensorMode():
+        out = call()
+    assert (tuple(out.shape), out.device.type) == (shape, "cuda")
+    assert launches() == before
+    assert not torch._C._dispatch_has_kernel_for_dispatch_key(
+        f"repro_torch::{op}", "CUDA")
 
 
 @pytest.mark.parametrize("call", [
@@ -198,6 +250,46 @@ REFERENCE_FEATURES = {
          "f_mem_hbm_bytes_in": 2147483648, "f_mem_hbm_bytes_out": 67108864,
          "f_op_float32_add": 268435456, "f_op_float32_madd": 68719476736,
          "f_sync_grid_programs": 4096, "f_sync_launch_kernel": 1}),
+    "dg_diff (3, 64, 1024) block_e 256": (
+        functools.partial(tops.dg_diff, block_e=256),
+        (f32(3, 64, 64), f32(64, 1024)),
+        {"f_mem_contig_float32_load": 208896,
+         "f_mem_contig_float32_store": 196608,
+         "f_mem_hbm_bytes_in": 835584, "f_mem_hbm_bytes_out": 786432,
+         "f_op_float32_madd": 12582912,
+         "f_sync_grid_programs": 12, "f_sync_launch_kernel": 1}),
+    "dg_diff (1, 32, 512) block_e 512": (
+        functools.partial(tops.dg_diff, block_e=512),
+        (f32(1, 32, 32), f32(32, 512)),
+        {"f_mem_contig_float32_load": 17408,
+         "f_mem_contig_float32_store": 16384,
+         "f_mem_hbm_bytes_in": 69632, "f_mem_hbm_bytes_out": 65536,
+         "f_op_float32_madd": 524288,
+         "f_sync_grid_programs": 1, "f_sync_launch_kernel": 1}),
+    "dg_diff (3, 64, 262144) block_e 512": (
+        functools.partial(tops.dg_diff, block_e=512),
+        (f32(3, 64, 64), f32(64, 262144)),
+        {"f_mem_contig_float32_load": 50343936,
+         "f_mem_contig_float32_store": 50331648,
+         "f_mem_hbm_bytes_in": 201375744, "f_mem_hbm_bytes_out": 201326592,
+         "f_op_float32_madd": 3221225472,
+         "f_sync_grid_programs": 1536, "f_sync_launch_kernel": 1}),
+    "stream_strided 2^26 × 2 block 512 stride 1": (
+        lambda *a: tops.stream_strided(list(a), block=512, stride=1),
+        (f32(2 ** 26), f32(2 ** 26)),
+        {"f_mem_contig_float32_load": 134217728,
+         "f_mem_contig_float32_store": 67108864,
+         "f_mem_hbm_bytes_in": 536870912, "f_mem_hbm_bytes_out": 268435456,
+         "f_op_float32_add": 67108864,
+         "f_sync_grid_programs": 131072, "f_sync_launch_kernel": 1}),
+    "stream_strided 2^26 × 2 block 512 stride 4": (
+        lambda *a: tops.stream_strided(list(a), block=512, stride=4),
+        (f32(2 ** 26), f32(2 ** 26)),
+        {"f_mem_contig_float32_load": 33554432,
+         "f_mem_contig_float32_store": 16777216,
+         "f_mem_hbm_bytes_in": 134217728, "f_mem_hbm_bytes_out": 67108864,
+         "f_op_float32_add": 16777216,
+         "f_sync_grid_programs": 32768, "f_sync_launch_kernel": 1}),
 }
 
 
@@ -226,3 +318,18 @@ def test_matmul_staging_term_follows_the_kernel_tile(M, N, K, b):
     assert (tmm.TILE, tmm.STAGE_K) == ((128, 128), 32)
     assert c["f_vmem_contig_float32_store"] == \
         tiles * -(-K // 32) * 32 * (128 + 128)
+
+
+@pytest.mark.parametrize("M,N,K,be", [
+    (3, 64, 1024, 256), (1, 32, 512, 512), (3, 64, 262144, 512),
+    (3, 64, 250, 250), (5, 8, 3000, 1000), (2, 16, 1536, 512)])
+def test_dg_diff_staging_term_follows_the_kernel_slab(M, N, K, be):
+    """One CUDA block per slab of 8192 / N elements stages each element
+    of ut once (the last slab only its part of K) and every D_m once per
+    slab, whatever block_e is."""
+    c = count_fn(functools.partial(tops.dg_diff, block_e=be),
+                 f32(M, N, N), f32(N, K))
+    width = tdg.slab_width(N)
+    assert (tdg.SLAB_FLOATS, width * N) == (8192, 8192)
+    assert c["f_vmem_contig_float32_store"] == \
+        N * K + -(-K // width) * M * N * N

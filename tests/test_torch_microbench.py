@@ -107,6 +107,47 @@ def test_cpu_path_launches_nothing_and_wrappers_validate():
         tops.madd_throughput(torch.ones(3000), block=2048)
 
 
+# divisors the stream wrapper can pass: block (the one-float path) or
+# block / 4, for every block of an array below 2^31 elements
+_SMALL_DIVISORS = range(1, 4097)
+_LARGE_DIVISORS = sorted(
+    {2 ** p + o for p in range(12, 31) for o in (-1, 0, 1)}
+    | {2 ** 31 - 1, 2 ** 31 - 2, 3 * 2 ** 29, 10 ** 9}
+    | set(np.random.default_rng(5).integers(4097, 2 ** 31, 200).tolist()))
+
+
+@pytest.mark.parametrize("divisors", [_SMALL_DIVISORS, _LARGE_DIVISORS],
+                         ids=["d<=4096", "d>4096"])
+def test_stream_magic_divisor_is_floor_division(divisors):
+    """``(n * magic) >> shift == n // d`` for every index n < 2^31 the
+    kernels take: the bound of ``magic_divisor``'s proof, n·e < 2^shift
+    with e = magic·d − 2^shift, holds at n = 2^31 − 1 for each divisor,
+    and the product agrees with ``//`` at each multiple's edges, at
+    2^31 − 1 and at seeded indices."""
+    rng = np.random.default_rng(6)
+    for d in divisors:
+        magic, shift = tmb.magic_divisor(d)
+        assert 0 < magic < 2 ** 32 and 31 <= shift <= 62
+        e = magic * d - 2 ** shift
+        assert 0 <= e < d and (2 ** 31 - 1) * e < 2 ** shift
+        q = rng.integers(0, (2 ** 31 - 1) // d + 1, 64, dtype=np.uint64)
+        n = np.concatenate([q * d, q * d + d - 1, q * d - (q > 0),
+                            rng.integers(0, 2 ** 31, 64, dtype=np.uint64),
+                            np.array([0, 2 ** 31 - 1], dtype=np.uint64)])
+        n = n[n < 2 ** 31]
+        np.testing.assert_array_equal(
+            (n * np.uint64(magic)) >> np.uint64(shift), n // np.uint64(d))
+
+
+def test_stream_magic_divisor_exhaustive_on_small_indices():
+    """Every index below 2^16 against every divisor up to 64."""
+    n = np.arange(2 ** 16, dtype=np.uint64)
+    for d in range(1, 65):
+        magic, shift = tmb.magic_divisor(d)
+        np.testing.assert_array_equal(
+            (n * np.uint64(magic)) >> np.uint64(shift), n // np.uint64(d))
+
+
 def _arith(counts):
     return {k: v for k, v in counts.items() if k.startswith("f_op_")}
 
