@@ -7,8 +7,9 @@ Phases, each fatal on failure:
 
 1. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
    ``nvcc`` for sm_90a, print the seconds and the ptxas report, hold the
-   ``matmul_tiled``, ``flash_attention``, ``dg_diff`` and
-   ``stream_strided`` kernels to no register spills (``NO_SPILLS``),
+   ``matmul_tiled``, ``flash_attention``, ``dg_diff``,
+   ``stream_strided``, ``slstm_cell`` and ``mamba2_ssd`` kernels (the
+   SSD's three passes) to no register spills (``NO_SPILLS``),
    and hold the SASS (``cuobjdump -sass``) of
    ``madd_throughput``'s chain loop to 8 FFMAs per step, so the compiler
    folded nothing;
@@ -19,9 +20,10 @@ Phases, each fatal on failure:
    (``flash_attention``, ``mamba2_ssd``, ``slstm_cell``) also at the
    widths of the port's gemma2-9b, zamba2-7b and xlstm-125m configs, and
    each beside plain variants that drop one point of its semantics
-   (softcap, window, GQA head map, carried state, recurrence), which
-   must fail the same check; attention logs the kv tiles it visits per
-   layer against a full sweep;
+   (softcap, window, GQA head map, carried state, recurrence) or carry
+   the fault its design invites (the SSD's state one chunk late, the
+   sLSTM's peers' h one step stale), which must fail the same check;
+   attention logs the kv tiles it visits per layer against a full sweep;
 3. calibrate the default battery on the card through
    ``python -m repro_torch.calibrate`` (3 trials, one CUDA-graph replay
    per timing) into a temporary profile;
@@ -44,14 +46,21 @@ Phases, each fatal on failure:
    bound, attention also beside ``torch.compile``'d ``flex_attention``;
 9. time ``dg_diff`` and ``stream_strided`` (stride 1 and 4) in turns
    with their library call (:func:`time_in_turns`: 5 rounds of kernel,
-   library, library, kernel) and log the median ratio, three lines; log
+   library, library, kernel) and log the median ratio, three lines; time
+   ``slstm_cell``'s step-latency floor (the same kernel at B = 1, H = 1,
+   dh = 4, S as the real size: S × (gating, exchange of h)) and each of
+   ``mamba2_ssd``'s three passes once at the real size, and log both
+   kernels' time as a share of their bound (the sLSTM's also of its
+   floor, the SSD's of its bytes' time) with the sLSTM's cluster plan;
+   log
    ``matmul_tiled``'s, ``flash_attention``'s, ``dg_diff``'s and
    ``stream_strided``'s time ÷ their library call's, their TFLOP/s on
    the needed work and their share of the bound; print one
    ``{"kernels": [...]}`` line (all eight kernels; ``ms`` and
    ``library_ms`` are phase 7's and 8's :func:`time_ms`; the in-turns
-   median rides along as ``in_turns_ratio``), the card's name and power
-   limit, and the ``{"ok": true, "device": ...}`` line last.
+   median rides along as ``in_turns_ratio``, the sLSTM's floor as
+   ``step_floor_ms``, the SSD's passes as ``pass_ms``), the card's name
+   and power limit, and the ``{"ok": true, "device": ...}`` line last.
 
 Launch counters are set to 0 before phase 3 and read after phase 5 (the
 three §8 kernels must have launched), set to 0 again before phase 6 and
@@ -116,8 +125,9 @@ REAL_MADD_TOL = dict(rtol=2e-4, atol=2e-3)
 MADD_VISIBLE = dict(a=0.999, b=0.01)
 ZOO = ("lin_flop", "lin_flop_mem", "ovl_flop_mem")
 
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+# H100 SXM dense bf16 and TF32 tensor-core peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 # q scaled so the scores reach tens: with unit inputs softcap 50 moves a
 # score by ~1e-4 of itself and a kernel ignoring it would pass
 ATTN_Q_SCALE = 8.0
@@ -435,6 +445,30 @@ def flex_library(kw, seq, dev):
     return call
 
 
+def ssd_variants(variants, chunk):
+    """The SSD's plain variants, each of which a check must reject; where
+    the kernel runs at a shorter chunk than the caller's, also the state
+    one of its own chunks late."""
+    import functools
+
+    from repro_torch.kernels.mamba2_ssd import inner_chunk
+    wrongs = [("no carried state", variants.ssd_without_carried_state,
+               chunk),
+              ("state one chunk late", variants.ssd_state_one_chunk_late,
+               chunk)]
+    if inner_chunk(chunk) != chunk:
+        wrongs.append((f"state one kernel chunk ({inner_chunk(chunk)}) "
+                       f"late", variants.ssd_state_one_chunk_late,
+                       inner_chunk(chunk)))
+    return [(label, functools.partial(fn, chunk=c)) for label, fn, c in wrongs]
+
+
+def slstm_variants(variants):
+    """The sLSTM's plain variants, each of which a check must reject."""
+    return [("r = 0", variants.slstm_without_recurrence),
+            ("peers' h one step stale", variants.slstm_peer_h_stale)]
+
+
 def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
     """Phase 2 for the model-layer kernels: each against its plain
     version at every ``tests/test_kernels.py`` case and at the real
@@ -463,15 +497,12 @@ def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
     for b, s, h, p, n, chunk in variants.SSD_SHAPES:
         err = verify(functools.partial(ops.mamba2_ssd, chunk=chunk),
                      ref.ssd_ref, ssd_inputs(gen, dev, b, s, h, p, n),
-                     [("no carried state", functools.partial(
-                         variants.ssd_without_carried_state, chunk=chunk))],
-                     **TOL["float32"])
+                     ssd_variants(variants, chunk), **TOL["float32"])
         log(f"mamba2_ssd {(b, s, h, p, n)} chunk {chunk}: max|err| {err:.3g}")
     for shape in variants.SLSTM_SHAPES:
         err = verify(ops.slstm_cell, ref.slstm_cell_ref,
                      slstm_inputs(gen, dev, *shape),
-                     [("r = 0", variants.slstm_without_recurrence)],
-                     **TOL["float32"])
+                     slstm_variants(variants), **TOL["float32"])
         log(f"slstm_cell {shape}: max|err| {err:.3g}")
 
     from repro_torch.kernels import flash_attention as fa_module
@@ -512,16 +543,14 @@ def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
     ssd = sizes["ssd"]
     errs["mamba2_ssd"] = verify(
         functools.partial(ops.mamba2_ssd, chunk=ssd["chunk"]), ref.ssd_ref,
-        ssd_inputs(gen, dev, **ssd),
-        [("no carried state", functools.partial(
-            variants.ssd_without_carried_state, chunk=ssd["chunk"]))],
+        ssd_inputs(gen, dev, **ssd), ssd_variants(variants, ssd["chunk"]),
         **REAL_SSD_TOL)
     log(f"mamba2_ssd {ssd}: max|err| {errs['mamba2_ssd']:.3g} "
         f"({REAL_SSD_TOL})")
     errs["slstm_cell"] = verify(
         ops.slstm_cell, ref.slstm_cell_ref,
-        slstm_inputs(gen, dev, **sizes["slstm"]),
-        [("r = 0", variants.slstm_without_recurrence)], **TOL["float32"])
+        slstm_inputs(gen, dev, **sizes["slstm"]), slstm_variants(variants),
+        **TOL["float32"])
     log(f"slstm_cell {sizes['slstm']}: max|err| {errs['slstm_cell']:.3g} "
         f"({TOL['float32']})")
     return errs
@@ -618,7 +647,8 @@ def ptxas_report(text: str) -> dict:
 
 #: kernel functions held to no register spills, by name fragment
 NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
-             "dg_diff_kernel", "stream_kernel")
+             "dg_diff_kernel", "stream_kernel", "slstm_cluster_kernel",
+             "chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
 
 
 def check_no_spills(text: str) -> None:
@@ -725,10 +755,13 @@ def model_layer_cases(ops, ref, sizes) -> dict:
     plain version, the input maker, the meta arguments to price, and the
     work these inputs need (operations, bytes, peak rate).  Attention
     counts only the unmasked (q, k) pairs and SSD only the i >= j half of
-    each chunk's L × L form; every byte once."""
+    each chunk's L × L form, at the chunk the kernel runs at (its result
+    does not depend on the chunk; its work shrinks with it); every byte
+    once."""
     import functools
 
     import torch
+    from repro_torch.kernels.mamba2_ssd import inner_chunk
     a, ssd, sl = sizes["attention"], sizes["ssd"], sizes["slstm"]
     meta = functools.partial(torch.empty, device="meta")
     b, s, hq, hkv, d = a["B"], a["S"], a["Hq"], a["Hkv"], a["D"]
@@ -749,7 +782,8 @@ def model_layer_cases(ops, ref, sizes) -> dict:
             library=functools.partial(flex_library, kw, s),
             library_plain=functools.partial(attention_f32, ref, kw))
 
-    el, n_chunks = ssd["chunk"], ssd["S"] // ssd["chunk"]
+    el = inner_chunk(ssd["chunk"])
+    n_chunks = ssd["S"] // el
     heads = ssd["B"] * ssd["H"]
     p_, n_ = ssd["P"], ssd["N"]
     sb, ss, sh, dh = sl["B"], sl["S"], sl["H"], sl["dh"]
@@ -757,7 +791,7 @@ def model_layer_cases(ops, ref, sizes) -> dict:
         "flash_attention": attention(sizes["local"]),
         "flash_attention_global": attention(sizes["global"]),
         "mamba2_ssd": dict(
-            kernel=functools.partial(ops.mamba2_ssd, chunk=el),
+            kernel=functools.partial(ops.mamba2_ssd, chunk=ssd["chunk"]),
             plain=ref.ssd_ref,
             inputs=lambda gen, dev: ssd_inputs(gen, dev, **ssd),
             meta=(meta(ssd["B"], ssd["S"], ssd["H"], p_),
@@ -851,6 +885,28 @@ def model_layer_path(calibrate_main, PerfSession, cases, dev, base_profile,
         torch.cuda.empty_cache()
     rows["flash_attention"]["global"] = rows.pop("flash_attention_global")
     return rows
+
+
+def floor_and_passes(slstm_cell, mamba2_ssd, sizes, dev) -> dict:
+    """Phase 9 for the recurrent kernels (after the counted paths, so
+    these launches count nowhere): the sLSTM kernel's step-latency floor
+    — the same kernel at B = 1, H = 1, dh = 4 and the real S, where the
+    dot vanishes and S × (gating, exchange of h) is left —
+    and each of the SSD's three passes at the real size (scratch filled
+    by one run of the passes in order first)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(19)
+    floor_ms = time_ms(slstm_cell.slstm_cell_cuda, *slstm_inputs(
+        gen, dev, B=1, S=sizes["slstm"]["S"], H=1, dh=4))
+    ssd = sizes["ssd"]
+    _, calls = mamba2_ssd.pass_calls(*ssd_inputs(gen, dev, **ssd),
+                                     ssd["chunk"])
+    for _, launch in calls:
+        launch()
+    pass_ms = {name: time_ms(launch) for name, launch in calls}
+    del calls
+    torch.cuda.empty_cache()
+    return {"step_floor_ms": floor_ms, "pass_ms": pass_ms}
 
 
 def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
@@ -1098,6 +1154,33 @@ def main() -> int:
             f"rounds: " + " ".join(f"{x:.4g}" for x in turns["rounds"])
             + ")")
     del zoo_cases, stream
+    recurrent = floor_and_passes(slstm_cell, mamba2_ssd, sizes, dev)
+    sl, sd = measured["slstm_cell"], measured["mamba2_ssd"]
+    sl["step_floor_ms"] = recurrent["step_floor_ms"]
+    sd["pass_ms"] = recurrent["pass_ms"]
+    log(f"slstm_cell cluster plans met: {slstm_cell.plans}")
+    log(f"slstm_cell: {sl['ms']:.4g} ms = {sl['bound_ms'] / sl['ms']:.1%} "
+        f"of its bound ({sl['bound_ms']:.4g} ms), "
+        f"{sl['step_floor_ms'] / sl['ms']:.1%} of its step-latency floor "
+        f"({sl['step_floor_ms']:.4g} ms = {sizes['slstm']['S']} steps of "
+        f"{sl['step_floor_ms'] / sizes['slstm']['S'] * 1e3:.4g} µs at B=1, "
+        f"H=1, dh=4)")
+    ssd = sizes["ssd"]
+    ssd_bytes_ms = (4 * ssd["B"] * ssd["S"] * ssd["H"]
+                    * (2 * ssd["P"] + 2 * ssd["N"] + 1) / PEAK_HBM_BYTES * 1e3)
+    ssd_ops = sd["tflops"] * 1e9 * sd["ms"]
+    log(f"mamba2_ssd: {sd['ms']:.4g} ms = {sd['bound_ms'] / sd['ms']:.1%} "
+        f"of its bound ({sd['bound_ms']:.4g} ms by {sd['bound_by']}; "
+        f"operations counted at the kernel's chunk, over the f32 FMA "
+        f"peak); its "
+        f"bytes alone take {ssd_bytes_ms:.4g} ms "
+        f"({ssd_bytes_ms / sd['ms']:.1%} of it), its operations at the "
+        f"3×TF32 rate (TF32 peak / 3) {ssd_ops / PEAK_TF32_FLOPS * 3e3:.4g} "
+        f"ms; at the kernel's chunk "
+        f"{mamba2_ssd.inner_chunk(ssd['chunk'])} the passes alone "
+        + ", ".join(f"{name} {ms:.4g} ms"
+                    for name, ms in sd["pass_ms"].items())
+        + f" (sum {sum(sd['pass_ms'].values()):.4g} ms)")
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",

@@ -40,9 +40,12 @@ from repro_torch.kernels.dg_diff import slab_width as dg_slab_width
 from repro_torch.kernels.flash_attention import TILE_K as FLASH_TILE_K
 from repro_torch.kernels.flash_attention import TILE_Q as FLASH_TILE_Q
 from repro_torch.kernels.flash_attention import kv_tiles_visited
-from repro_torch.kernels.mamba2_ssd import TILE as SSD_TILE
+from repro_torch.kernels.mamba2_ssd import INNER_CHUNK as SSD_TILE
+from repro_torch.kernels.mamba2_ssd import inner_chunk as ssd_inner_chunk
 from repro_torch.kernels.matmul_tiled import STAGE_K as MATMUL_STAGE_K
 from repro_torch.kernels.matmul_tiled import TILE as MATMUL_TILE
+from repro_torch.kernels.slstm_cell import (
+    cluster_blocks as slstm_cluster_blocks)
 from repro_torch.kernels.stencil5 import STRIP_ROWS as STENCIL_STRIP_ROWS
 
 BYTES_IN_FEATURE = "f_mem_hbm_bytes_in"
@@ -263,11 +266,17 @@ def mamba2_ssd_cost(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     for t, width in ((xdt, p), (da, 1), (bm, n), (cm, n)):
         _traffic(c, "in", t.dtype, el * width, programs)
     _traffic(c, "out", xdt.dtype, el * p, programs)
-    # the CUDA kernel stages x, B and C of each chunk, dt·A, and one
-    # 64 × 64 tile of (C·Bᵀ)∘decay per tile pair on or below the diagonal
-    tiles = -(-el // SSD_TILE)
-    c.add("f_vmem_contig_float32_store", programs * (
-        el * (p + 2 * n + 1) + tiles * (tiles + 1) // 2 * SSD_TILE ** 2))
+    # the CUDA kernel runs at its own chunk (inner_chunk, one tile of at
+    # most SSD_TILE rows), per which its passes stage: (a) x and B, x
+    # scaled by exp(la_L − la) in place, la and those weights; (c) C, B
+    # and x, the state before the chunk, la and one SSD_TILE² tile of
+    # (C·Bᵀ)∘decay; (b) nothing.  Its scratch (the chunk states) is HBM
+    # traffic the reference does not move, left uncounted
+    lk = ssd_inner_chunk(chunk)
+    chunk_state = lk * (2 * p + n + 2)
+    chunk_out = lk * (2 * n + p + 1) + n * p + SSD_TILE ** 2
+    c.add("f_vmem_contig_float32_store",
+          b * h * (s // lk) * (chunk_state + chunk_out))
     c.add("f_sync_grid_programs", programs)
     return c
 
@@ -294,9 +303,13 @@ def slstm_cell_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
     _traffic(c, "in", r_gates.dtype, r_gates.numel(), 1)
     _traffic(c, "in", b_gates.dtype, b_gates.numel(), 1)
     _traffic(c, "out", g_in.dtype, s * h * dh, b)
-    # the CUDA kernel stages, per step and (batch row, head), the 4·dh
-    # gate pre-activations and the dh new h values
-    c.add("f_vmem_contig_float32_store", b * s * h * 5 * dh)
+    # the CUDA kernel's cluster for one (batch row, head) loads r[h]
+    # (4·dh² values) into registers once, and each step writes the four
+    # gate sums of every hidden unit to shared memory and every new h
+    # value into the shared memory of each of its blocks
+    c.add("f_vmem_contig_float32_store",
+          b * h * 4 * dh * dh
+          + b * s * h * dh * (4 + slstm_cluster_blocks(dh)))
     c.add("f_sync_loop_steps", s * b)
     c.add("f_sync_grid_programs", b)
     return c

@@ -53,10 +53,16 @@ SIGNATURES: Dict[str, List] = {
     # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap, causal, window
     "repro_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
     "repro_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    # xdt, da, B, C, y, batch, S, H, P, N, chunk
-    "repro_mamba2_ssd_f32": [_P] * 5 + [_I] * 6 + [_P],
-    # g_in, r, b, y, batch, S, H, dh
-    "repro_slstm_cell_f32": [_P] * 4 + [_I] * 4 + [_P],
+    # the SSD's passes: (a) xdt, da, B, states, decay; (b) states, decay;
+    # (c) xdt, da, B, C, states, y; then batch, S, H, P, N, chunk
+    "repro_ssd_chunk_state_f32": [_P] * 5 + [_I] * 6 + [_P],
+    "repro_ssd_state_pass_f32": [_P] * 2 + [_I] * 6 + [_P],
+    "repro_ssd_chunk_out_f32": [_P] * 6 + [_I] * 6 + [_P],
+    # g_in, r, b, y, batch, S, H, dh, cluster blocks, batch rows per
+    # cluster (the plan's)
+    "repro_slstm_cell_f32": [_P] * 4 + [_I] * 6 + [_P],
+    # host side, no stream: batch, H, dh, cluster blocks, out[3]
+    "repro_slstm_cell_plan": [_I] * 4 + [ctypes.POINTER(_I)],
 }
 
 
@@ -139,10 +145,11 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch_on(device, name: str, *args) -> None:
+def launch_on(device, name: str, *args, stream: bool = True) -> None:
     """Call C entry point ``name`` on ``device``'s current stream (passed
-    as the last argument) and raise if its launch reported an error.
-    ``device`` is made current only when it is not.
+    as the last argument; none with ``stream=False``, for a host-side
+    entry point) and raise if it reported an error.  ``device`` is made
+    current only when it is not.
 
     The stream comes from ``torch._C._cuda_getCurrentRawStream``, a
     private call (checked against torch 2.11.0+cu128; the card test
@@ -151,12 +158,13 @@ def launch_on(device, name: str, *args) -> None:
     ``torch.cuda.Stream`` object: host time a call that a card waiting on
     its next kernel would otherwise spend idle."""
     lib = library()
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if stream:
+        args = (*args, torch._C._cuda_getCurrentRawStream(device.index))
     if device.index == torch.cuda.current_device():
-        err = getattr(lib, name)(*args, stream)
+        err = getattr(lib, name)(*args)
     else:
         with torch.cuda.device(device):
-            err = getattr(lib, name)(*args, stream)
+            err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

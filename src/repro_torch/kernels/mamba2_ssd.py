@@ -1,27 +1,36 @@
 """Mamba-2 SSD chunked scan on Hopper — the counterpart of
 ``repro.kernels.mamba2_ssd`` (TPU kernel ``_ssd_kernel``).
 
-``mamba2_ssd_cuda`` launches ``csrc/mamba2_ssd.cu`` (one CUDA block per
-(batch, head) walking the chunks in order, the [P, N] state in shared
-memory) on CUDA tensors; the custom op ``repro_torch::mamba2_ssd`` runs
-the plain sequential recurrence on CPU tensors and gives the counter its
-fake impl.
+``mamba2_ssd_cuda`` launches ``csrc/mamba2_ssd.cu`` on CUDA tensors in
+three passes (each chunk's own state, the states passed along the
+chunks, each chunk's output) over scratch it allocates; the custom op
+``repro_torch::mamba2_ssd`` runs the plain sequential recurrence on CPU
+tensors and gives the counter its fake impl.
 """
 from __future__ import annotations
+
+from typing import Callable, List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_ref
 
-#: launches of the CUDA kernel in this process
+#: calls of ``mamba2_ssd_cuda`` that launched the kernel's passes, in
+#: this process
 launches = 0
 
-#: sub-tile of the chunk's L × L form (rows and columns)
-TILE = 64
-#: largest chunk, head dim P and state dim N the kernel takes
+#: the largest chunk the kernel runs at, one staged tile of rows: the
+#: SSD's result does not depend on the chunking, only its work does (each
+#: chunk's quadratic form is L·L, its state terms L·P·N), so the kernel
+#: splits the caller's chunk
+INNER_CHUNK = 64
+#: largest caller's chunk, head dim P and state dim N the wrapper takes
 MAX_CHUNK = 256
 MAX_DIM = 64
+#: the passes' C entry points, in launch order
+PASSES = ("repro_ssd_chunk_state_f32", "repro_ssd_state_pass_f32",
+          "repro_ssd_chunk_out_f32")
 
 
 @torch.library.custom_op("repro_torch::mamba2_ssd", mutates_args=(),
@@ -32,11 +41,22 @@ def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     return ssd_ref(xdt, da, bm, cm)
 
 
-def mamba2_ssd_cuda(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
-                    cm: torch.Tensor, chunk: int) -> torch.Tensor:
-    """Check the operands, launch ``csrc/mamba2_ssd.cu``, count the
-    launch."""
-    global launches
+def inner_chunk(chunk: int) -> int:
+    """The chunk the kernel runs at for a caller's ``chunk``: its largest
+    divisor up to ``INNER_CHUNK``."""
+    return next(d for d in range(min(chunk, INNER_CHUNK), 0, -1)
+                if chunk % d == 0)
+
+
+def pass_calls(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+               cm: torch.Tensor, chunk: int
+               ) -> Tuple[torch.Tensor, List[Tuple[str, Callable[[], None]]]]:
+    """Check the operands and allocate the output and the scratch
+    (``states`` [B, S/L, H, P, N] and ``decay`` [B, S/L, H], f32, L =
+    ``inner_chunk(chunk)``);
+    return the output and, per pass in launch order, its C entry point's
+    name and a call that launches it on the current stream (raising on a
+    launch error).  Calling them in order computes the output."""
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
     if any(t.dtype != torch.float32 for t in (xdt, da, bm, cm)):
@@ -55,10 +75,31 @@ def mamba2_ssd_cuda(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
         raise ValueError("mamba2_ssd takes contiguous operands")
     if any(t.device != xdt.device for t in (da, bm, cm)):
         raise ValueError("mamba2_ssd operands must share one device")
+    dev = xdt.device
+    inner = inner_chunk(chunk)
     out = torch.empty_like(xdt)
-    _build.launch_on(xdt.device, "repro_mamba2_ssd_f32", xdt.data_ptr(),
-                     da.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                     out.data_ptr(), b, s, h, p, n, chunk)
+    states = torch.empty((b, s // inner, h, p, n), dtype=torch.float32,
+                         device=dev)
+    decay = torch.empty((b, s // inner, h), dtype=torch.float32, device=dev)
+    dims = (b, s, h, p, n, inner)
+
+    def launch(name, *tensors):   # holds its tensors, scratch included
+        return name, lambda: _build.launch_on(
+            dev, name, *(t.data_ptr() for t in tensors), *dims)
+    calls = [launch(PASSES[0], xdt, da, bm, states, decay),
+             launch(PASSES[1], states, decay),
+             launch(PASSES[2], xdt, da, bm, cm, states, out)]
+    return out, calls
+
+
+def mamba2_ssd_cuda(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+                    cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Check the operands, launch the three passes of
+    ``csrc/mamba2_ssd.cu`` in order, count the call."""
+    global launches
+    out, calls = pass_calls(xdt, da, bm, cm, chunk)
+    for _, launch in calls:
+        launch()
     launches += 1
     return out
 

@@ -112,6 +112,20 @@ def ssd_ref(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     return torch.stack(ys, dim=1).to(xdt.dtype)
 
 
+def slstm_gate(gg: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+               m: torch.Tensor):
+    """One step's stabilized exponential gating: gate pre-activations
+    gg [B, 4, H, dh] (i, f, z, o) and the state (c, n, m) → (h, c, n, m)."""
+    li, lf, z_raw, o_raw = gg.unbind(dim=1)
+    lf = F.logsigmoid(lf)
+    m_new = torch.maximum(lf + m, li)
+    ip = torch.exp(li - m_new)
+    fp = torch.exp(lf + m - m_new)
+    c = fp * c + ip * torch.tanh(z_raw)
+    n = fp * n + ip
+    return torch.sigmoid(o_raw) * c / torch.clamp_min(n, 1e-6), c, n, m_new
+
+
 def slstm_cell_ref(g_in: torch.Tensor, r_gates: torch.Tensor,
                    b_gates: torch.Tensor) -> torch.Tensor:
     """Sequential sLSTM with stabilized exponential gating.  g_in:
@@ -123,14 +137,6 @@ def slstm_cell_ref(g_in: torch.Tensor, r_gates: torch.Tensor,
     hs = []
     for t in range(steps):
         gg = g_all[:, t] + torch.einsum("bhd,hdge->bghe", hid, r) + bias
-        li, lf, z_raw, o_raw = gg.unbind(dim=1)
-        lf = F.logsigmoid(lf)
-        m_new = torch.maximum(lf + m, li)
-        ip = torch.exp(li - m_new)
-        fp = torch.exp(lf + m - m_new)
-        c = fp * c + ip * torch.tanh(z_raw)
-        n = fp * n + ip
-        hid = torch.sigmoid(o_raw) * c / torch.clamp_min(n, 1e-6)
-        m = m_new
+        hid, c, n, m = slstm_gate(gg, c, n, m)
         hs.append(hid)
     return torch.stack(hs, dim=1).to(g_in.dtype)

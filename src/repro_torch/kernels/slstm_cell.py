@@ -1,24 +1,54 @@
 """sLSTM recurrent cell on Hopper — the counterpart of
 ``repro.kernels.slstm_cell`` (TPU kernel ``_slstm_kernel``).
 
-``slstm_cell_cuda`` launches ``csrc/slstm_cell.cu`` (one CUDA block per
-(batch row, head) running the whole time loop, one thread per gate
-column) on CUDA tensors; the custom op ``repro_torch::slstm_cell`` runs
-the plain sequential cell on CPU tensors and gives the counter its fake
-impl.
+``slstm_cell_cuda`` launches ``csrc/slstm_cell.cu`` (one thread-block
+cluster per (batch row, head) running the whole time loop, each block
+holding its share of the hidden units with their slice of r in
+registers, h exchanged through distributed shared memory) on CUDA
+tensors; the custom op ``repro_torch::slstm_cell`` runs the plain
+sequential cell on CPU tensors and gives the counter its fake impl.
 """
 from __future__ import annotations
+
+import ctypes
+import logging
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import slstm_cell_ref
 
+_log = logging.getLogger(__name__)
+
 #: launches of the CUDA kernel in this process
 launches = 0
 
-#: largest head width dh the kernel takes (4·dh threads a block)
+#: largest head width dh the kernel takes
 MAX_DH = 256
+#: (device, B, H, dh) → the launch plan met (``launch_plan``)
+plans: Dict[Tuple[torch.device, int, int, int], Dict[str, int]] = {}
+
+
+def cluster_blocks(dh: int) -> int:
+    """Blocks of the cluster that runs one (batch row, head): each holds
+    ``ceil(dh / cluster_blocks(dh))`` hidden units and their r in
+    registers.  The kernel is built for these two sizes and takes the
+    size from its caller."""
+    return 8 if dh > 192 else 6
+
+
+def launch_plan(batch: int, heads: int, dh: int, device) -> Dict[str, int]:
+    """The kernel's launch plan on ``device``: blocks per cluster, batch
+    rows per cluster (1 when all B·H clusters can be resident at once,
+    else 2), the clusters that can be resident at once
+    (``cudaOccupancyMaxActiveClusters``) and threads per block."""
+    out = (ctypes.c_int * 3)()
+    _build.launch_on(device, "repro_slstm_cell_plan", batch, heads, dh,
+                     cluster_blocks(dh), out, stream=False)
+    return dict(cluster_blocks=cluster_blocks(dh),
+                **dict(zip(("rows_per_cluster", "max_active_clusters",
+                            "threads"), out)))
 
 
 @torch.library.custom_op("repro_torch::slstm_cell", mutates_args=(),
@@ -33,7 +63,8 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
 def slstm_cell_cuda(g_in: torch.Tensor, r_gates: torch.Tensor,
                     b_gates: torch.Tensor) -> torch.Tensor:
     """Check the operands, launch ``csrc/slstm_cell.cu``, count the
-    launch."""
+    launch.  The launch plan of each new (B, H, dh) is queried and logged
+    once."""
     global launches
     b, s, four, h, dh = g_in.shape
     if any(t.dtype != torch.float32 for t in (g_in, r_gates, b_gates)):
@@ -50,9 +81,17 @@ def slstm_cell_cuda(g_in: torch.Tensor, r_gates: torch.Tensor,
     if r_gates.device != g_in.device or b_gates.device != g_in.device:
         raise ValueError("slstm_cell operands must share one device")
     out = torch.empty((b, s, h, dh), dtype=g_in.dtype, device=g_in.device)
+    if not (b and s and h):
+        return out
+    key = (g_in.device, b, h, dh)
+    if key not in plans:
+        plans[key] = launch_plan(b, h, dh, g_in.device)
+        _log.info("slstm_cell plan on %s for B=%d H=%d dh=%d: %s",
+                  g_in.device, b, h, dh, plans[key])
     _build.launch_on(g_in.device, "repro_slstm_cell_f32", g_in.data_ptr(),
                      r_gates.data_ptr(), b_gates.data_ptr(), out.data_ptr(),
-                     b, s, h, dh)
+                     b, s, h, dh, plans[key]["cluster_blocks"],
+                     plans[key]["rows_per_cluster"])
     launches += 1
     return out
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import uipick as tuipick
+from repro_torch.kernels import _build
 from repro_torch.kernels import dg_diff as tdg
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba2_ssd as tssd
@@ -357,9 +358,42 @@ def test_mamba2_ssd_kernel_on_card(cuda, B, S, H, P, N, chunk):
     got = tops.mamba2_ssd(xdt, da, bm, cm, chunk=chunk)
     assert tssd.launches == before + 1
     _check(got, tref.ssd_ref, xdt, da, bm, cm)
-    # S > chunk: a kernel that drops the carried state fails
-    _reject(got, lambda *a: variants.ssd_without_carried_state(
-        *a, chunk=chunk), xdt, da, bm, cm)
+    # S > chunk: a kernel that drops the carried state, or takes it one
+    # chunk late, fails
+    for wrong in (variants.ssd_without_carried_state,
+                  variants.ssd_state_one_chunk_late):
+        _reject(got, lambda *a: wrong(*a, chunk=chunk), xdt, da, bm, cm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    # P and N not multiples of 4 (4-byte staging), kernel chunks shorter
+    # than the 64-row tile (48, 50), and caller chunks the kernel splits
+    # (96 → 48, 128 and 256 → 64)
+    (1, 192, 2, 6, 5, 96), (2, 100, 3, 64, 64, 50), (1, 256, 2, 64, 64, 128),
+    (1, 512, 2, 64, 64, 256), (1, 64, 1, 1, 1, 64)])
+def test_mamba2_ssd_kernel_edges_on_card(cuda, B, S, H, P, N, chunk):
+    xdt = torch.from_numpy(rn(16, B, S, H, P)).to(cuda)
+    da = torch.from_numpy(-np.abs(rn(17, B, S, H)) * 0.1).to(cuda)
+    bm = torch.from_numpy(rn(18, B, S, H, N)).to(cuda)
+    cm = torch.from_numpy(rn(19, B, S, H, N)).to(cuda)
+    got = tops.mamba2_ssd(xdt, da, bm, cm, chunk=chunk)
+    args = tuple(t.double() for t in (xdt, da, bm, cm))
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               tref.ssd_ref(*args).cpu().numpy(),
+                               **TOL["float32"])
+    # the state one of the kernel's own chunks late fails the check
+    if S > tssd.inner_chunk(chunk):
+        late = variants.ssd_state_one_chunk_late(
+            *args, chunk=tssd.inner_chunk(chunk))
+        assert not np.allclose(got.double().cpu().numpy(),
+                               late.cpu().numpy(), **TOL["float32"])
+    # the three passes launched one by one compute the same output
+    out, calls = tssd.pass_calls(xdt, da, bm, cm, chunk)
+    assert [name for name, _ in calls] == list(tssd.PASSES)
+    for _, launch in calls:
+        launch()
+    torch.testing.assert_close(out, got, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -373,6 +407,34 @@ def test_slstm_cell_kernel_on_card(cuda, B, S, H, dh):
     assert tsc.launches == before + 1
     _check(got, tref.slstm_cell_ref, g_in, r, b)
     _reject(got, variants.slstm_without_recurrence, g_in, r, b)
+    _reject(got, variants.slstm_peer_h_stale, g_in, r, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dh", [
+    # one unit (the step-latency floor's width), dh > 192 (clusters of 8),
+    # the largest dh, and B·H = 18 clusters of xlstm-125m's width, more
+    # than an H100 holds at once (17), with B odd: two rows a cluster
+    (1, 32, 1, 4), (2, 12, 2, 200), (1, 8, 1, 256), (9, 12, 2, 192)])
+def test_slstm_cell_cluster_plans_on_card(cuda, B, S, H, dh):
+    g_in = torch.from_numpy(rn(53, B, S, 4, H, dh) * 0.5).to(cuda)
+    r = torch.from_numpy(rn(54, H, dh, 4, dh) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(55, 4, H, dh) * 0.1).to(cuda)
+    got = tops.slstm_cell(g_in, r, b)
+    plan = tsc.plans[(g_in.device, B, H, dh)]
+    assert plan["cluster_blocks"] == tsc.cluster_blocks(dh)
+    assert plan["max_active_clusters"] > 0
+    assert plan["rows_per_cluster"] == \
+        (1 if B * H <= plan["max_active_clusters"] else 2)
+    _check(got, tref.slstm_cell_ref, g_in, r, b)
+    _reject(got, variants.slstm_peer_h_stale, g_in, r, b)
+    # the kernel is built for the caller's two cluster sizes only: any
+    # other size is refused, not run
+    for cs in (4, 14 - tsc.cluster_blocks(dh)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.launch_on(
+                g_in.device, "repro_slstm_cell_f32", g_in.data_ptr(), r.data_ptr(),
+                b.data_ptr(), got.data_ptr(), B, S, H, dh, cs, 1)
 
 
 def _default_battery():

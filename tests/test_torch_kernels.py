@@ -290,6 +290,48 @@ REFERENCE_FEATURES = {
          "f_mem_hbm_bytes_in": 134217728, "f_mem_hbm_bytes_out": 67108864,
          "f_op_float32_add": 16777216,
          "f_sync_grid_programs": 32768, "f_sync_launch_kernel": 1}),
+    "mamba2_ssd zamba2-7b chunk 256": (
+        functools.partial(tops.mamba2_ssd, chunk=256),
+        (f32(1, 8192, 112, 64), f32(1, 8192, 112), f32(1, 8192, 112, 64),
+         f32(1, 8192, 112, 64)),
+        {"f_mem_contig_float32_load": 177078272,
+         "f_mem_contig_float32_store": 58720256,
+         "f_mem_hbm_bytes_in": 708313088, "f_mem_hbm_bytes_out": 234881024,
+         "f_op_float32_add": 310116352, "f_op_float32_madd": 37580963840,
+         "f_op_float32_mul": 367001600, "f_op_float32_transc": 236719616,
+         "f_sync_grid_programs": 3584, "f_sync_launch_kernel": 1}),
+    "mamba2_ssd (2, 128, 4, 32, 16) chunk 32": (
+        functools.partial(tops.mamba2_ssd, chunk=32),
+        (f32(2, 128, 4, 32), f32(2, 128, 4), f32(2, 128, 4, 16),
+         f32(2, 128, 4, 16)),
+        {"f_mem_contig_float32_load": 66560,
+         "f_mem_contig_float32_store": 32768,
+         "f_mem_hbm_bytes_in": 266240, "f_mem_hbm_bytes_out": 131072,
+         "f_op_float32_add": 83968, "f_op_float32_madd": 2621440,
+         "f_op_float32_mul": 114688, "f_op_float32_transc": 34848,
+         "f_sync_grid_programs": 32, "f_sync_launch_kernel": 1}),
+    "slstm_cell xlstm-125m (8, 4096, 4, 192)": (
+        tops.slstm_cell,
+        (f32(8, 4096, 4, 4, 192), f32(4, 192, 4, 192), f32(4, 4, 192)),
+        {"f_mem_contig_float32_load": 101256192,
+         "f_mem_contig_float32_store": 25165824,
+         "f_mem_hbm_bytes_in": 405024768, "f_mem_hbm_bytes_out": 100663296,
+         "f_op_float32_add": 528482304, "f_op_float32_cmp": 75497472,
+         "f_op_float32_div": 25165824, "f_op_float32_madd": 19327352832,
+         "f_op_float32_mul": 100663296, "f_op_float32_transc": 150994944,
+         "f_sync_grid_programs": 8, "f_sync_launch_kernel": 1,
+         "f_sync_loop_steps": 32768}),
+    "slstm_cell (2, 24, 4, 50)": (
+        tops.slstm_cell, (f32(2, 24, 4, 4, 50), f32(4, 50, 4, 50),
+                          f32(4, 4, 50)),
+        {"f_mem_contig_float32_load": 79200,
+         "f_mem_contig_float32_store": 9600,
+         "f_mem_hbm_bytes_in": 316800, "f_mem_hbm_bytes_out": 38400,
+         "f_op_float32_add": 201600, "f_op_float32_cmp": 28800,
+         "f_op_float32_div": 9600, "f_op_float32_madd": 1920000,
+         "f_op_float32_mul": 38400, "f_op_float32_transc": 57600,
+         "f_sync_grid_programs": 2, "f_sync_launch_kernel": 1,
+         "f_sync_loop_steps": 48}),
 }
 
 

@@ -121,6 +121,56 @@ def test_slstm_cell_matches_reference(B, S, H, dh):
     _close(tref.slstm_cell_ref(*ts), jref.slstm_cell_ref(*js))
 
 
+@pytest.mark.parametrize("wdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,dh", SLSTM_SHAPES[:2])
+def test_slstm_cell_bf16_follows_the_pallas_kernel(B, S, H, dh, wdt):
+    """For a bf16 ``g_in`` the port's CPU op keeps h in f32 between
+    steps and rounds only its output, as the Pallas kernel does (h in f32
+    scratch), not as ``repro.kernels.ref.slstm_cell_ref``, which rounds h
+    to bf16 every step."""
+    g, r, b = _slstm_inputs(B, S, H, dh)
+    (jg, tg), (jr, tr), (jb, tb) = (_both(g, "bfloat16"), _both(r, wdt),
+                                    _both(b, wdt))
+    got = tops.slstm_cell(tg, tr, tb)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, dh)
+    _close(got, jops.slstm_cell(jg, jr, jb), "bfloat16")
+
+
+def test_mamba2_ssd_kernel_chunk_divides_the_callers():
+    """The CUDA kernel runs at its own chunk: the caller's largest divisor
+    up to 64 tokens."""
+    want = {16: 16, 32: 32, 50: 50, 64: 64, 96: 48, 100: 50, 128: 64,
+            200: 50, 254: 2, 256: 64}
+    assert {c: tssd.inner_chunk(c) for c in want} == want
+    assert all(c % tssd.inner_chunk(c) == 0 for c in range(1, 257))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_state_one_chunk_late_is_visible(B, S, H, P, N, chunk):
+    """The chunked form with each chunk's own state equals the JAX
+    reference; taking the state one chunk late differs from it beyond the
+    f32 tolerance, so a check at these cases rejects that fault."""
+    pairs = [_both(x) for x in _ssd_inputs(B, S, H, P, N)]
+    js, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    want = np.asarray(jref.ssd_ref(*js))
+    _close(variants.ssd_chunked(*ts, chunk=chunk), want)
+    late = variants.ssd_state_one_chunk_late(*ts, chunk=chunk).numpy()
+    assert not np.allclose(late, want, **TOL["float32"])
+
+
+@pytest.mark.parametrize("B,S,H,dh", SLSTM_SHAPES)
+def test_slstm_peer_h_stale_is_visible(B, S, H, dh):
+    """The sLSTM as the kernel's cluster splits it equals the JAX
+    reference; with the peers' h one step stale it differs beyond the f32
+    tolerance, so a check at these cases rejects that fault."""
+    pairs = [_both(x) for x in _slstm_inputs(B, S, H, dh)]
+    js, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    want = np.asarray(jref.slstm_cell_ref(*js))
+    _close(variants.slstm_split(*ts), want)
+    stale = variants.slstm_peer_h_stale(*ts).numpy()
+    assert not np.allclose(stale, want, **TOL["float32"])
+
+
 def test_skip_last_kv_tile_variant_changes_only_late_rows():
     """The variant a real-size attention check must reject: under a
     causal mask it agrees with the plain version on every query row
@@ -401,6 +451,13 @@ def test_mamba2_ssd_cost_rule(B, S, H, P, N, chunk):
     assert c["f_mem_contig_float32_load"] == B * S * H * (P + 1 + 2 * N)
     assert c["f_mem_contig_float32_store"] == B * S * H * P
     assert c["f_sync_grid_programs"] == programs
+    # the CUDA passes' staging at the kernel's own chunk (one tile of at
+    # most 64 rows): (a) x and B, x scaled in place, la and its weights;
+    # (c) C, the state, la, B, x and a 64 × 64 tile of (C·Bᵀ)∘decay
+    lk = tssd.inner_chunk(chunk)
+    assert lk <= 64
+    assert c["f_vmem_contig_float32_store"] == B * H * (S // lk) * (
+        lk * (2 * P + N + 2) + lk * N + N * P + lk + lk * (N + P) + 64 * 64)
     sd = functools.partial(jax.ShapeDtypeStruct, dtype=jnp.float32)
     with jax.disable_jit():
         body = jcount_fn(functools.partial(_ssd_program, chunk=chunk),
@@ -444,6 +501,11 @@ def test_slstm_cell_cost_rule(B, S, H, dh):
     assert c[BYTES_OUT_FEATURE] == 4 * B * S * H * dh
     assert c["f_sync_grid_programs"] == B
     assert c["f_sync_loop_steps"] == B * S
+    # the CUDA kernel: r[h] into registers once per (batch row, head), and
+    # every step the four gate sums of each unit and each new h value
+    # into each block of the cluster
+    assert c["f_vmem_contig_float32_store"] == \
+        B * H * 4 * dh * dh + B * S * H * dh * (4 + tsc.cluster_blocks(dh))
     if S > 64:
         return
     sd = functools.partial(jax.ShapeDtypeStruct, dtype=jnp.float32)
