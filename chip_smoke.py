@@ -60,12 +60,26 @@ Phases, each fatal on failure:
    ``library_ms`` are phase 7's and 8's :func:`time_ms`; the in-turns
    median rides along as ``in_turns_ratio``, the sLSTM's floor as
    ``step_floor_ms``, the SSD's passes as ``pass_ms``), the card's name
-   and power limit, and the ``{"ok": true, "device": ...}`` line last.
+   and power limit, and the ``{"ok": true, "device": ...}`` line last;
+10. (before that ``kernels`` line) the paper's own evaluation from
+   :mod:`repro_torch.studies.paper_figures`: Figs 1, 2 and 5 calibrate
+   and predict, Figs 7–9 and Table 3 read phase 3's profile (3 trials,
+   TF32 off); every CSV row printed, each figure's seconds, gmre and
+   top-1 rank logged, one ``{"figures": ...}`` line; a figure that times
+   another number of kernels than the reference's tags select, times one
+   twice, or measures a time that is not finite and positive fails; then
+   the longest loop of each loop generator (``sync_loop_pattern``,
+   ``overlap_pattern``, ``onchip_pattern``): eager call, capture and
+   replay, each per step (:func:`loop_costs`).
+
+Phase 3 also prints its 43-row feature table as one
+``{"base_feature_table": ...}`` line.
 
 Launch counters are set to 0 before phase 3 and read after phase 5 (the
 three §8 kernels must have launched), set to 0 again before phase 6 and
 read after phase 7 (the five kernels of the zoo study), and again before
-phase 8 and read after it (the three model-layer kernels).  Without a
+phase 8 and read after it (the three model-layer kernels), and logged
+around phase 10 (the figures run aten ops, no hand kernel).  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -157,6 +171,12 @@ REAL_ATTN_TOL = TOL["bfloat16"]
 # before P·V (as the reference kernel rounds it) leaves elements 1.8×
 # over it
 REAL_ATTN_F32_TOL = dict(TOL["bfloat16"], row_rtol=1e-2)
+
+# phase 10: kernels each figure times (calibration + test), as the
+# reference's tags select them (tests/test_torch_paper_figures.py)
+FIGURE_KERNELS = {"fig1": 6, "fig2": 6, "fig5": 7, "fig7": 4, "fig8": 8,
+                  "fig9": 4, "table3": 0}
+FIGURE_TRIALS = 3
 
 
 def log(msg: str) -> None:
@@ -909,6 +929,104 @@ def floor_and_passes(slstm_cell, mamba2_ssd, sizes, dev) -> dict:
     return {"step_floor_ms": floor_ms, "pass_ms": pass_ms}
 
 
+def figures_path(paper_figures, default_timer, profile, dev) -> dict:
+    """Phase 10: the paper's figures on the card, from phase 3's profile.
+    Each kernel is timed once through a recording timer: a figure that
+    times more kernels than the reference's tags select (its predictions
+    included), a kernel twice, or reads a time that is not finite and
+    positive fails the phase.  Returns each figure's rows and seconds."""
+    timed = []
+
+    def timer(kernel, trials):
+        stats = default_timer(kernel, trials, device=dev)
+        timed.append((kernel.name, stats.median))
+        return stats
+
+    out = {}
+    for name in paper_figures.FIGURES:
+        timed.clear()
+        t0 = time.perf_counter()
+        rows = paper_figures.run_figure(name, profile, device=dev,
+                                        trials=FIGURE_TRIALS, timer=timer)
+        secs = time.perf_counter() - t0
+        for row in rows:
+            print(row, flush=True)
+        names = [k for k, _ in timed]
+        if len(names) != FIGURE_KERNELS[name] or \
+                len(set(names)) != len(names):
+            raise SystemExit(f"{name} timed {names}: the reference's tags "
+                             f"select {FIGURE_KERNELS[name]} kernels, each "
+                             f"timed once")
+        bad = [(k, t) for k, t in timed if not (math.isfinite(t) and t > 0)]
+        if bad:
+            raise SystemExit(f"{name}: measured times not finite and "
+                             f"positive: {bad}")
+        summary = {}
+        for row in rows:
+            key, value = row.split(",")[:2]
+            stat = key.split(".", 1)[1]
+            if stat in ("gmre_percent", "top1_rank_correct", "p_edge",
+                        "residual_norm", "converged"):
+                summary[stat] = value
+        log(f"{name}: {secs:.1f} s, {len(names)} kernels timed, {summary}")
+        out[name] = {"seconds": secs, "rows": rows}
+    return out
+
+
+def loop_costs(uipick, dev) -> dict:
+    """Phase 10's loops: a step of a reference ``fori_loop``/``scan`` is
+    one or two eager launches here, one graph node each.  For the
+    longest loop of each loop generator: one eager call, the capture
+    (its 3 warm-up calls and the graph's instantiation included) and the
+    first replay (the upload) by the host clock, then a replay by
+    :func:`time_ms`; each also per step."""
+    import torch
+    longest = {"loopstep_s32768": 32768,
+               "overlap_n16777216_m65536_float32": 65536,
+               "onchip_w32768_i1024_float32": 1024}
+    kernels = uipick.KernelCollection(uipick.ALL_GENERATORS) \
+        .generate_kernels(["sync", "overlap", "lmem"],
+                          uipick.MatchCondition.INTERSECT)
+    out = {}
+    for k in kernels:
+        if k.name not in longest:
+            continue
+        steps = longest[k.name]
+        args = k.make_args(dev)
+        secs = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k.fn(*args)
+        torch.cuda.synchronize()
+        secs["eager_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph, res = k.capture(args)
+        torch.cuda.synchronize()
+        secs["capture_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        secs["first_replay_s"] = time.perf_counter() - t0
+        secs["replay_ms"] = time_ms(graph.replay)
+        secs["us_per_step"] = {
+            "eager": secs["eager_s"] / steps * 1e6,
+            "capture": secs["capture_s"] / steps * 1e6,
+            "replay": secs["replay_ms"] / steps * 1e3}
+        log(f"{k.name} ({steps} steps): eager {secs['eager_s']:.3f} s, "
+            f"capture {secs['capture_s']:.3f} s, first replay "
+            f"{secs['first_replay_s']:.3f} s, replay "
+            f"{secs['replay_ms']:.4g} ms; per step "
+            + ", ".join(f"{w} {v:.4g} µs"
+                        for w, v in secs["us_per_step"].items()))
+        out[k.name] = secs
+        del graph, res, args
+        torch.cuda.empty_cache()
+    if len(out) != len(longest):
+        raise SystemExit(f"loop kernels {sorted(longest)} not all built: "
+                         f"{sorted(out)}")
+    return out
+
+
 def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
     """Phase 6-7's predictions: the zoo study on the card and on the
     synthetic device apex, ``compare --sweep``, and each kernel's
@@ -993,8 +1111,11 @@ def main() -> int:
     from repro_torch.kernels import _build, dg_diff, flash_attention
     from repro_torch.kernels import mamba2_ssd, matmul_tiled, microbench
     from repro_torch.kernels import ops, ref, slstm_cell, stencil5
-    from repro_torch.profiles import load_profile
+    from repro_torch.core import uipick
+    from repro_torch.core.uipick import default_timer
+    from repro_torch.profiles import cli, load_profile
     from repro_torch.profiles.cli import main as calibrate_main
+    from repro_torch.studies import paper_figures
     from repro_torch.testing import variants
 
     dev = torch.device("cuda")
@@ -1046,11 +1167,26 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(prefix="repro_torch_smoke_"))
     profile_path = tmp / "h100_profile.json"
     t0 = time.perf_counter()
-    rc = calibrate_main(["--out", str(profile_path), "--trials", "3",
-                         "--device", "cuda"])
+    # keep the battery's feature table: fitted again off the card, it
+    # tells the LM solver's part in the fit from the data's
+    tables = []
+    gather = cli.gather_feature_table
+
+    def keep_table(*args, **kwargs):
+        tables.append(gather(*args, **kwargs))
+        return tables[-1]
+
+    cli.gather_feature_table = keep_table
+    try:
+        rc = calibrate_main(["--out", str(profile_path), "--trials", "3",
+                             "--device", "cuda"])
+    finally:
+        cli.gather_feature_table = gather
     if rc != 0:
         raise SystemExit(f"calibration exited {rc}")
     log(f"calibration took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"base_feature_table": tables[0].to_dict()}),
+          flush=True)
     profile = load_profile(profile_path)
     fit = profile.fits["base"].fit
     if profile.fingerprint.platform != "gpu" or \
@@ -1181,6 +1317,18 @@ def main() -> int:
         + ", ".join(f"{name} {ms:.4g} ms"
                     for name, ms in sd["pass_ms"].items())
         + f" (sum {sum(sd['pass_ms'].values()):.4g} ms)")
+
+    # ---- 10. the paper's figures, from phase 3's profile --------------------
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("TF32 is on: the figures time f32 products")
+    zero_counts()
+    t0 = time.perf_counter()
+    figures = figures_path(paper_figures, default_timer, profile, dev)
+    log(f"paper figures took {time.perf_counter() - t0:.1f} s; hand-kernel "
+        f"launches on their path (aten ops only): {counts()}")
+    print(json.dumps({"figures": figures,
+                      "loops": loop_costs(uipick, dev)}), flush=True)
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",

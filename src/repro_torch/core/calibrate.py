@@ -9,7 +9,9 @@ acceptance and convergence flags — the per-lane semantics of the
 reference's ``vmap`` of a ``while_loop``.  Parameters are solved in
 start-normalized units (each nominal start is 1), which keeps the normal
 equations well conditioned when rates near 1e-12 sit beside smoothing
-edges near 1e2.  Everything runs in float64.
+edges near 1e2.  Everything runs in float64, but a step is accepted
+only when it lowers the cost at float32 resolution — the reference's
+precision (jax's default) — so both solves stop at the same point.
 """
 from __future__ import annotations
 
@@ -93,8 +95,13 @@ def levenberg_marquardt_batched(
                 p_new = torch.clamp(p_new, min=0.0)
             r_new = resid_b(p_new)
             cost_new = (r_new * r_new).sum(-1)
+            # a decrease counts where the reference's float32 solve
+            # resolves it: in float64 a step along a flat valley lowers
+            # the cost by ~1e-9 of itself and the solve creeps on for
+            # thousands of iterations where the reference stops
             ok = (trying & (info == 0) & torch.isfinite(dp).all(-1)
-                  & torch.isfinite(cost_new) & (cost_new < cost))
+                  & torch.isfinite(cost_new)
+                  & (cost_new.float() < cost.float()))
             lam = torch.where(
                 trying,
                 torch.where(ok, torch.clamp(lam * lam_down, min=1e-12),
@@ -172,7 +179,9 @@ def fit_model(
     p, cost, it, conv = levenberg_marquardt_batched(
         resid, starts / scale, max_iters=max_iters, lam0=lam0,
         lam_up=lam_up, lam_down=lam_down, tol=tol, nonneg=nonneg)
-    best = int(torch.argmin(cost))
+    # the first of the starts tied at float32 resolution, as the
+    # reference's argmin picks among its float32 costs
+    best = int(torch.argmin(cost.float()))
     params = (p[best] * scale).tolist()
     return FitResult(
         params={n: float(v) for n, v in zip(names, params)},
@@ -245,6 +254,13 @@ def _gmre(rel: Sequence[float]) -> float:
     """Geometric mean of relative errors, floored at 1e-12."""
     clamped = [max(float(r), 1e-12) for r in rel]
     return float(np.exp(np.mean(np.log(clamped))))
+
+
+def geometric_mean_relative_error(pred: Sequence[float],
+                                  meas: Sequence[float]) -> float:
+    """The paper's headline accuracy metric over paired predictions and
+    measurements (Fleming & Wallace 1986)."""
+    return _gmre([abs(p - m) / abs(m) for p, m in zip(pred, meas)])
 
 
 def gmre_of(rel_errors: Mapping[str, float]) -> float:

@@ -16,8 +16,9 @@ profile mean the same thing on both sides:
     ``contig`` (copies, fills, padding, ``where``), ``strided``
     (transposes, flips), ``gather``/``scatter`` (indexing), ``concat``;
   * sync — ``f_sync_launch_kernel`` once per counted call,
-    ``f_sync_loop_steps`` once per step of a :func:`counted_range` loop
-    (the port's stand-in for ``scan``/``fori_loop``), and
+    ``f_sync_loop_steps`` once per step of a :func:`counted_range` or
+    :func:`counted_loop` loop (the port's stand-ins for
+    ``scan``/``fori_loop``), and
     ``f_sync_grid_programs`` from the hand kernels' cost rules.
 
 Views (``view``, ``slice``, ``select``, ``expand``, ...) move no data in
@@ -43,7 +44,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten, tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_structure
 
 
 class FeatureCounts(dict):
@@ -246,6 +247,49 @@ def counted_range(n: int) -> Iterator[int]:
         if counts is not None:
             counts.add("f_sync_loop_steps", 1.0)
         yield i
+
+
+def _check_carry(before: Any, after: Any) -> Any:
+    """``after`` if it has ``before``'s structure, shapes and dtypes."""
+    if tree_structure(before) != tree_structure(after):
+        raise ValueError(f"loop body changed the carry's structure: "
+                         f"{tree_structure(before)} -> "
+                         f"{tree_structure(after)}")
+    for a, b in zip(tree_flatten(before)[0], tree_flatten(after)[0]):
+        if isinstance(a, torch.Tensor) and (
+                not isinstance(b, torch.Tensor) or a.shape != b.shape
+                or a.dtype != b.dtype):
+            got = (tuple(b.shape), b.dtype) \
+                if isinstance(b, torch.Tensor) else type(b)
+            raise ValueError(f"loop body changed a carry tensor from "
+                             f"{(tuple(a.shape), a.dtype)} to {got}")
+    return after
+
+
+def counted_loop(n: int, body: Callable[[int, Any], Any], carry: Any) -> Any:
+    """``for i in range(n): carry = body(i, carry)`` — the reference's
+    ``fori_loop``, and ``scan`` with a carry.  On real tensors the body
+    runs ``n`` times, eagerly.  While :func:`count_fn` runs it, the body
+    runs once on the fake carry, the counts that step added are scaled
+    by ``n`` and ``n`` ``f_sync_loop_steps`` are added — the reference
+    counts a loop body times its trip count — so counting costs one
+    step whatever ``n``.  The body must keep the carry's structure,
+    shapes and dtypes (checked on the first step; the later steps see
+    the same shapes), and its counts must not depend on ``i``."""
+    counts = _ACTIVE.get()
+    if counts is None:
+        for i in range(n):
+            out = body(i, carry)
+            carry = _check_carry(carry, out) if i == 0 else out
+        return carry
+    if n > 0:
+        before = dict(counts)
+        carry = _check_carry(carry, body(0, carry))
+        for key, value in list(counts.items()):
+            prev = before.get(key, 0.0)
+            counts[key] = prev + (value - prev) * n
+    counts.add("f_sync_loop_steps", float(n))
+    return carry
 
 
 def count_fn(fn: Callable, *example_args: Any,

@@ -15,9 +15,12 @@ dispatch per call, as the reference times one jitted executable),
 *counted* by :mod:`repro_torch.core.counting` on ``meta`` arguments, so
 counting allocates and runs nothing.
 
-Ported so far: the five generators the default and smoke batteries
-select (``matmul_sq``, ``flops_madd_pattern``, ``flops_dot_pattern``,
-``mem_stream``, ``empty_kernel``); the rest are in ROADMAP queue A.
+All ten of the reference's generators are here, in its order.  A
+reference ``fori_loop``/``scan`` is a :func:`counted_loop` (or, for a
+short loop over data, a :func:`counted_range`): one XLA loop there, one
+or two kernel launches a step here, which a captured graph replays as
+one node each.  ``FamilySpec`` (symbolic count families) is not ported
+yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -32,7 +35,12 @@ from typing import Any, Callable, Dict, FrozenSet, Iterable, List, Mapping, Opti
 import numpy as np
 import torch
 
-from repro_torch.core.counting import FeatureCounts, count_fn, counted_range
+from repro_torch.core.counting import (
+    FeatureCounts,
+    count_fn,
+    counted_loop,
+    counted_range,
+)
 from repro_torch.core.model import FeatureTable
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -537,6 +545,39 @@ MEM_STREAM = Generator(
 )
 
 
+# ---- onchip_pattern: cache-resident working set ------------------------------
+
+
+def _build_onchip(*, working_set: int, iters: int, dtype: str
+                  ) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+
+    def fn(x):
+        # stays in L1/L2, load+store heavy
+        return counted_loop(iters, lambda i, x: torch.roll(x, 1) + x, x)
+
+    def make_args(device):
+        return (_randn((working_set,), 1, device, dt),)
+
+    return MeasurementKernel(
+        name=f"onchip_w{working_set}_i{iters}_{dtype}",
+        fn=fn, make_args=make_args,
+        tags=dict(working_set=working_set, iters=iters, dtype=dtype),
+        sizes=dict(working_set=working_set, iters=iters))
+
+
+ONCHIP = Generator(
+    "onchip_pattern",
+    frozenset({"onchip_pattern", "lmem"}),
+    arg_space=dict(
+        working_set=(2048, 8192, 32768),
+        iters=(64, 256, 1024),
+        dtype=("float32",),
+    ),
+    build=_build_onchip,
+)
+
+
 # ---- empty / launch-overhead kernel ----------------------------------------
 
 
@@ -561,6 +602,172 @@ EMPTY = Generator(
 )
 
 
+# ---- sync / loop-step overhead ----------------------------------------------
+
+
+def _build_loopstep(*, steps: int) -> MeasurementKernel:
+    def fn(x):
+        return counted_loop(steps, lambda i, c: c + 1.0, x)
+
+    def make_args(device):
+        return (torch.zeros((), dtype=torch.float32, device=device),)
+
+    return MeasurementKernel(
+        name=f"loopstep_s{steps}", fn=fn, make_args=make_args,
+        tags=dict(steps=steps), sizes=dict(steps=steps))
+
+
+LOOPSTEP = Generator(
+    "sync_loop_pattern",
+    frozenset({"sync_loop_pattern", "sync"}),
+    arg_space=dict(steps=(64, 512, 4096, 32768)),
+    build=_build_loopstep,
+)
+
+
+# ---- overlap kernel (paper §7.4): 1 global read + m on-chip updates ---------
+
+
+def _build_overlap(*, nelements: int, m: int, dtype: str) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+
+    def fn(x):
+        # one pass over the large array (memory-bound part)
+        s = torch.sum(x, dtype=torch.float32)
+        # m on-chip update rounds over a small resident buffer, filled on
+        # the device (no host sync, so the kernel stays capturable)
+        buf = s.to(dt).expand(1024).clone()
+        buf = counted_loop(m, lambda i, b: b * 0.999 + 1e-5, buf)
+        return torch.sum(buf)
+
+    def make_args(device):
+        return (_randn((nelements,), 1, device, dt),)
+
+    return MeasurementKernel(
+        name=f"overlap_n{nelements}_m{m}_{dtype}",
+        fn=fn, make_args=make_args,
+        tags=dict(nelements=nelements, m=m, dtype=dtype),
+        sizes=dict(nelements=nelements, m=m))
+
+
+OVERLAP = Generator(
+    "overlap_pattern",
+    frozenset({"overlap_pattern", "overlap"}),
+    arg_space=dict(
+        nelements=(4194304, 16777216),
+        m=(0, 4, 16, 64, 256, 1024, 4096, 16384, 65536),
+        dtype=("float32",),
+    ),
+    build=_build_overlap,
+)
+
+
+# ---- DG differentiation (paper §8.4) ----------------------------------------
+
+
+def _build_dg(*, nelements_dg: int, nunit_nodes: int, nmatrices: int,
+              variant: str, dtype: str) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+    K, N, M = nelements_dg, nunit_nodes, nmatrices
+
+    if variant == "basic":
+        def fn(dmat, u):
+            return torch.einsum("mij,kj->mki", dmat, u)
+    elif variant == "u_pf":
+        # contraction reassociated to reuse u across matrices ("prefetch u")
+        def fn(dmat, u):
+            d2 = dmat.reshape(M * N, N)
+            r = torch.einsum("pj,kj->pk", d2, u)
+            # a transpose is a view in PyTorch: materialize it, as XLA does
+            return r.reshape(M, N, K).permute(0, 2, 1).contiguous()
+    elif variant == "dmat_pf":
+        # loop over matrices, each a plain GEMM ("prefetch diff_mat"),
+        # each written into its slice of the stacked result as the
+        # reference's scan stacks its outputs
+        def fn(dmat, u):
+            r = u.new_empty((M, K, N))
+            for m in counted_range(M):
+                torch.matmul(u, dmat[m].T, out=r[m])
+            return r
+    elif variant == "dmat_pf_T":
+        # + transposed element-data layout (the paper's fastest variant)
+        def fn(dmat, ut):
+            r = ut.new_empty((M, N, K))
+            for m in counted_range(M):
+                torch.matmul(dmat[m], ut, out=r[m])
+            return r
+    else:
+        raise _SkipVariant
+
+    def make_args(device):
+        dmat = _randn((M, N, N), 1, device, dt)
+        shape = (N, K) if variant == "dmat_pf_T" else (K, N)
+        return dmat, _randn(shape, 2, device, dt)
+
+    return MeasurementKernel(
+        name=f"dg_{variant}_k{K}_n{N}_m{M}_{dtype}",
+        fn=fn, make_args=make_args,
+        tags=dict(nelements_dg=K, nunit_nodes=N, nmatrices=M,
+                  variant=variant, dtype=dtype),
+        sizes=dict(nelements_dg=K))
+
+
+DG_DIFF = Generator(
+    "dg_diff",
+    frozenset({"dg_diff", "dg"}),
+    arg_space=dict(
+        nelements_dg=(8192, 16384, 32768, 65536),
+        nunit_nodes=(64,),
+        nmatrices=(3,),
+        variant=("basic", "u_pf", "dmat_pf", "dmat_pf_T"),
+        dtype=("float32",),
+    ),
+    build=_build_dg,
+)
+
+
+# ---- 2-D five-point stencil (paper §8.5) ------------------------------------
+
+
+def _build_stencil(*, n_grid: int, variant: str, dtype: str
+                   ) -> MeasurementKernel:
+    dt = _DTYPES[dtype]
+
+    if variant == "roll":
+        def fn(u):
+            return (torch.roll(u, 1, 0) + torch.roll(u, -1, 0)
+                    + torch.roll(u, 1, 1) + torch.roll(u, -1, 1) - 4.0 * u)
+    elif variant == "slice":
+        def fn(u):
+            c = u[1:-1, 1:-1]
+            return (u[:-2, 1:-1] + u[2:, 1:-1] + u[1:-1, :-2]
+                    + u[1:-1, 2:] - 4.0 * c)
+    else:
+        raise _SkipVariant
+
+    def make_args(device):
+        return (_randn((n_grid, n_grid), 1, device, dt),)
+
+    return MeasurementKernel(
+        name=f"stencil_{variant}_n{n_grid}_{dtype}",
+        fn=fn, make_args=make_args,
+        tags=dict(n_grid=n_grid, variant=variant, dtype=dtype),
+        sizes=dict(n_grid=n_grid))
+
+
+STENCIL = Generator(
+    "finite_diff",
+    frozenset({"finite_diff", "stencil"}),
+    arg_space=dict(
+        n_grid=(1024, 2048, 4096, 8192),
+        variant=("roll", "slice"),
+        dtype=("float32",),
+    ),
+    build=_build_stencil,
+)
+
+
 ALL_GENERATORS: List[Generator] = [
-    MATMUL_SQ, FLOPS_MADD, FLOPS_DOT, MEM_STREAM, EMPTY,
+    MATMUL_SQ, FLOPS_MADD, FLOPS_DOT, MEM_STREAM, ONCHIP, EMPTY, LOOPSTEP,
+    OVERLAP, DG_DIFF, STENCIL,
 ]

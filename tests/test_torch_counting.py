@@ -5,8 +5,10 @@
   the same block-traffic rule), priced through ``count_fn`` on ``meta``
   tensors — nothing runs.
 * The aten-level walker counts each UIPiCK generator's smallest variant
-  as the reference's jaxpr walker does, up to the pinned differences
-  listed in ROADMAP queue C.
+  (all ten generators) as the reference's jaxpr walker does, up to the
+  pinned differences listed in ROADMAP queue C.
+* ``counted_loop`` counts one step times the trip count, as a
+  ``counted_range`` loop counts every step.
 """
 import functools
 
@@ -22,7 +24,7 @@ from repro_torch.analysis.kernelcost import (
 )
 from repro_torch.analysis.targets import f32
 from repro_torch.core import uipick as tuipick
-from repro_torch.core.counting import count_fn, counted_range
+from repro_torch.core.counting import count_fn, counted_loop, counted_range
 from repro_torch.kernels import dg_diff as tdg
 from repro_torch.kernels import matmul_tiled as tmm
 from repro_torch.kernels import ops
@@ -90,22 +92,23 @@ def test_counting_runs_no_kernel():
     assert (tmm.launches, tst.launches, tdg.launches) == before
 
 
-def _ref_kernel(name):
-    tags = ["matmul_sq", "flops", "gmem", "launch", "dtype:float32",
-            "nelements:262144,4096,16", "iters:64,16", "n_dot:128",
-            "n:256", "tile:16", "n_arrays:1,2"]
-    kerns = juipick.KernelCollection(juipick.ALL_GENERATORS) \
-        .generate_kernels(tags, juipick.MatchCondition.INTERSECT)
+# each generator's smallest variants (INTERSECT match)
+_SMALLEST_TAGS = [
+    "matmul_sq", "flops", "gmem", "launch", "lmem", "sync", "overlap", "dg",
+    "stencil", "dtype:float32", "nelements:262144,4096,16,4194304",
+    "iters:64,16", "n_dot:128", "n:256", "tile:16", "n_arrays:1,2",
+    "working_set:2048", "steps:64", "m:16", "nelements_dg:8192",
+    "n_grid:1024"]
+
+
+def _kernel(mod, name):
+    kerns = mod.KernelCollection(mod.ALL_GENERATORS).generate_kernels(
+        _SMALLEST_TAGS, mod.MatchCondition.INTERSECT)
     return {k.name: k for k in kerns}[name]
 
 
-def _port_kernel(name):
-    tags = ["matmul_sq", "flops", "gmem", "launch", "dtype:float32",
-            "nelements:262144,4096,16", "iters:64,16", "n_dot:128",
-            "n:256", "tile:16", "n_arrays:1,2"]
-    kerns = tuipick.KernelCollection(tuipick.ALL_GENERATORS) \
-        .generate_kernels(tags, tuipick.MatchCondition.INTERSECT)
-    return {k.name: k for k in kerns}[name]
+_ref_kernel = functools.partial(_kernel, juipick)
+_port_kernel = functools.partial(_kernel, tuipick)
 
 
 #: reference count − port count, per kernel (ROADMAP queue C)
@@ -134,6 +137,30 @@ COUNT_DIFFERENCES = {
         "f_mem_contig_float32_store": 196608,
         "f_mem_contig_int32_store": 48, "f_op_int32_add": 32,
         "f_op_int32_mul": 16},
+    # fori_loop's counter, as for madd
+    "onchip_w2048_i64_float32": {"f_op_int32_add": 64},
+    "loopstep_s64": {},
+    # m = 16, the smallest with a loop on the reference's count lattice:
+    # fori_loop's counter
+    "overlap_n4194304_m16_float32": {"f_op_int32_add": 16},
+    # torch.einsum permutes its operands (views, counted as strided
+    # traffic as the reference counts transpose); XLA's dot_general
+    # takes them as they are
+    "dg_basic_k8192_n64_m3_float32": {"f_mem_strided_float32_load": -1073152,
+                                      "f_mem_strided_float32_store":
+                                      -1073152},
+    # the same, twice over; and the reference's reshape of dmat is a
+    # contiguous store, the port's a free view
+    "dg_u_pf_k8192_n64_m3_float32": {"f_mem_strided_float32_load": -2646016,
+                                     "f_mem_strided_float32_store": -2646016,
+                                     "f_mem_contig_float32_store": 12288},
+    # each GEMM written into its slice of the result, as scan stacks it
+    "dg_dmat_pf_k8192_n64_m3_float32": {},
+    "dg_dmat_pf_T_k8192_n64_m3_float32": {},
+    "stencil_roll_n1024_float32": {},
+    # the reference counts its five slices as contiguous stores; the
+    # port's are free views
+    "stencil_slice_n1024_float32": {"f_mem_contig_float32_store": 5222420},
 }
 
 
@@ -156,6 +183,41 @@ def test_counted_range_emits_loop_steps_only_while_counting():
     assert c["f_sync_loop_steps"] == 5
     assert c["f_op_float32_mul"] == 40
     assert list(counted_range(3)) == [0, 1, 2]
+
+
+def test_counted_loop_counts_as_counted_range():
+    """One counted step scaled by the trip count gives what a counted
+    step-by-step loop gives, and eagerly both compute the same."""
+    def by_range(x, w):
+        for _ in counted_range(7):
+            x = torch.roll(x, 1) * w + x.sum()
+        return x
+
+    def by_loop(x, w):
+        return counted_loop(7, lambda i, x: torch.roll(x, 1) * w + x.sum(),
+                            x)
+
+    args = (f32(16), f32(16))
+    assert count_fn(by_loop, *args) == count_fn(by_range, *args)
+    assert count_fn(by_loop, *args)["f_sync_loop_steps"] == 7
+    x = torch.arange(16, dtype=torch.float32)
+    w = torch.full((16,), 0.5)
+    torch.testing.assert_close(by_loop(x, w), by_range(x, w), rtol=0,
+                               atol=0)
+    zero = count_fn(lambda x: counted_loop(0, lambda i, x: x * 2.0, x),
+                    f32(16))
+    assert zero["f_op_float32_mul"] == 0 and zero["f_sync_loop_steps"] == 0
+
+
+@pytest.mark.parametrize("body", [
+    lambda i, x: x[:-1],
+    lambda i, x: x.double(),
+    lambda i, x: (x, x),
+])
+def test_counted_loop_rejects_a_body_that_changes_the_carry(body):
+    for run in (lambda f, x: count_fn(f, x), lambda f, x: f(x)):
+        with pytest.raises(ValueError, match="carry"):
+            run(lambda x: counted_loop(3, body, x), torch.ones(4))
 
 
 @pytest.mark.parametrize("fn,shape,want", [

@@ -457,3 +457,25 @@ def test_graph_replay_equals_eager_on_default_battery(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, eager, msg=k.name)
         del graph, out, eager, args
+
+
+@pytest.mark.gpu
+def test_graph_replay_equals_eager_on_the_loop_and_figure_kernels(cuda):
+    """The five generators ported last, at the sizes the paper's figures
+    time them (and the shortest ``onchip`` and ``sync_loop`` loops): a
+    loop is captured launch by launch, and the replay computes what the
+    eager call computes."""
+    from repro_torch.studies import paper_figures as pf
+    kernels = [k for tags in (pf.FIG5_TAGS, pf.FIG8_TAGS, pf.FIG9_TAGS,
+                              ["onchip_pattern", "iters:64"],
+                              ["sync_loop_pattern", "steps:64,32768"])
+               for k in pf.kernels(tags)]
+    assert len(kernels) == 7 + 8 + 4 + 3 + 2
+    for k in kernels:
+        args = k.make_args(cuda)
+        eager = k.fn(*args)
+        graph, out = k.capture(args)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, eager, msg=k.name)
+        del graph, out, eager, args

@@ -184,3 +184,93 @@ def test_feature_table_round_trip_matches_reference_json():
     assert t.noise_summary() == j.noise_summary()
     back = tmodel.FeatureTable.from_dict(j.to_dict())
     np.testing.assert_array_equal(back.values, t.values)
+
+
+# The 43-kernel base battery's median seconds on an NVIDIA H100 80GB HBM3
+# (700.00 W), 3 trials, one CUDA-graph replay each (chip_smoke.py phase 3)
+CARD_BASE_TIMES = {
+    "madd_n65536_i64_float32": 0.001814079999923706,
+    "madd_n65536_i256_float32": 0.007157408237457276,
+    "madd_n65536_i512_float32": 0.012798399925231935,
+    "dotflops_n128_i64_float32": 0.00039132800698280336,
+    "dotflops_n256_i64_float32": 0.0005279679894447327,
+    "dotflops_n384_i64_float32": 0.0006991680264472962,
+    "stream_contig_n1048576_a1_float32": 1.6416000202298166e-05,
+    "stream_strided_n1048576_a1_float32": 1.6256000846624374e-05,
+    "stream_gather_n1048576_a1_float32": 1.836800016462803e-05,
+    "stream_shift_n1048576_a1_float32": 1.91040001809597e-05,
+    "stream_contig_n4194304_a1_float32": 1.0528000071644782e-05,
+    "stream_strided_n4194304_a1_float32": 4.24639992415905e-05,
+    "stream_gather_n4194304_a1_float32": 4.905600100755692e-05,
+    "stream_shift_n4194304_a1_float32": 2.6528000831604006e-05,
+    "stream_contig_n16777216_a1_float32": 1.2000000104308128e-05,
+    "stream_strided_n16777216_a1_float32": 0.00014895999431610108,
+    "stream_gather_n16777216_a1_float32": 0.0004171839952468872,
+    "stream_shift_n16777216_a1_float32": 8.963199704885482e-05,
+    "stream_contig_n1048576_a2_float32": 1.9168000668287278e-05,
+    "stream_strided_n1048576_a2_float32": 2.3231999948620798e-05,
+    "stream_gather_n1048576_a2_float32": 3.8047999143600466e-05,
+    "stream_shift_n1048576_a2_float32": 2.2975999861955644e-05,
+    "stream_contig_n4194304_a2_float32": 2.473600022494793e-05,
+    "stream_strided_n4194304_a2_float32": 6.150399893522262e-05,
+    "stream_gather_n4194304_a2_float32": 0.00011711999773979187,
+    "stream_shift_n4194304_a2_float32": 6.681600213050842e-05,
+    "stream_contig_n16777216_a2_float32": 7.462400197982788e-05,
+    "stream_strided_n16777216_a2_float32": 0.00021241599321365358,
+    "stream_gather_n16777216_a2_float32": 0.0009021120071411133,
+    "stream_shift_n16777216_a2_float32": 0.0002383359968662262,
+    "stream_contig_n1048576_a4_float32": 2.2143999114632608e-05,
+    "stream_strided_n1048576_a4_float32": 2.4960000067949296e-05,
+    "stream_gather_n1048576_a4_float32": 7.158400118350983e-05,
+    "stream_shift_n1048576_a4_float32": 4.0063999593257904e-05,
+    "stream_contig_n4194304_a4_float32": 5.3727999329566956e-05,
+    "stream_strided_n4194304_a4_float32": 9.001599997282028e-05,
+    "stream_gather_n4194304_a4_float32": 0.00024393600225448608,
+    "stream_shift_n4194304_a4_float32": 0.0001387840062379837,
+    "stream_contig_n16777216_a4_float32": 0.00021084800362586976,
+    "stream_strided_n16777216_a4_float32": 0.0003484480082988739,
+    "stream_gather_n16777216_a4_float32": 0.0018561919927597046,
+    "stream_shift_n16777216_a4_float32": 0.0005360000133514404,
+    "empty_n65536": 1.648000068962574e-05,
+}
+
+
+def test_base_fit_on_the_card_table_converges_as_the_reference():
+    """On the card's own base table the reference's float32 solve stops
+    after 133 iterations, converged; a float64 solve that accepts any
+    decrease creeps on by ~1e-9 of the cost a step along a flat valley
+    and is still going at 200.  The port judges a decrease at the
+    reference's float32 resolution, so both converge at one residual.
+    The rates agree to 5e-3: within 1e-5 of each other's cost they are
+    free along that valley.  ``p_concat`` is not compared: no battery
+    kernel has a concat feature, so any value fits.  The residual itself
+    is the data's: the base model is linear in its rates, and the best
+    nonnegative rates (NNLS) leave the same residual."""
+    from scipy.optimize import nnls
+    from repro_torch.core.uipick import (
+        ALL_GENERATORS, KernelCollection, MatchCondition,
+        gather_feature_table)
+    from repro_torch.profiles.presets import CALIBRATION_TAGS
+    kernels = KernelCollection(ALL_GENERATORS).generate_kernels(
+        CALIBRATION_TAGS, MatchCondition.INTERSECT)
+    assert [k.name for k in kernels] == list(CARD_BASE_TIMES)
+    m = tmodel.Model(OUT, BASE_MODEL_EXPR)
+    table = gather_feature_table(m.all_features(), kernels, trials=3,
+                                 timer=lambda k, _: CARD_BASE_TIMES[k.name])
+    got = tcal.fit_model(m, table, nonneg=True)
+    want = jcal.fit_model(jmodel.Model(OUT, BASE_MODEL_EXPR),
+                          jmodel.FeatureTable.from_dict(table.to_dict()),
+                          nonneg=True)
+    assert want.converged and got.converged
+    assert got.iterations < 200
+    np.testing.assert_allclose(got.residual_norm, want.residual_norm,
+                               rtol=1e-5)
+    F, target = m.design_matrix(table)
+    design = m.param_jacobian(np.ones(len(m.param_names)), F)
+    scale = np.where(design.any(0), np.abs(design).max(0), 1.0)
+    best = nnls(design / scale, target)[1]
+    assert best <= got.residual_norm <= best * (1 + 1e-5)
+    for n in m.param_names:
+        if n != "p_concat":
+            np.testing.assert_allclose(got.params[n], want.params[n],
+                                       rtol=5e-3, err_msg=n)
