@@ -70,7 +70,19 @@ Phases, each fatal on failure:
    twice, or measures a time that is not finite and positive fails; then
    the longest loop of each loop generator (``sync_loop_pattern``,
    ``overlap_pattern``, ``onchip_pattern``): eager call, capture and
-   replay, each per step (:func:`loop_costs`).
+   replay, each per step (:func:`loop_costs`);
+11. (after phase 10, before that ``kernels`` line) the measurement cache,
+   the count engine and retiming (:func:`amortization_path`): the base
+   battery (3 trials) into a fresh ``--cache-dir``, cold then warm —
+   the warm run must perform 0 timings and 0 counting passes and write a
+   byte-identical profile; host seconds to count the base battery and
+   the seven figures' kernels per shape (``count_fn``), through the
+   engine cold and warm, every count equal; the zoo study with
+   ``--retime-rel-std 0.05`` (re-timed rows, held-out gmre per rung
+   beside phase 6's); and ``PerfSession(cache=...)`` pricing all eight
+   hand kernels at phases 7–8's real sizes twice (the second pass, and a
+   second session over the same cache, count nothing).  One
+   ``{"amortization": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -78,15 +90,20 @@ Phase 3 also prints its 43-row feature table as one
 Launch counters are set to 0 before phase 3 and read after phase 5 (the
 three §8 kernels must have launched), set to 0 again before phase 6 and
 read after phase 7 (the five kernels of the zoo study), and again before
-phase 8 and read after it (the three model-layer kernels), and logged
-around phase 10 (the figures run aten ops, no hand kernel).  Without a
+phase 8 and read after it (the three model-layer kernels), logged
+around phase 10 (the figures run aten ops, no hand kernel), and set to 0
+before phase 11 and read after it, which fails if pricing launched any.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import ast
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -1027,6 +1044,172 @@ def loop_costs(uipick, dev) -> dict:
     return out
 
 
+def zoo_items(ops, f32) -> dict:
+    """The five zoo-path kernels at their real sizes, as (wrapper, meta
+    arguments) predict items (stream_strided at both strides)."""
+    import functools
+    m, k, n = REAL_MATMUL
+    mm, nn, kk = REAL_DG
+    size, n_arrays, block = REAL_STREAM
+    madd_s, madd_iters, madd_block = REAL_MADD
+    stream = [f32(size) for _ in range(n_arrays)]
+    return {
+        "matmul_tiled": (ops.matmul, (f32(m, k), f32(k, n))),
+        "stencil5": (ops.stencil5, (f32(*REAL_STENCIL),)),
+        "dg_diff": (ops.dg_diff, (f32(mm, nn, nn), f32(nn, kk))),
+        "stream_strided": (functools.partial(
+            ops.stream_strided, block=block, stride=1), (stream,)),
+        "stream_strided_stride4": (functools.partial(
+            ops.stream_strided, block=block, stride=4), (stream,)),
+        "madd_throughput": (functools.partial(
+            ops.madd_throughput, iters=madd_iters, block=madd_block),
+            (f32(madd_s),)),
+    }
+
+
+def run_cli(calibrate_main, argv) -> dict:
+    """One ``repro_torch.calibrate`` run with its output echoed: exit
+    code, host seconds and the counters it prints."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = calibrate_main(argv)
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    counters = {k: int(v) for k, v in re.findall(
+        r"(timings_performed|cache_hits|count_traces|count_hits|retimed)="
+        r"(\d+)", text)}
+    retimed = re.search(r"retimed=\d+ rows above rel-std \S+: (\[.*\])",
+                        text)
+    return {"rc": rc, "seconds": seconds, **counters,
+            "retimed_rows": ast.literal_eval(retimed[1]) if retimed else []}
+
+
+def amortization_path(calibrate_main, PerfSession, CountEngine, uipick,
+                      paper_figures, presets, studies, items, profile_path,
+                      zoo_profile, tmp) -> dict:
+    """Phase 11: the measurement cache, the count engine and retiming on
+    the card.  (a) the base battery (3 trials) into a fresh cache, cold
+    then warm: the warm run must time nothing, count nothing and write the
+    cold run's profile byte for byte; (b) host seconds to count the base
+    battery and the seven figures' kernels three ways — ``count_fn`` per
+    shape, the engine cold, the engine warm (no counting pass) — with
+    every count equal; (c) the zoo study with ``--retime-rel-std 0.05``,
+    its re-timed rows and held-out gmre per rung beside phase 6's;
+    (d) ``PerfSession(cache=...)`` prices ``items`` (all eight hand
+    kernels at phases 7–8's real sizes) twice, and a second session over
+    the same cache once: only the first pricing may count."""
+    from repro_torch.core.calibrate import gmre_of
+    cache_dir = tmp / "measurement_cache"
+    out = {"battery": {}}
+    for run, extra in (("cold", []), ("warm", ["--expect-zero-timings"])):
+        res = run_cli(calibrate_main, [
+            "--out", str(tmp / f"h100_cached_{run}.json"), "--trials", "3",
+            "--device", "cuda", "--cache-dir", str(cache_dir), *extra])
+        if res["rc"] != 0:
+            raise SystemExit(f"{run} cached calibration exited {res['rc']}")
+        out["battery"][run] = {k: res[k] for k in (
+            "seconds", "timings_performed", "count_traces", "cache_hits")}
+        log(f"base battery {run}: {res['seconds']:.2f} s, timings "
+            f"{res['timings_performed']}, count traces "
+            f"{res['count_traces']}, cache hits {res['cache_hits']}")
+    warm = out["battery"]["warm"]
+    same = (tmp / "h100_cached_cold.json").read_bytes() == \
+        (tmp / "h100_cached_warm.json").read_bytes()
+    out["battery"]["profile_bytes_identical"] = same
+    if warm["timings_performed"] or warm["count_traces"] or not same:
+        raise SystemExit(f"warm recalibration is not free: {warm}, "
+                         f"profiles identical: {same}")
+
+    tags = [(presets.CALIBRATION_TAGS, uipick.MatchCondition.INTERSECT)] + [
+        (t, uipick.MatchCondition.SUPERSET) for t in (
+            paper_figures.FIG1_CAL_TAGS, paper_figures.FIG12_TEST_TAGS,
+            paper_figures.FIG2_CAL_TAGS, paper_figures.FIG5_TAGS,
+            paper_figures.FIG7_TAGS, paper_figures.FIG8_TAGS,
+            paper_figures.FIG9_TAGS)]
+
+    def fresh():
+        coll = uipick.KernelCollection(uipick.ALL_GENERATORS)
+        return [k for t, match in tags
+                for k in coll.generate_kernels(t, match)]
+
+    store = tmp / "count_store"
+    ways = {}
+    for way in ("count_fn", "engine_cold", "engine_warm"):
+        kernels = fresh()
+        engine = CountEngine(store=store)
+        t0 = time.perf_counter()
+        rows = ([k.counts() for k in kernels] if way == "count_fn"
+                else engine.counts_batch(kernels))
+        ways[way] = {"seconds": time.perf_counter() - t0,
+                     "traces": (len(kernels) if way == "count_fn"
+                                else engine.trace_count),
+                     "rows": rows}
+        log(f"counting {len(kernels)} kernels, {way}: "
+            f"{ways[way]['seconds']:.3f} s host, "
+            f"{ways[way]['traces']} counting passes")
+    names = [k.name for k in fresh()]
+    for way in ("engine_cold", "engine_warm"):
+        for name, want, got in zip(names, ways["count_fn"]["rows"],
+                                   ways[way]["rows"]):
+            diff = {f: (want[f], got[f]) for f in set(want) | set(got)
+                    if want[f] != got[f]}
+            if diff:
+                raise SystemExit(f"{way} counts of {name} differ: {diff}")
+    if ways["engine_warm"]["traces"]:
+        raise SystemExit("the warm count engine counted again")
+    out["counting"] = {"kernels": len(names), **{
+        way: {k: v for k, v in w.items() if k != "rows"}
+        for way, w in ways.items()}}
+
+    zoo = tmp / "h100_zoo_retimed.json"
+    res = run_cli(calibrate_main, ["--zoo", "--trials", "3", "--device",
+                                   "cuda", "--retime-rel-std", "0.05",
+                                   "--out", str(zoo)])
+    if res["rc"] != 0:
+        raise SystemExit(f"retimed zoo study exited {res['rc']}")
+    gmre = {}
+    for run, path in (("phase6", zoo_profile), ("retimed", zoo)):
+        acc = studies.profile_accuracy(studies.load_profiles_any(path)[0])
+        gmre[run] = {rung: gmre_of(acc[rung]) for rung in ZOO}
+    out["zoo_retime"] = {"rel_std": 0.05, "seconds": res["seconds"],
+                         "timings": res["timings_performed"],
+                         "retimed_rows": res["retimed_rows"],
+                         "holdout_gmre": gmre}
+    log(f"zoo study with --retime-rel-std 0.05: {res['seconds']:.2f} s, "
+        f"{len(res['retimed_rows'])} rows re-timed "
+        f"{res['retimed_rows']}; held-out gmre "
+        + "; ".join(f"{rung} {gmre['retimed'][rung]:.2%} (phase 6 "
+                    f"{gmre['phase6'][rung]:.2%})" for rung in ZOO))
+
+    pricing = []
+    for session_no in (1, 2):
+        session = PerfSession.open(profile_path, cache=cache_dir)
+        for _ in range(2 if session_no == 1 else 1):
+            t0 = time.perf_counter()
+            preds = session.predict_batch(list(items.values()),
+                                          names=list(items))
+            pricing.append({"session": session_no,
+                            "seconds": time.perf_counter() - t0,
+                            "traces": session.engine.trace_count,
+                            "hits": session.engine.hits,
+                            "timings": session.timer.calls})
+            if not all(math.isfinite(p.seconds) and p.seconds > 0
+                       for p in preds):
+                raise SystemExit(f"pricing: {[p.seconds for p in preds]}")
+            log(f"pricing {len(items)} hand-kernel items, session "
+                f"{session_no}: {pricing[-1]['seconds'] * 1e3:.2f} ms host, "
+                f"count traces so far {session.engine.trace_count}, "
+                f"hits {session.engine.hits}")
+    first, again, other = pricing
+    if first["traces"] != len(items) or again["traces"] != first["traces"] \
+            or other["traces"] != 0 or any(p["timings"] for p in pricing):
+        raise SystemExit(f"pricing counted or timed again: {pricing}")
+    out["pricing"] = pricing
+    return out
+
+
 def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
     """Phase 6-7's predictions: the zoo study on the card and on the
     synthetic device apex, ``compare --sweep``, and each kernel's
@@ -1059,23 +1242,7 @@ def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
                        "--json", str(tmp / "compare.json")]) != 0:
         raise SystemExit("compare failed")
 
-    m, k, n = REAL_MATMUL
-    mm, nn, kk = REAL_DG
-    size, n_arrays, block = REAL_STREAM
-    madd_s, madd_iters, madd_block = REAL_MADD
-    stream = [f32(size) for _ in range(n_arrays)]
-    items = {
-        "matmul_tiled": (ops.matmul, (f32(m, k), f32(k, n))),
-        "stencil5": (ops.stencil5, (f32(*REAL_STENCIL),)),
-        "dg_diff": (ops.dg_diff, (f32(mm, nn, nn), f32(nn, kk))),
-        "stream_strided": (functools.partial(
-            ops.stream_strided, block=block, stride=1), (stream,)),
-        "stream_strided_stride4": (functools.partial(
-            ops.stream_strided, block=block, stride=4), (stream,)),
-        "madd_throughput": (functools.partial(
-            ops.madd_throughput, iters=madd_iters, block=madd_block),
-            (f32(madd_s),)),
-    }
+    items = zoo_items(ops, f32)
     session = PerfSession.open(h100)
     preds = {name: {} for name in items}
     for rung in ZOO:
@@ -1111,9 +1278,11 @@ def main() -> int:
     from repro_torch.kernels import _build, dg_diff, flash_attention
     from repro_torch.kernels import mamba2_ssd, matmul_tiled, microbench
     from repro_torch.kernels import ops, ref, slstm_cell, stencil5
+    from repro_torch import studies
     from repro_torch.core import uipick
+    from repro_torch.core.countengine import CountEngine
     from repro_torch.core.uipick import default_timer
-    from repro_torch.profiles import cli, load_profile
+    from repro_torch.profiles import cli, load_profile, presets
     from repro_torch.profiles.cli import main as calibrate_main
     from repro_torch.studies import paper_figures
     from repro_torch.testing import variants
@@ -1329,6 +1498,25 @@ def main() -> int:
         f"launches on their path (aten ops only): {counts()}")
     print(json.dumps({"figures": figures,
                       "loops": loop_costs(uipick, dev)}), flush=True)
+
+    # ---- 11. measurement cache, count engine, retiming ----------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    items = zoo_items(ops, f32)
+    cases = model_layer_cases(ops, ref, sizes)
+    items.update({name: (c["kernel"], c["meta"])
+                  for name, c in cases.items()})
+    amortization = amortization_path(
+        calibrate_main, PerfSession, CountEngine, uipick, paper_figures,
+        presets, studies, items, profile_path, tmp / "h100_zoo.json", tmp)
+    pricing_launches = counts()
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s; hand-kernel "
+        f"launches on its path (aten battery, pricing only): "
+        f"{pricing_launches}")
+    if any(pricing_launches.values()):
+        raise SystemExit(f"pricing launched a hand kernel: "
+                         f"{pricing_launches}")
+    print(json.dumps({"amortization": amortization}), flush=True)
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",

@@ -8,7 +8,7 @@ filesystem; ``eval_calls`` counts batched evaluations.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -76,25 +76,50 @@ class PredictEngine:
         """One prediction per counted kernel, all in one batched
         evaluation.  ``strict=True`` raises one :class:`PredictionError`
         naming every row with work the model has no term for."""
+        preds, errors = self._predict(counts_rows, kernel_names,
+                                      model=model, strict=strict,
+                                      partial=False)
+        assert not errors
+        return preds
+
+    def try_predict_rows(self, counts_rows: Sequence[FeatureCounts],
+                         kernel_names: Sequence[str], *,
+                         model: Optional[str] = None,
+                         strict: bool = True
+                         ) -> List[Union[Prediction, PredictionError]]:
+        """Per-item error mode: an out-of-scope row comes back as its own
+        :class:`PredictionError` at its position, every other row as its
+        :class:`Prediction` — still one batched evaluation."""
+        preds, errors = self._predict(counts_rows, kernel_names,
+                                      model=model, strict=strict,
+                                      partial=True)
+        return [errors.get(i, p) for i, p in enumerate(preds)]
+
+    def _predict(self, counts_rows, kernel_names, *, model, strict,
+                 partial):
         if len(counts_rows) != len(kernel_names):
             raise ValueError(f"{len(kernel_names)} names for "
                              f"{len(counts_rows)} count rows")
         fit_name, mf, m = self.resolve(model)
         unmodeled = [m.unmodeled_features(c) for c in counts_rows]
+        errors: Dict[int, PredictionError] = {}
         if strict:
             violations = [scope_violation(i, kname, extra)
                           for i, (kname, extra)
                           in enumerate(zip(kernel_names, unmodeled))
                           if extra]
             if violations:
-                raise scope_violation_error(fit_name, violations)
+                if not partial:
+                    raise scope_violation_error(fit_name, violations)
+                errors = {v["index"]: scope_violation_error(fit_name, [v])
+                          for v in violations}
         aligned = m.align(counts_rows)
         p_vec = torch.as_tensor([mf.params[n] for n in m.param_names],
                                 dtype=DTYPE)
         parts = m.batched_breakdown(p_vec, torch.as_tensor(aligned,
                                                            dtype=DTYPE))
         self.eval_calls += 1
-        return assemble_predictions(
+        preds = assemble_predictions(
             kernel_names=list(kernel_names),
             fit_name=fit_name,
             labels=m.breakdown_labels,
@@ -105,6 +130,7 @@ class PredictEngine:
             params=mf.params,
             diagnostics=self.diagnostics_for(fit_name, mf, m),
         )
+        return preds, errors
 
     def diagnostics_for(self, fit_name: str, mf: ModelFit, m: Model
                         ) -> Dict[str, Any]:

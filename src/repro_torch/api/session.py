@@ -10,25 +10,35 @@ counterpart of ``repro.api.session``::
     print(pred.seconds, pred.explain(top=3))
 
 Opening from a profile performs no measurement, and prediction never
-times a kernel: counts come from :func:`repro_torch.core.counting.count_fn`
-(fake tensors, nothing executes) and every batch is one evaluation.
-``session.timer.calls`` is the observable of that guarantee.
+times a kernel: counts come from the count engine
+(:class:`~repro_torch.core.countengine.CountEngine`: fake tensors,
+nothing executes; memoized by content and persisted beside a measurement
+cache when the session has one) and every batch is one evaluation.
+``session.timer.calls`` and ``session.engine.trace_count`` are the
+observables of those guarantees.
 """
 from __future__ import annotations
 
 import functools
 from pathlib import Path
-from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.api.engine import DEFAULT_MODEL, PredictEngine
+from repro_torch.api.errors import PredictionError
 from repro_torch.api.prediction import Prediction
-from repro_torch.core.counting import FeatureCounts, count_fn
+from repro_torch.core.countengine import (
+    CountEngine,
+    args_signature,
+    callable_signature,
+)
+from repro_torch.core.counting import FeatureCounts
 from repro_torch.core.uipick import (
     CountingTimer,
     MeasurementKernel,
     default_timer,
 )
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.profiles.cache import MeasurementCache
 from repro_torch.profiles.fingerprint import DeviceFingerprint
 from repro_torch.profiles.profile import (
     MachineProfile,
@@ -44,14 +54,27 @@ PredictItem = Union[MeasurementKernel, Callable, Tuple[Callable, tuple]]
 
 
 class PerfSession:
-    """A loaded machine profile plus the prediction engine over it."""
+    """A loaded machine profile plus the resources to predict with it:
+    the pure :class:`PredictEngine`, the measurement cache, the count
+    engine and the timer seam (used only if calibration runs)."""
 
     def __init__(self, profile: MachineProfile, *,
-                 timer: Optional[CountingTimer] = None):
+                 cache: Optional[MeasurementCache] = None,
+                 timer: Optional[CountingTimer] = None,
+                 engine: Optional[CountEngine] = None,
+                 calibration: Optional[Dict[str, Any]] = None):
         self.profile = profile
+        self.cache = cache
         # the timing seam; prediction must leave .calls where opening
         # left it
         self.timer = timer if timer is not None else CountingTimer()
+        # in-process memo plus a persistent tier beside the measurement
+        # cache, when one is attached
+        self.engine = engine if engine is not None else CountEngine(
+            store=cache.count_store if cache is not None else None)
+        # how the profile came to be: timings, cache hits, count traces
+        # and re-timed rows of an on-demand calibration
+        self.calibration: Dict[str, Any] = dict(calibration or {})
         self.predict_engine = PredictEngine(profile)
 
     @property
@@ -61,8 +84,11 @@ class PerfSession:
     @classmethod
     def open(cls, source: Union[None, str, Path, MachineProfile, Any] = None,
              *, tags: Optional[Sequence[str]] = None, trials: int = 8,
+             cache: Union[None, str, Path, MeasurementCache] = None,
              holdout_fraction: float = 0.25,
+             retime_rel_std: Optional[float] = None,
              timer: Optional[Callable] = None,
+             engine: Optional[CountEngine] = None,
              device: DeviceLike = "cuda",
              save_to: Union[None, str, Path] = None) -> "PerfSession":
         """Open a prediction session.  ``source`` selects where the fitted
@@ -78,13 +104,19 @@ class PerfSession:
           :class:`~repro_torch.testing.synthdev.SyntheticDevice`) —
           calibrate that device through its timer.
 
-        ``save_to`` keeps an on-demand calibration as a profile file.
-        The session's ``timer`` is the calibration's: its ``calls`` count
-        the study's timings, and prediction adds none."""
-        if isinstance(source, MachineProfile):
-            return cls(source)
+        ``cache`` (a :class:`MeasurementCache` or a directory) serves the
+        calibration's timings and the prediction's counts;
+        ``retime_rel_std`` is forwarded to the gather; ``save_to`` keeps
+        an on-demand calibration as a profile file.  The session's
+        ``timer`` is the calibration's: its ``calls`` count the study's
+        timings, and prediction adds none."""
         if isinstance(source, (str, Path)):
-            return cls(load_profile(source))
+            source = load_profile(source)
+        if isinstance(source, MachineProfile):
+            return cls(source, cache=_as_cache(cache, source.fingerprint),
+                       engine=engine,
+                       calibration={"source": "profile", "timings": 0,
+                                    "retimed": 0})
         from repro_torch.studies.study import run_study
         from repro_torch.studies.zoo import STUDY_TAGS
 
@@ -101,12 +133,25 @@ class PerfSession:
                 f"MachineProfile, a device with .fingerprint/.timer, or "
                 f"None (this machine); got {type(source).__name__}")
         counting = CountingTimer(base)
+        mcache = _as_cache(cache, fingerprint)
+        if engine is None:
+            engine = CountEngine(
+                store=mcache.count_store if mcache is not None else None)
         profile = run_study(fingerprint=fingerprint, timer=counting,
-                            tags=tags or STUDY_TAGS, trials=trials,
-                            holdout_fraction=holdout_fraction)
+                            cache=mcache, tags=tags or STUDY_TAGS,
+                            trials=trials,
+                            holdout_fraction=holdout_fraction,
+                            retime_rel_std=retime_rel_std, engine=engine)
         if save_to is not None:
             save_profile(profile, save_to)
-        return cls(profile, timer=counting)
+        return cls(profile, cache=mcache, timer=counting, engine=engine,
+                   calibration={
+                       "source": f"calibrated:{fingerprint.id}",
+                       "timings": counting.calls,
+                       "cache_hits": mcache.hits if mcache else 0,
+                       "count_traces": engine.trace_count,
+                       "retimed": len(profile.retimed_rows),
+                   })
 
     def predict(self, fn: PredictItem, *args,
                 model: Optional[str] = None, name: Optional[str] = None,
@@ -122,27 +167,85 @@ class PerfSession:
                       model: Optional[str] = None,
                       names: Optional[Sequence[str]] = None,
                       strict: bool = False) -> List[Prediction]:
-        """Predict every item in one batched evaluation; zero timings."""
+        """Predict every item in one batched evaluation; zero timings.
+        Duplicate items — identical (content signature, argument shapes)
+        — are counted once and their rows shared, so a batch of 64
+        requests over 8 distinct kernels costs 8 count lookups (and no
+        counting pass when the count store is warm)."""
         items = list(items)
         if not items:
             return []
-        if names is not None and len(names) != len(items):
-            raise ValueError(f"names has {len(names)} entries for "
-                             f"{len(items)} items")
         self.predict_engine.resolve(model)      # fail fast, pre-counting
-        kernel_names: List[str] = []
-        rows: List[FeatureCounts] = []
-        for idx, item in enumerate(items):
-            kname, counts = _count_item(item, idx)
-            kernel_names.append(names[idx] if names is not None else kname)
-            rows.append(counts)
+        kernel_names, rows = self._count_items(items, names)
         return self.predict_engine.predict_rows(
             rows, kernel_names, model=model, strict=strict)
 
+    def try_predict_batch(self, items: Sequence[PredictItem], *,
+                          model: Optional[str] = None,
+                          names: Optional[Sequence[str]] = None,
+                          strict: bool = True
+                          ) -> List[Union[Prediction, PredictionError]]:
+        """Per-item error mode of :meth:`predict_batch`: position *i* is
+        item *i*'s :class:`Prediction` or its own
+        :class:`PredictionError`, so one out-of-scope item never fails
+        the batch (still one batched evaluation)."""
+        items = list(items)
+        if not items:
+            return []
+        self.predict_engine.resolve(model)
+        kernel_names, rows = self._count_items(items, names)
+        return self.predict_engine.try_predict_rows(
+            rows, kernel_names, model=model, strict=strict)
 
-def _count_item(item: PredictItem, idx: int) -> Tuple[str, FeatureCounts]:
+    def _count_items(self, items: Sequence[PredictItem],
+                     names: Optional[Sequence[str]]
+                     ) -> Tuple[List[str], List[FeatureCounts]]:
+        """Resolve each item's identity, dedup by (signature, shapes) and
+        count through the cache and the count engine — never a timer."""
+        if names is not None and len(names) != len(items):
+            raise ValueError(f"names has {len(names)} entries for "
+                             f"{len(items)} items")
+        kernel_names: List[str] = []
+        rows: List[FeatureCounts] = []
+        deduped: Dict[Any, FeatureCounts] = {}
+        for idx, item in enumerate(items):
+            kname, key, sig = _item_identity(item, idx)
+            kernel_names.append(names[idx] if names is not None else kname)
+            counts = deduped.get(key)
+            if counts is None:
+                counts = self._counts_of(item, sig)
+                deduped[key] = counts
+            rows.append(counts)
+        return kernel_names, rows
+
+    def _counts_of(self, item: PredictItem, sig: str) -> FeatureCounts:
+        """One item's counted features, through the measurement cache and
+        the count engine."""
+        if isinstance(item, MeasurementKernel):
+            if self.cache is None:
+                return self.engine.counts_for(item, sig=sig)
+            trials = self.profile.trials
+            entry = self.cache.get(item, trials)
+            if entry is not None:
+                return entry.counts
+            counts = self.engine.counts_for(item, sig=sig)
+            # a counts-only entry: a later gather backfills the timing
+            self.cache.put(item, trials, None, counts)
+            return counts
+        fn, args = item if isinstance(item, tuple) else (item, ())
+        return self.engine.counts_of_callable(fn, args, sig=sig)
+
+
+def _item_identity(item: PredictItem, idx: int
+                   ) -> Tuple[str, Any, str]:
+    """Display name, dedup key and content signature of one predict item.
+    The key is the item's content identity — (signature, shapes) — so
+    identical requests in a batch collapse to one lookup; with a ``""``
+    signature it falls back to object identity, sound within a batch."""
     if isinstance(item, MeasurementKernel):
-        return item.name, item.counts()
+        sig = item.code_sig or callable_signature(item.fn)
+        return item.name, ("kern", sig or f"obj:{id(item.fn)}", item.name,
+                           tuple(sorted(item.sizes.items()))), sig
     if isinstance(item, tuple):
         fn, args = item
     elif callable(item):
@@ -154,4 +257,12 @@ def _count_item(item: PredictItem, idx: int) -> Tuple[str, FeatureCounts]:
             f"got {type(item).__name__}")
     kname = getattr(fn, "__name__", None) or getattr(
         getattr(fn, "func", None), "__name__", "kernel")
-    return f"{kname}[{idx}]", count_fn(fn, *args)
+    sig = callable_signature(fn)
+    key = ("fn", sig or f"obj:{id(fn)}", args_signature(args))
+    return f"{kname}[{idx}]", key, sig
+
+
+def _as_cache(cache, fingerprint) -> Optional[MeasurementCache]:
+    if cache is None or isinstance(cache, MeasurementCache):
+        return cache
+    return MeasurementCache(cache, fingerprint)

@@ -21,6 +21,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.model import DTYPE, FeatureTableLike, Model, as_feature_table
 
 
@@ -128,13 +129,16 @@ def levenberg_marquardt_batched(
 def _multi_starts(p_init: torch.Tensor, names: Sequence[str],
                   seeds: int) -> torch.Tensor:
     """``[seeds, n_params]`` deterministic restarts: the nominal start
-    plus log-uniform perturbations (numpy seed 0); ``edge`` parameters
-    start at 100."""
-    rng = np.random.default_rng(0)
+    plus log-uniform perturbations, drawn as the reference draws them
+    (``jax.random`` key 0, one ``split`` a start, ``uniform(-2, 2)`` at
+    float64, its x64 draws); ``edge`` parameters start at 100."""
+    key = threefry.prng_key(0)
     starts = [p_init]
     for _ in range(seeds - 1):
-        u = torch.as_tensor(rng.uniform(-2.0, 2.0, p_init.shape), dtype=DTYPE)
-        starts.append(p_init * torch.exp(u))
+        key, sub = threefry.split(key)
+        u = threefry.uniform(sub, tuple(p_init.shape), minval=-2.0,
+                             maxval=2.0, dtype=np.float64)
+        starts.append(p_init * torch.exp(torch.as_tensor(u, dtype=DTYPE)))
     out = torch.stack(starts)
     edge_idx = [i for i, n in enumerate(names) if "edge" in n]
     if edge_idx:

@@ -34,17 +34,28 @@ use — as the reference opens ``pallas_call`` with a registered handler.
 shared-memory (or register) traffic inside a hand kernel, the on-chip
 class the reference's VMEM block traffic stands for.  The base model has
 no term for them; predictions list them as unmodeled.
+
+:class:`SymbolicCounts` (:func:`parametric_counts`,
+:func:`parametric_counts_from`) rebuilds counts as polynomials in named
+sizes from a ``degree+1`` probe grid, the reference's amortization; the
+count engine (:mod:`repro_torch.core.countengine`) builds its symbolic
+families with it.
 """
 from __future__ import annotations
 
 import contextvars
 import importlib
-from typing import Any, Callable, Dict, Iterator, Optional
+import itertools
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map, tree_structure
+
+from repro_torch.core.symbolic import ParametricCount, interpolate_polynomial
 
 
 class FeatureCounts(dict):
@@ -314,3 +325,92 @@ def count_fn(fn: Callable, *example_args: Any,
         _ACTIVE.reset(token)
     counts.add("f_sync_launch_kernel", 1.0)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Parametric (symbolic) counts — cached polynomial reconstruction
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SymbolicCounts:
+    """Feature-id → ParametricCount, reconstructed once, evaluated cheaply."""
+
+    counts: Dict[str, ParametricCount]
+    assumptions: Tuple[str, ...]
+
+    def at(self, **sizes) -> FeatureCounts:
+        out = FeatureCounts()
+        for k, pc in self.counts.items():
+            out[k] = pc(**sizes)
+        return out
+
+    def at_batch(self, **sizes) -> Dict[str, np.ndarray]:
+        """Vectorized evaluation over arrays of size values: one float64
+        array per feature (constant features broadcast to the sweep
+        shape) — a whole battery's count matrix from flat numpy."""
+        shape = np.broadcast_shapes(
+            *(np.asarray(v).shape for v in sizes.values())) \
+            if sizes else ()
+        return {k: np.broadcast_to(pc.eval_batch(**sizes), shape)
+                for k, pc in self.counts.items()}
+
+
+def parametric_counts_from(
+    probe: Callable[..., FeatureCounts],
+    var_degrees: Mapping[str, int],
+    *,
+    base: int = 16,
+    scale: int = 16,
+) -> SymbolicCounts:
+    """Reconstruct symbolic counts from a per-size prober.
+
+    ``probe(**sizes) -> FeatureCounts`` counts one concrete instantiation
+    (it may build a different callable per size) and is invoked exactly
+    once per point of the grid of ``degree+1`` probe values per variable
+    (``base + scale·i``); exact Lagrange interpolation over that grid
+    recovers each feature's polynomial.  The whole grid is probed before
+    the feature set is frozen: a feature absent at the base size may
+    appear at a larger probe.
+    """
+    feature_ids = set()
+    cache: Dict[Tuple, FeatureCounts] = {}
+
+    def cached_probe(**sizes) -> FeatureCounts:
+        key = tuple(sorted(sizes.items()))
+        if key not in cache:
+            cache[key] = probe(**sizes)
+            feature_ids.update(cache[key].keys())
+        return cache[key]
+
+    names = sorted(var_degrees)
+    grids = [[base + scale * i for i in range(var_degrees[v] + 1)]
+             for v in names]
+    for combo in itertools.product(*grids):
+        cached_probe(**dict(zip(names, combo)))
+    polys: Dict[str, ParametricCount] = {}
+    assumptions = tuple(f"{v} % {scale} == 0" for v in var_degrees)
+    for fid in sorted(feature_ids):
+        p = interpolate_polynomial(
+            lambda **sizes: cached_probe(**sizes)[fid], var_degrees,
+            base=base, scale=scale)
+        polys[fid] = ParametricCount(p, assumptions)
+    return SymbolicCounts(polys, assumptions)
+
+
+def parametric_counts(
+    make_args: Callable[..., tuple],
+    fn: Callable,
+    var_degrees: Mapping[str, int],
+    *,
+    base: int = 16,
+    scale: int = 16,
+) -> SymbolicCounts:
+    """Symbolic counts of ``fn`` parametric in named size variables:
+    ``make_args(**sizes)`` builds example arguments (``meta`` tensors
+    will do) at given sizes; counts are probed on a small grid and
+    interpolated exactly, then re-evaluate in microseconds for any size
+    — the paper's amortization property."""
+    return parametric_counts_from(
+        lambda **sizes: count_fn(fn, *make_args(**sizes)),
+        var_degrees, base=base, scale=scale)

@@ -135,6 +135,10 @@ class FeatureTable:
         self._col = {f: i for i, f in enumerate(self.feature_ids)}
         if not self.row_names:
             self.row_names = [f"row{i}" for i in range(len(self.values))]
+        # transient gather provenance (not serialized, not carried through
+        # select): rows the noisy-row heuristic re-timed — see
+        # gather_feature_table(retime_rel_std=...)
+        self.retimed_rows: List[str] = []
 
     def __len__(self) -> int:
         return self.values.shape[0]

@@ -26,7 +26,9 @@ from __future__ import annotations
 
 import enum
 import hashlib
+import inspect
 import itertools
+import json
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -43,6 +45,20 @@ from repro_torch.core.counting import (
 )
 from repro_torch.core.model import FeatureTable
 from repro_torch.device import DeviceLike, resolve_device
+
+
+def source_signature(fn: Callable) -> str:
+    """Cheap source-level identity of a callable: SHA-256 of its
+    ``inspect.getsource`` text, truncated.  Computed once at generator
+    registration — no tracing — so warm cache runs stay free, yet
+    editing a generator's body changes the signature and invalidates its
+    cached timings and counts.  Callables without retrievable source
+    (REPL/exec) sign as ``""``."""
+    try:
+        src = inspect.getsource(fn)
+    except (OSError, TypeError):
+        return ""
+    return hashlib.sha256(src.encode()).hexdigest()[:16]
 
 
 class MatchCondition(enum.Enum):
@@ -78,6 +94,48 @@ class TimingStats:
 
 TimerResult = Union[float, TimingStats]
 
+#: how :meth:`MeasurementKernel.time_stats` times a call, by fingerprint
+#: platform — part of every measurement-cache key, so a timing taken one
+#: way is never served as one taken another way
+TIMING_METHODS = {"gpu": "cuda-graph-replay-between-cuda-events",
+                  "cpu": "eager-call-perf-counter"}
+
+
+@dataclass(frozen=True)
+class FamilySpec:
+    """A generator's declaration that its kernels form a *symbolic family*:
+    counts are polynomial in the declared size variables with the declared
+    degrees, so the count engine rebuilds the family's
+    :class:`~repro_torch.core.counting.SymbolicCounts` from a minimal
+    probe grid once and evaluates a whole size sweep by vectorized
+    polynomial evaluation.
+
+    ``applies(**fixed)`` gates the declaration per fixed (non-size)
+    argument combination; ``probe(**fixed)`` overrides the probe grid's
+    ``(base, scale)`` (tile-aligned probes for blocked matmuls).
+    """
+
+    var_degrees: Mapping[str, int]
+    base: int = 16
+    scale: int = 16
+    applies: Optional[Callable[..., bool]] = None
+    probe: Optional[Callable[..., Tuple[int, int]]] = None
+
+
+@dataclass
+class KernelFamily:
+    """One concrete symbolic family riding on a measurement kernel: a
+    content-stable ``key`` (generator source signature + fixed args +
+    degrees + probe geometry) and ``build(**sizes)`` rebuilding the family
+    member at any probe size.  Kernels sharing a key share one
+    reconstruction in the count engine."""
+
+    key: str
+    build: Callable[..., "MeasurementKernel"]
+    var_degrees: Dict[str, int]
+    base: int = 16
+    scale: int = 16
+
 
 @dataclass
 class MeasurementKernel:
@@ -86,6 +144,14 @@ class MeasurementKernel:
     make_args: Callable[[DeviceLike], tuple]
     tags: Dict[str, Any]
     sizes: Dict[str, int] = field(default_factory=dict)
+    # source-level identity of the generator body that built this kernel
+    # (part of the measurement-cache and count-store keys); "" for
+    # hand-built kernels
+    code_sig: str = ""
+    # the symbolic family this kernel belongs to (attached by
+    # Generator.variants); None for hand-built kernels and argument
+    # combinations a family's ``applies`` gate opts out
+    family: Optional[KernelFamily] = None
     _counts: Optional[FeatureCounts] = None
 
     def counts(self) -> FeatureCounts:
@@ -166,6 +232,42 @@ class Generator:
     gen_tags: FrozenSet[str]
     arg_space: Dict[str, Tuple[Any, ...]]
     build: Callable[..., MeasurementKernel]
+    code_sig: str = ""
+    # symbolic-family declaration; None opts the generator out of
+    # symbolic counting
+    family: Optional[FamilySpec] = None
+
+    def __post_init__(self):
+        # signature of the builder source (which lexically contains the
+        # kernel bodies it closes over), computed once
+        if not self.code_sig:
+            self.code_sig = source_signature(self.build)
+
+    def _family_of(self, kw: Mapping[str, Any]) -> Optional[KernelFamily]:
+        spec = self.family
+        if spec is None:
+            return None
+        fixed = {a: v for a, v in kw.items() if a not in spec.var_degrees}
+        if spec.applies is not None and not spec.applies(**fixed):
+            return None
+        base, scale = (spec.probe(**fixed) if spec.probe is not None
+                       else (spec.base, spec.scale))
+        key = json.dumps({
+            "gen": self.name,
+            "code": self.code_sig,
+            "fixed": {a: repr(v) for a, v in sorted(fixed.items())},
+            "degrees": {v: int(d) for v, d
+                        in sorted(spec.var_degrees.items())},
+            "base": int(base), "scale": int(scale),
+        }, sort_keys=True)
+        build = self.build
+
+        def build_at(**sizes) -> MeasurementKernel:
+            return build(**{**fixed, **sizes})
+
+        return KernelFamily(key=key, build=build_at,
+                            var_degrees=dict(spec.var_degrees),
+                            base=int(base), scale=int(scale))
 
     def variants(self, constraints: Mapping[str, Tuple[Any, ...]]
                  ) -> Iterable[MeasurementKernel]:
@@ -179,15 +281,49 @@ class Generator:
             else:
                 space[arg] = allowed
         names = sorted(space)
+        families: Dict[Tuple, Optional[KernelFamily]] = {}
+        warned: set = set()
         for combo in itertools.product(*(space[n] for n in names)):
+            kw = dict(zip(names, combo))
             try:
-                yield self.build(**dict(zip(names, combo)))
+                kernel = self.build(**kw)
             except _SkipVariant:
                 continue
+            if not kernel.code_sig:
+                kernel.code_sig = self.code_sig
+            if self.family is not None and kernel.family is None:
+                fixed_key = tuple(sorted(
+                    (a, v) for a, v in kw.items()
+                    if a not in self.family.var_degrees))
+                if fixed_key not in families:
+                    families[fixed_key] = self._family_of(kw)
+                kernel.family = families[fixed_key]
+            fam = kernel.family
+            if fam is not None and fam.scale > 1:
+                for var in fam.var_degrees:
+                    size = int(kernel.sizes.get(var, 0))
+                    if size % fam.scale and (var, size) not in warned:
+                        warned.add((var, size))
+                        warnings.warn(
+                            f"generator {self.name!r}: requested size "
+                            f"{var}={size} violates the symbolic family's "
+                            f"probe-lattice assumption "
+                            f"{var} % {fam.scale} == 0 — the count "
+                            f"polynomial extrapolates off the verified "
+                            f"lattice", LatticeAssumptionWarning,
+                            stacklevel=2)
+            yield kernel
 
 
 class _SkipVariant(Exception):
     """Raised by builders for incoherent argument combinations."""
+
+
+class LatticeAssumptionWarning(UserWarning):
+    """A requested kernel size violates its symbolic family's probe-lattice
+    divisibility assumption (``var % scale == 0``): the family polynomial
+    is still evaluated there, but the reconstruction was only verified on
+    the lattice."""
 
 
 def _parse_value(s: str) -> Any:
@@ -267,18 +403,40 @@ class CountingTimer:
         return self._timer(kernel, trials)
 
 
+def _rel_std(stats: TimingStats) -> float:
+    """Relative wall-clock spread of one measurement; inf when unknown (a
+    spread-less measurement never wins a retime comparison)."""
+    if stats.std is None or not stats.median > 0:
+        return float("inf")
+    return stats.std / stats.median
+
+
 def gather_feature_table(
     features: Sequence[str],
     kernels: Sequence[MeasurementKernel],
     *,
     trials: int = 20,
     timer: Optional[Callable[[MeasurementKernel, int], TimerResult]] = None,
+    cache: Optional[Any] = None,
+    retime_rel_std: Optional[float] = None,
+    engine: Optional[Any] = None,
 ) -> FeatureTable:
     """Dense timing table: one row per kernel, one column per feature.
     ``f_wall_time_*`` columns are measured (each kernel timed once
     however many such columns there are); every other column is counted.
     ``timer(kernel, trials)`` is injectable (deterministic tests); it may
-    return bare seconds or :class:`TimingStats`."""
+    return bare seconds or :class:`TimingStats`.
+
+    ``cache`` is a :class:`~repro_torch.profiles.cache.MeasurementCache`:
+    on a hit neither the timer nor the counter runs, so a warm
+    recalibration performs zero timings.  ``engine`` is a
+    :class:`~repro_torch.core.countengine.CountEngine`: counts of the
+    cache-missing rows come from it, kernels of one symbolic family
+    sharing one reconstruction and filled by vectorized polynomial
+    evaluation.  ``retime_rel_std`` gives rows whose relative wall-clock
+    std exceeds it (cached rows included) one extra timing pass; the
+    steadier pass wins and replaces the cache entry, and the re-timed row
+    names land in the table's ``retimed_rows``."""
     features = list(features)
     timer = timer or default_timer
     wall_cols = [j for j, f in enumerate(features)
@@ -287,17 +445,64 @@ def gather_feature_table(
                   if not f.startswith("f_wall_time")]
     values = np.zeros((len(kernels), len(features)), np.float64)
     row_noise: Dict[str, Dict[str, float]] = {}
+    retimed: List[str] = []
+    entries = [cache.get(k, trials) if cache is not None else None
+               for k in kernels]
+    # counts of every cache-missing row, resolved up front: the engine
+    # batches symbolic families across the whole battery
+    need = [i for i, e in enumerate(entries) if e is None]
+    if engine is not None and need:
+        fresh_counts = dict(zip(
+            need, engine.counts_batch([kernels[i] for i in need])))
+    else:
+        fresh_counts = {i: kernels[i].counts() for i in need}
+    # a kernel appearing twice in one cold gather is measured once
+    local: Dict[Tuple, Tuple] = {}
     for i, k in enumerate(kernels):
-        counts = k.counts()
+        entry = entries[i]
+        kid = (k.name, tuple(sorted(k.sizes.items())), k.code_sig)
+        stats: Optional[TimingStats] = None
+        duplicate = entry is None and kid in local
+        if duplicate:
+            counts, wall, stats = local[kid]
+        elif entry is not None:
+            counts, wall, stats = entry.counts, entry.wall_time, entry.noise
+            if wall_cols and wall is None:
+                # entry was gathered counts-only; backfill the timing
+                stats = TimingStats.coerce(timer(k, trials))
+                wall = stats.median
+                cache.put(k, trials, wall, counts, noise=stats)
+        else:
+            counts = fresh_counts[i]
+            wall = None
+            if wall_cols:
+                stats = TimingStats.coerce(timer(k, trials))
+                wall = stats.median
+            if cache is not None:
+                cache.put(k, trials, wall, counts, noise=stats)
+        if (not duplicate and retime_rel_std is not None and wall_cols
+                and stats is not None and stats.std is not None
+                and _rel_std(stats) > retime_rel_std):
+            # noisy row: one extra pass; the steadier measurement wins
+            fresh = TimingStats.coerce(timer(k, trials))
+            retimed.append(k.name)
+            if _rel_std(fresh) < _rel_std(stats):
+                stats, wall = fresh, fresh.median
+                if cache is not None:
+                    cache.put(k, trials, wall, counts, noise=stats)
+        if entry is None and not duplicate:
+            local[kid] = (counts, wall, stats)
+        if stats is not None and (stats.std is not None
+                                  or stats.min is not None):
+            row_noise[k.name] = stats.to_dict()
         for j, f in count_cols:
             values[i, j] = counts[f]
-        if wall_cols:
-            stats = TimingStats.coerce(timer(k, trials))
-            values[i, wall_cols] = stats.median
-            if stats.std is not None or stats.min is not None:
-                row_noise[k.name] = stats.to_dict()
-    return FeatureTable(features, values, [k.name for k in kernels],
-                        row_noise)
+        for j in wall_cols:
+            values[i, j] = wall
+    table = FeatureTable(features, values, [k.name for k in kernels],
+                         row_noise)
+    table.retimed_rows = retimed
+    return table
 
 
 def unit_hash(*parts: object) -> float:
@@ -387,6 +592,13 @@ MATMUL_SQ = Generator(
         tile=(16, 32, 64, 128),
     ),
     build=_build_matmul_sq,
+    # n³ madds (+ n² traffic); the staged k loop has n / tile steps, so
+    # its probes are tile-aligned
+    family=FamilySpec(
+        var_degrees={"n": 3},
+        probe=lambda **fx: (fx["tile"], fx["tile"]) if fx["prefetch"]
+        else (16, 16),
+    ),
 )
 
 
@@ -429,6 +641,8 @@ FLOPS_MADD = Generator(
         dtype=("float32", "bfloat16"),
     ),
     build=_build_madd,
+    # per-element work × loop trips: bilinear in (nelements, iters)
+    family=FamilySpec(var_degrees={"nelements": 1, "iters": 1}),
 )
 
 
@@ -468,6 +682,8 @@ FLOPS_DOT = Generator(
         dtype=("float32", "bfloat16"),
     ),
     build=_build_dot,
+    # n³ madds per chain step × iters steps
+    family=FamilySpec(var_degrees={"n_dot": 3, "iters": 1}),
 )
 
 
@@ -542,6 +758,13 @@ MEM_STREAM = Generator(
         dtype=("float32", "bfloat16"),
     ),
     build=_build_stream,
+    # element traffic is linear in nelements — except the strided pattern,
+    # whose working shape is (isqrt(n), isqrt(n)): not a polynomial in n,
+    # so it is counted per shape
+    family=FamilySpec(
+        var_degrees={"nelements": 1},
+        applies=lambda **fx: fx["pattern"] != "strided",
+    ),
 )
 
 
@@ -575,6 +798,8 @@ ONCHIP = Generator(
         dtype=("float32",),
     ),
     build=_build_onchip,
+    # load+store rounds over a resident buffer: bilinear
+    family=FamilySpec(var_degrees={"working_set": 1, "iters": 1}),
 )
 
 
@@ -599,6 +824,8 @@ EMPTY = Generator(
     frozenset({"empty_kernel", "launch"}),
     arg_space=dict(nelements=(16, 1024, 65536)),
     build=_build_empty,
+    # identity kernel: counts are size-independent (launch overhead only)
+    family=FamilySpec(var_degrees={"nelements": 0}),
 )
 
 
@@ -622,6 +849,7 @@ LOOPSTEP = Generator(
     frozenset({"sync_loop_pattern", "sync"}),
     arg_space=dict(steps=(64, 512, 4096, 32768)),
     build=_build_loopstep,
+    family=FamilySpec(var_degrees={"steps": 1}),
 )
 
 
@@ -659,6 +887,8 @@ OVERLAP = Generator(
         dtype=("float32",),
     ),
     build=_build_overlap,
+    # one linear pass over nelements + m fixed-size on-chip rounds
+    family=FamilySpec(var_degrees={"nelements": 1, "m": 1}),
 )
 
 
@@ -723,6 +953,9 @@ DG_DIFF = Generator(
         dtype=("float32",),
     ),
     build=_build_dg,
+    # every variant is one contraction sweep (with the einsum variants'
+    # permutes), linear in the element count
+    family=FamilySpec(var_degrees={"nelements_dg": 1}),
 )
 
 
@@ -764,6 +997,7 @@ STENCIL = Generator(
         dtype=("float32",),
     ),
     build=_build_stencil,
+    family=FamilySpec(var_degrees={"n_grid": 2}),
 )
 
 

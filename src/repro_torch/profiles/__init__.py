@@ -1,13 +1,16 @@
-"""Machine profiles: device fingerprints, fitted models, presets and the
-calibration CLI."""
+"""Machine profiles: device fingerprints, fitted models, presets, the
+measurement cache and the calibration CLI."""
+from repro_torch.profiles.cache import CacheEntry, GCStats, MeasurementCache
 from repro_torch.profiles.fingerprint import DeviceFingerprint
 from repro_torch.profiles.profile import (
     MachineProfile,
     ModelFit,
     ProfileError,
     load_profile,
+    merge_profiles,
     save_profile,
 )
 
-__all__ = ["DeviceFingerprint", "MachineProfile", "ModelFit",
-           "ProfileError", "load_profile", "save_profile"]
+__all__ = ["CacheEntry", "DeviceFingerprint", "GCStats", "MachineProfile",
+           "MeasurementCache", "ModelFit", "ProfileError", "load_profile",
+           "merge_profiles", "save_profile"]

@@ -2,25 +2,36 @@
 CLI; the counterpart of ``repro.profiles.cli``.
 
 Default command: UIPiCK filter tags → measurement kernels → feature
-table (counted on ``meta`` tensors, timed on ``--device``) →
-Levenberg-Marquardt fit → atomic profile save.  ``--zoo`` fits the whole
-model-zoo scope ladder over one battery with a held-out split (the
-cross-machine study artifact); ``--synthetic`` calibrates a synthetic
-ground-truth device instead of real hardware.
+table (counted on ``meta`` tensors through the count engine, timed on
+``--device``, both through the content-addressed measurement cache of
+``--cache-dir``) → Levenberg-Marquardt fit → atomic profile save.  A warm
+rerun with the same cache directory performs zero timings and zero
+counting passes and writes a byte-identical profile;
+``--expect-zero-timings`` turns that into an exit code.  ``--zoo`` fits
+the whole model-zoo scope ladder over one battery with a held-out split
+(the cross-machine study artifact); ``--synthetic`` calibrates a
+synthetic ground-truth device instead of real hardware.
 
 Subcommands:
 
     predict  profile + kernels (UIPiCK ``--tags`` and/or built-in
              ``--kernel`` targets) → runtime predictions with the
              cost-explanatory breakdown; zero kernel timings
-    compare  ≥2 study profiles → per-model × per-variant held-out
-             relative-error report (markdown + JSON); ``--sweep`` adds
-             the per-zoo-rank accuracy/scope curve
+    compare  ≥2 study profiles (or fleet bundles) → per-model ×
+             per-variant held-out relative-error report (markdown +
+             JSON); ``--sweep`` adds the per-zoo-rank accuracy/scope curve
+    merge    same-machine profiles → one profile (union of fits;
+             conflicts are errors); with --fleet, cross-machine → fleet
+             bundle
+    gc       evict measurement-cache entries (other device, other schema,
+             corrupt, or older than --max-age); --counts also sweeps the
+             count store
 
 Examples::
 
-    # the default battery on the card, 8 trials per kernel
-    python -m repro_torch.calibrate --out machine_profile.json
+    # the default battery on the card, 8 trials per kernel, cached
+    python -m repro_torch.calibrate --out machine_profile.json \\
+        --cache-dir ~/.cache/repro-torch-measurements
 
     # price the hand kernels from it, without running them
     python -m repro_torch.calibrate predict machine_profile.json \\
@@ -33,10 +44,6 @@ Examples::
     python -m repro_torch.calibrate compare h100.json apex.json --sweep
     python -m repro_torch.calibrate predict h100.json --model lin_flop \\
         --kernel kernels.ops.madd_throughput
-
-The reference's ``merge`` and ``gc`` subcommands and its
-``--cache-dir`` and ``--retime-rel-std`` options are not ported yet
-(ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from repro_torch.core.calibrate import fit_model
+from repro_torch.core.countengine import CountEngine
 from repro_torch.core.model import Model
 from repro_torch.core.uipick import (
     ALL_GENERATORS,
@@ -58,6 +66,7 @@ from repro_torch.core.uipick import (
     gather_feature_table,
 )
 from repro_torch.device import resolve_device
+from repro_torch.profiles.cache import MeasurementCache
 from repro_torch.profiles.fingerprint import DeviceFingerprint
 from repro_torch.profiles.presets import (
     BASE_MODEL_EXPR,
@@ -80,10 +89,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.calibrate",
         description="Calibrate this machine's black-box cost model and "
-                    "save a reusable profile.  Subcommand: predict (see "
-                    "module docstring).")
+                    "save a reusable profile.  Subcommands: predict, "
+                    "compare, merge, gc (see module docstring).")
     ap.add_argument("--out", default="machine_profile.json",
                     help="profile JSON destination (atomic write)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="content-addressed measurement cache directory; "
+                         "warm reruns perform zero timings and zero "
+                         "counting passes")
     ap.add_argument("--tags", nargs="+", default=None,
                     help="UIPiCK filter tags (default: the full "
                          "calibration battery)")
@@ -110,6 +123,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "(apex/bulk/citra) instead of real hardware")
     ap.add_argument("--synthetic-noise", type=float, default=0.0,
                     help="relative timing noise of the synthetic device")
+    ap.add_argument("--expect-zero-timings", action="store_true",
+                    help="exit 1 unless every kernel came from the cache "
+                         "(no timing pass ran)")
+    ap.add_argument("--retime-rel-std", type=float, default=None,
+                    metavar="FRACTION",
+                    help="re-time battery rows whose relative wall-clock "
+                         "std exceeds this threshold (one extra pass; the "
+                         "steadier one wins)")
     ap.add_argument("--force", action="store_true",
                     help="with --zoo: fit even when the static "
                          "identifiability analysis finds zoo rungs the "
@@ -118,6 +139,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device to time the battery on (default cuda; "
                          "'cpu' times the host)")
     return ap
+
+
+def _retime_line(args, retimed) -> None:
+    if args.retime_rel_std is not None:
+        print(f"[calibrate] retimed={len(retimed)} rows above "
+              f"rel-std {args.retime_rel_std:g}"
+              + (f": {sorted(retimed)}" if retimed else ""))
 
 
 def _noise_line(table) -> str:
@@ -148,6 +176,12 @@ def _calibrate(argv: Optional[List[str]]) -> int:
         fingerprint = DeviceFingerprint.local(device)
         timer = CountingTimer(functools.partial(default_timer,
                                                 device=device))
+    cache = MeasurementCache(args.cache_dir, fingerprint) \
+        if args.cache_dir else None
+    # battery counts from kernel-family polynomials, persisted beside the
+    # measurement cache
+    engine = CountEngine(
+        store=cache.count_store if cache is not None else None)
 
     if args.zoo:
         from repro_torch.studies import (
@@ -155,19 +189,24 @@ def _calibrate(argv: Optional[List[str]]) -> int:
         )
         tags = args.tags or (STUDY_SMOKE_TAGS if args.smoke else STUDY_TAGS)
         print(f"[calibrate] device={fingerprint.id} zoo="
-              f"{[e.name for e in MODEL_ZOO]} trials={args.trials}")
+              f"{[e.name for e in MODEL_ZOO]} trials={args.trials} "
+              f"cache={args.cache_dir or 'off'}")
         try:
             profile = run_study(
-                fingerprint=fingerprint, timer=timer, tags=tags,
-                output_feature=args.output_feature, trials=args.trials,
+                fingerprint=fingerprint, timer=timer, cache=cache,
+                tags=tags, output_feature=args.output_feature,
+                trials=args.trials,
                 holdout_fraction=args.holdout_fraction,
-                match=_MATCH[args.match], force=args.force)
+                match=_MATCH[args.match],
+                retime_rel_std=args.retime_rel_std, engine=engine,
+                force=args.force)
         except StudyError as e:
             print(f"[calibrate] {e}", file=sys.stderr)
             return 2
         save_profile(profile, args.out)
         print(f"[calibrate] kernels={len(profile.kernel_names)} "
               f"held-out={len(profile.holdout)}")
+        _retime_line(args, profile.retimed_rows)
         print(f"[calibrate] {_noise_line(profile.holdout)}")
         for name, mf in sorted(profile.fits.items()):
             print(f"[calibrate] fit {name}: residual="
@@ -185,9 +224,13 @@ def _calibrate(argv: Optional[List[str]]) -> int:
                   file=sys.stderr)
             return 2
         print(f"[calibrate] device={fingerprint.id} kernels={len(kernels)} "
-              f"trials={args.trials}")
+              f"trials={args.trials} cache={args.cache_dir or 'off'}")
         table = gather_feature_table(model.all_features(), kernels,
-                                     trials=args.trials, timer=timer)
+                                     trials=args.trials, timer=timer,
+                                     cache=cache,
+                                     retime_rel_std=args.retime_rel_std,
+                                     engine=engine)
+        _retime_line(args, table.retimed_rows)
         fit = fit_model(model, table, nonneg=True)
         profile = MachineProfile(
             fingerprint=fingerprint,
@@ -199,8 +242,15 @@ def _calibrate(argv: Optional[List[str]]) -> int:
         print(f"[calibrate] fit residual={fit.residual_norm:.6g} "
               f"converged={fit.converged} iterations={fit.iterations} "
               f"params={fit.params}")
-    print(f"[calibrate] timings_performed={timer.calls}")
+    hits = cache.hits if cache is not None else 0
+    print(f"[calibrate] timings_performed={timer.calls} cache_hits={hits}")
+    print(f"[calibrate] count_traces={engine.trace_count} "
+          f"count_hits={engine.hits}")
     print(f"[calibrate] profile -> {args.out}")
+    if args.expect_zero_timings and timer.calls:
+        print(f"[calibrate] FAIL: expected a fully warm cache but "
+              f"{timer.calls} kernels were timed", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -224,6 +274,9 @@ def _cmd_predict(argv: List[str]) -> int:
     ap.add_argument("--model", default=None,
                     help="fit name inside the profile (default: "
                          "ovl_flop_mem, or the profile's only fit)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="measurement cache; cached and stored counts "
+                         "skip the counter")
     ap.add_argument("--json", dest="json_out", default=None,
                     help="write predictions (with breakdowns) as JSON")
     ap.add_argument("--explain", type=int, default=0, metavar="N",
@@ -241,7 +294,7 @@ def _cmd_predict(argv: List[str]) -> int:
     from repro_torch.api import PerfSession, PredictionError
     local = DeviceFingerprint.local(args.device)
     try:
-        session = PerfSession.open(args.profile)
+        session = PerfSession.open(args.profile, cache=args.cache_dir)
     except ProfileError as e:
         print(f"[predict] {e}", file=sys.stderr)
         return 3
@@ -299,7 +352,9 @@ def _cmd_predict(argv: List[str]) -> int:
           f"held-out gmre="
           f"{'n/a' if gmre is None else f'{gmre * 100:.2f}%'}")
     print(f"[predict] timings_performed={session.timer.calls} "
-          f"batched_evals={session.eval_calls}")
+          f"batched_evals={session.eval_calls} "
+          f"count_traces={session.engine.trace_count} "
+          f"count_hits={session.engine.hits}")
     if args.expect_zero_timings and session.timer.calls:
         print(f"[predict] FAIL: prediction must never time kernels but "
               f"{session.timer.calls} timing passes ran", file=sys.stderr)
@@ -313,7 +368,8 @@ def _cmd_compare(argv: List[str]) -> int:
         description="Cross-machine accuracy report from ≥2 study profiles "
                     "(per-model × per-kernel-variant held-out relative "
                     "error).")
-    ap.add_argument("profiles", nargs="+", help="machine-profile JSON paths")
+    ap.add_argument("profiles", nargs="+",
+                    help="machine-profile or fleet-bundle JSON paths")
     ap.add_argument("--report", default=None,
                     help="markdown report destination (default: stdout)")
     ap.add_argument("--json", dest="json_out", default=None,
@@ -323,15 +379,16 @@ def _cmd_compare(argv: List[str]) -> int:
                          "gmre per zoo rank) to the report and JSON")
     args = ap.parse_args(argv)
 
-    from repro_torch.profiles.profile import load_profile
     from repro_torch.studies import (
         StudyError,
         compare_profiles,
+        load_profiles_any,
         scope_accuracy_sweep,
         sweep_to_markdown,
     )
     try:
-        report = compare_profiles([load_profile(p) for p in args.profiles])
+        report = compare_profiles([p for path in args.profiles
+                                   for p in load_profiles_any(path)])
     except (StudyError, ProfileError, ValueError) as e:
         # ValueError: malformed holdout data (zero outputs, missing
         # feature columns) surfaced by the accuracy evaluation
@@ -370,7 +427,85 @@ def _cmd_compare(argv: List[str]) -> int:
     return 0
 
 
-_SUBCOMMANDS = {"predict": _cmd_predict, "compare": _cmd_compare}
+def _cmd_merge(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.calibrate merge",
+        description="Merge profiles.  Same machine: union of fits "
+                    "(conflicts are errors).  Different machines: "
+                    "requires --fleet, producing a fleet bundle.")
+    ap.add_argument("profiles", nargs="+",
+                    help="machine-profile or fleet-bundle JSON paths")
+    ap.add_argument("--out", required=True, help="output JSON path")
+    ap.add_argument("--fleet", action="store_true",
+                    help="allow cross-machine inputs; write a fleet bundle")
+    args = ap.parse_args(argv)
+
+    from repro_torch.profiles.profile import atomic_write_json
+    from repro_torch.studies import (
+        StudyError, fleet_to_dict, load_profiles_any, merge_any,
+    )
+    try:
+        profiles = [p for path in args.profiles
+                    for p in load_profiles_any(path)]
+        if len(profiles) < 2:
+            print(f"[merge] need ≥ 2 profiles, got {len(profiles)}",
+                  file=sys.stderr)
+            return 3
+        merged = merge_any(profiles, allow_cross_machine=args.fleet)
+    except (StudyError, ProfileError, ValueError) as e:
+        print(f"[merge] {e}", file=sys.stderr)
+        return 3
+    if args.fleet:
+        atomic_write_json(Path(args.out), fleet_to_dict(merged))
+        print(f"[merge] fleet bundle ({len(merged)} machines) -> "
+              f"{args.out}")
+    else:
+        save_profile(merged[0], args.out)
+        print(f"[merge] profile ({len(merged[0].fits)} fits) -> {args.out}")
+    return 0
+
+
+def _cmd_gc(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.calibrate gc",
+        description="Evict measurement-cache entries: corrupt files, "
+                    "entries of another schema or device, entries older "
+                    "than --max-age.")
+    ap.add_argument("--cache-dir", required=True,
+                    help="measurement cache directory to sweep")
+    ap.add_argument("--max-age", type=float, default=None, metavar="SECONDS",
+                    help="also drop entries older than this many seconds")
+    ap.add_argument("--keep-foreign", action="store_true",
+                    help="keep entries of other device fingerprints")
+    ap.add_argument("--counts", action="store_true",
+                    help="also sweep the count store (concrete counts and "
+                         "symbolic family reconstructions) beside the "
+                         "measurement cache")
+    ap.add_argument("--device", default="cuda",
+                    help="this machine's device, whose entries are kept "
+                         "(default cuda)")
+    args = ap.parse_args(argv)
+
+    cache = MeasurementCache(args.cache_dir,
+                             DeviceFingerprint.local(args.device))
+    stats = cache.gc(max_age=args.max_age,
+                     drop_foreign=not args.keep_foreign)
+    print(f"[gc] kept={stats.kept} dropped_foreign={stats.dropped_foreign} "
+          f"dropped_old={stats.dropped_old} "
+          f"dropped_corrupt={stats.dropped_corrupt} "
+          f"dropped_schema={stats.dropped_schema}")
+    if args.counts:
+        cstats = CountEngine(store=cache.count_store).gc(
+            max_age=args.max_age)
+        print(f"[gc] counts: kept={cstats.kept} "
+              f"dropped_old={cstats.dropped_old} "
+              f"dropped_corrupt={cstats.dropped_corrupt} "
+              f"dropped_schema={cstats.dropped_schema}")
+    return 0
+
+
+_SUBCOMMANDS = {"predict": _cmd_predict, "compare": _cmd_compare,
+                "merge": _cmd_merge, "gc": _cmd_gc}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

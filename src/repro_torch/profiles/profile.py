@@ -5,7 +5,8 @@ port and the two packages' profiles can be compared side by side.
 
 Saved atomically (tmp + fsync + rename); loading is strict: corrupt
 files, missing fields, other schema versions and, when asked, foreign
-fingerprints raise :class:`ProfileError`.
+fingerprints raise :class:`ProfileError`.  :func:`merge_profiles` unions
+the fits of same-machine profiles.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import tempfile
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
 
 from repro_torch.core.calibrate import FitResult
 from repro_torch.core.model import FeatureTable, Model
@@ -151,6 +154,86 @@ class MachineProfile:
             )
         except (KeyError, TypeError, ValueError) as e:
             raise ProfileError(f"malformed profile: {e!r}") from e
+
+
+def _merge_holdouts(tables: List[Optional[FeatureTable]]
+                    ) -> Optional[FeatureTable]:
+    """Merge the held-out tables of same-machine profiles.  Studies over
+    one battery hold out the same rows (the split hashes row names),
+    possibly with different feature columns: those merge column-wise.
+    Disagreeing row sets, or disagreeing values of a shared column or of
+    a row's noise, are conflicts."""
+    tables = [t for t in tables if t is not None]
+    if not tables:
+        return None
+    base = tables[0]
+    for other in tables[1:]:
+        if other.row_names != base.row_names:
+            raise ProfileError(
+                f"conflicting held-out splits while merging: "
+                f"{base.row_names} vs {other.row_names} — profiles from "
+                f"different batteries cannot share one holdout")
+    feature_ids: List[str] = []
+    for t in tables:
+        for f in t.feature_ids:
+            if f not in feature_ids:
+                feature_ids.append(f)
+    vals = np.zeros((len(base), len(feature_ids)), np.float64)
+    for j, f in enumerate(feature_ids):
+        cols = [t.column(f) for t in tables if f in t.feature_ids]
+        for c in cols[1:]:
+            if not np.array_equal(cols[0], c):
+                raise ProfileError(
+                    f"conflicting held-out measurements for feature {f!r} "
+                    f"while merging — remeasure or merge profiles from "
+                    f"the same gather")
+        vals[:, j] = cols[0]
+    noise: Dict[str, Dict[str, float]] = {}
+    for t in tables:
+        for name, d in t.row_noise.items():
+            if name in noise and noise[name] != dict(d):
+                raise ProfileError(
+                    f"conflicting noise metadata for held-out row "
+                    f"{name!r} while merging")
+            noise[name] = dict(d)
+    return FeatureTable(feature_ids, vals, list(base.row_names), noise)
+
+
+def merge_profiles(profiles: List[MachineProfile]) -> MachineProfile:
+    """Merge ≥ 2 profiles calibrated on the same machine into one holding
+    the union of their fits.  Raises :class:`ProfileError` when the
+    fingerprints differ (cross-machine collections are fleet bundles,
+    :mod:`repro_torch.studies`), when one fit name maps to conflicting
+    payloads, or when the held-out tables disagree: a merge never
+    silently prefers one measurement over another."""
+    if len(profiles) < 2:
+        raise ProfileError(f"merge needs at least 2 profiles, "
+                           f"got {len(profiles)}")
+    base = profiles[0]
+    for other in profiles[1:]:
+        if other.fingerprint != base.fingerprint:
+            raise ProfileError(
+                f"cannot merge profiles from different machines: "
+                f"{base.fingerprint.id!r} vs {other.fingerprint.id!r} "
+                f"(use a fleet bundle for cross-machine collections)")
+    fits: Dict[str, ModelFit] = {}
+    kernel_names: List[str] = []
+    for prof in profiles:
+        for name, mf in prof.fits.items():
+            if name in fits and fits[name].to_dict() != mf.to_dict():
+                raise ProfileError(
+                    f"conflicting fit {name!r} while merging: "
+                    f"signature/parameters disagree between inputs — "
+                    f"recalibrate or rename one of them")
+            fits[name] = mf
+        for k in prof.kernel_names:
+            if k not in kernel_names:
+                kernel_names.append(k)
+    return MachineProfile(
+        fingerprint=base.fingerprint, fits=fits,
+        trials=max(p.trials for p in profiles),
+        kernel_names=kernel_names,
+        holdout=_merge_holdouts([p.holdout for p in profiles]))
 
 
 def save_profile(profile: MachineProfile, path) -> Path:

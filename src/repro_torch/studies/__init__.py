@@ -7,12 +7,16 @@ profile compare and the scope-vs-accuracy sweep.
   held-out rows in a :class:`~repro_torch.profiles.MachineProfile`
 * :func:`compare_profiles` / :class:`StudyReport` — per-model ×
   per-variant held-out relative-error tables (JSON + markdown)
+* :func:`merge_any` / fleet bundles — collect profiles across machines
 """
 from repro_torch.studies.study import (
     FLEET_SCHEMA_VERSION,
     StudyError,
     StudyReport,
     compare_profiles,
+    fleet_to_dict,
+    load_profiles_any,
+    merge_any,
     profile_accuracy,
     run_study,
     scope_accuracy_sweep,
@@ -42,6 +46,9 @@ __all__ = [
     "StudyReport",
     "ZooEntry",
     "compare_profiles",
+    "fleet_to_dict",
+    "load_profiles_any",
+    "merge_any",
     "profile_accuracy",
     "run_study",
     "scope_accuracy_sweep",

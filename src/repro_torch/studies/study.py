@@ -13,13 +13,15 @@ the counterpart of ``repro.studies.study``.
    it by zoo rank.
 
 Because the held-out rows ride inside the profile, a compare run needs
-no hardware.  Not ported (ROADMAP queue A): ``merge_any``, fleet bundles
-and ``load_profiles_any`` (compare reads plain profile paths), the
-measurement cache and the count engine.
+no hardware.  :func:`merge_any` merges same-machine profiles fit by fit
+or collects several machines into a fleet bundle
+(:func:`fleet_to_dict`), and :func:`load_profiles_any` reads either form.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from repro_torch.analysis.diagnostics import sort_key
@@ -35,7 +37,13 @@ from repro_torch.core.uipick import (
 )
 from repro_torch.profiles.fingerprint import DeviceFingerprint
 from repro_torch.profiles.presets import DEFAULT_OUTPUT_FEATURE
-from repro_torch.profiles.profile import MachineProfile, ModelFit
+from repro_torch.profiles.profile import (
+    MachineProfile,
+    ModelFit,
+    ProfileError,
+    load_profile,
+    merge_profiles,
+)
 from repro_torch.studies.zoo import MODEL_ZOO, STUDY_TAGS, ZooEntry
 
 #: version of the report JSON (the reference's fleet schema version)
@@ -56,21 +64,28 @@ def run_study(
     *,
     fingerprint: DeviceFingerprint,
     timer: Optional[Callable] = None,
+    cache: Optional[Any] = None,
     entries: Sequence[ZooEntry] = tuple(MODEL_ZOO),
     tags: Sequence[str] = tuple(STUDY_TAGS),
     output_feature: str = DEFAULT_OUTPUT_FEATURE,
     trials: int = 8,
     holdout_fraction: float = 0.25,
     match: MatchCondition = MatchCondition.INTERSECT,
+    retime_rel_std: Optional[float] = None,
+    engine: Optional[Any] = None,
     force: bool = False,
 ) -> MachineProfile:
     """One machine's full study: gather once, fit the whole zoo, keep
     fits + held-out rows in a single profile.
 
     ``timer(kernel, trials)`` is the timing seam (a synthetic device's
-    ``timer``); without one each kernel is timed on the card.  The
-    reference's ``cache`` and ``engine`` are not ported yet (ROADMAP
-    queue A items 6 and 9): every kernel is timed and every count traced.
+    ``timer``); without one each kernel is timed on the card.  ``cache``
+    (a :class:`~repro_torch.profiles.cache.MeasurementCache`),
+    ``retime_rel_std`` and ``engine`` (a
+    :class:`~repro_torch.core.countengine.CountEngine`) are forwarded to
+    :func:`~repro_torch.core.uipick.gather_feature_table`; the re-timed
+    rows ride on the returned profile as the transient attribute
+    ``retimed_rows`` (not serialized).
 
     Before fitting, every zoo rung's identifiability over the train split
     is analyzed (:mod:`repro_torch.analysis.identifiability`); a rung the
@@ -99,7 +114,9 @@ def run_study(
                 features.append(f)
 
     table = gather_feature_table(features, kernels, trials=trials,
-                                 timer=timer)
+                                 timer=timer, cache=cache,
+                                 retime_rel_std=retime_rel_std,
+                                 engine=engine)
     train, holdout = holdout_split(table, holdout_fraction=holdout_fraction)
     widest = max(len(m.param_names) for m in models.values())
     if len(train) < widest:
@@ -127,13 +144,15 @@ def run_study(
                   "--force to fit anyway)")
     fits = fit_models(models, train,
                       nonneg={e.name: e.nonneg for e in entries})
-    return MachineProfile(
+    profile = MachineProfile(
         fingerprint=fingerprint,
         fits={name: ModelFit.from_fit(models[name], fit)
               for name, fit in fits.items()},
         trials=trials,
         kernel_names=[k.name for k in kernels],
         holdout=holdout)
+    profile.retimed_rows = list(table.retimed_rows)
+    return profile
 
 
 # ---------------------------------------------------------------------------
@@ -318,3 +337,56 @@ def sweep_to_markdown(sweep: Dict[str, Any]) -> str:
         lines.append("| " + " | ".join(cells) + " |")
     lines.append("")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Fleet bundles: many machines in one artifact
+# ---------------------------------------------------------------------------
+
+
+def fleet_to_dict(profiles: Sequence[MachineProfile]) -> Dict[str, Any]:
+    return {
+        "fleet_schema_version": FLEET_SCHEMA_VERSION,
+        "profiles": {p.fingerprint.id: p.to_dict() for p in profiles},
+    }
+
+
+def load_profiles_any(path) -> List[MachineProfile]:
+    """Load either a single machine-profile JSON or a fleet bundle."""
+    path = Path(path)
+    try:
+        payload = json.loads(path.read_text())
+    except OSError as e:
+        raise StudyError(f"cannot read {path}: {e}") from e
+    except ValueError as e:
+        raise StudyError(f"{path} is not valid JSON ({e})") from e
+    if isinstance(payload, dict) and "profiles" in payload:
+        version = payload.get("fleet_schema_version")
+        if version != FLEET_SCHEMA_VERSION:
+            raise StudyError(
+                f"unsupported fleet schema version {version!r} in {path}")
+        try:
+            return [MachineProfile.from_dict(d)
+                    for d in dict(payload["profiles"]).values()]
+        except (ProfileError, TypeError, ValueError) as e:
+            raise StudyError(f"malformed fleet bundle {path}: {e}") from e
+    return [load_profile(path)]
+
+
+def merge_any(profiles: Sequence[MachineProfile], *,
+              allow_cross_machine: bool = False) -> List[MachineProfile]:
+    """Merge a collection of profiles: same-fingerprint profiles merge
+    fit by fit (:func:`~repro_torch.profiles.profile.merge_profiles`;
+    conflicts raise :class:`ProfileError`); distinct fingerprints are
+    legal only with ``allow_cross_machine`` (a fleet bundle), since one
+    machine profile must never mix measurements of different hardware."""
+    by_fp: Dict[str, List[MachineProfile]] = {}
+    for p in profiles:
+        by_fp.setdefault(p.fingerprint.id, []).append(p)
+    if len(by_fp) > 1 and not allow_cross_machine:
+        raise ProfileError(
+            f"refusing to merge profiles from different machines "
+            f"{sorted(by_fp)} into one profile; pass --fleet to build a "
+            f"cross-machine fleet bundle instead")
+    return [group[0] if len(group) == 1 else merge_profiles(group)
+            for _, group in sorted(by_fp.items())]
