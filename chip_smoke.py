@@ -83,6 +83,23 @@ Phases, each fatal on failure:
    hand kernels at phases 7–8's real sizes twice (the second pass, and a
    second session over the same cache, count nothing).  One
    ``{"amortization": ...}`` line.
+12. (after phase 11, before that ``kernels`` line) predictor-guided
+   autotuning and the static audit: (a) :func:`tuning_path` — the three
+   §8 spaces (``dg_diff`` K 32768, the stencil at 4096², ``matmul_sq``
+   n 768) priced by phase 3's ``base`` fit and confirmed with the card's
+   graph timer: a cold ``python -m repro_torch.tune search --save``
+   (margin 0, at most 3 of 11 variants timed), a warm re-tune of the
+   saved profile that must time nothing, count nothing and evaluate
+   nothing, :mod:`repro_torch.studies.autotune`'s pruned search against
+   the exhaustive baseline over the 14 lattice points, and the synthetic
+   ``citra`` search with ``--verify-optimum``; one ``{"tuning": ...}``
+   line (a pruned winner other than the exhaustive one is logged as a
+   finding, not a failure); (b) :func:`audit_path` — ``PerfSession.audit``
+   of phase 11's ten hand-kernel items on fake ``cuda`` tensors,
+   ``predict --audit`` of the eight targets and
+   ``python -m repro_torch.lint --kernels`` against
+   ``torch_lint_baseline.json``; one ``{"audit": ...}`` line with the
+   codes found per target.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -92,7 +109,10 @@ three §8 kernels must have launched), set to 0 again before phase 6 and
 read after phase 7 (the five kernels of the zoo study), and again before
 phase 8 and read after it (the three model-layer kernels), logged
 around phase 10 (the figures run aten ops, no hand kernel), and set to 0
-before phase 11 and read after it, which fails if pricing launched any.  Without a
+before phase 11 and read after it, which fails if pricing launched any;
+logged around phase 12's tuning (aten generators, no hand kernel) and
+set to 0 before its audit and read after it, which fails if the audit
+launched any.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -1067,16 +1087,24 @@ def zoo_items(ops, f32) -> dict:
     }
 
 
-def run_cli(calibrate_main, argv) -> dict:
-    """One ``repro_torch.calibrate`` run with its output echoed: exit
-    code, host seconds and the counters it prints."""
+def echo_run(main, argv, echo: bool = True):
+    """One CLI ``main(argv)`` run with its standard output kept (and
+    echoed): exit code, the output and the host seconds."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = calibrate_main(argv)
+        rc = main(argv)
     seconds = time.perf_counter() - t0
     text = buf.getvalue()
-    print(text, end="", flush=True)
+    if echo:
+        print(text, end="", flush=True)
+    return rc, text, seconds
+
+
+def run_cli(calibrate_main, argv) -> dict:
+    """One ``repro_torch.calibrate`` run with its output echoed: exit
+    code, host seconds and the counters it prints."""
+    rc, text, seconds = echo_run(calibrate_main, argv)
     counters = {k: int(v) for k, v in re.findall(
         r"(timings_performed|cache_hits|count_traces|count_hits|retimed)="
         r"(\d+)", text)}
@@ -1210,6 +1238,151 @@ def amortization_path(calibrate_main, PerfSession, CountEngine, uipick,
     return out
 
 
+def tuning_path(tune_main, autotune, load_profile, profile_path,
+                tmp) -> dict:
+    """Phase 12 (a): predictor-guided autotuning of the three §8 spaces
+    on the card, priced by phase 3's ``base`` fit and confirmed by the
+    card's graph timer.  A cold ``tune search --save`` (margin 0, the
+    0.2 budget exit-coded), a warm re-tune of the saved profile in a
+    fresh session (``--expect-zero-timings``: 0 timings, 0 counting
+    passes, 0 batched evaluations), the autotune study's pruned search
+    against the exhaustive baseline over the 14 lattice points, and the
+    synthetic ``citra`` search with ``--verify-optimum``.  A pruned
+    winner that differs from the exhaustive one is logged, not fatal."""
+    tuned = tmp / "h100_tuned.json"
+    tuned.write_bytes(profile_path.read_bytes())
+    runs = {}
+    for run, extra in (("cold", ["--save", "--max-timed-fraction", "0.2"]),
+                       ("warm", ["--expect-zero-timings"])):
+        report = tmp / f"tune_{run}.json"
+        rc, _text, seconds = echo_run(tune_main, [
+            "search", "--profile", str(tuned), "--model", "base",
+            "--margin", "0", "--trials", "3", "--json", str(report),
+            *extra])
+        if rc != 0:
+            raise SystemExit(f"{run} tune search exited {rc}")
+        runs[run] = {"seconds": seconds, **json.loads(report.read_text())}
+    cold, warm = runs["cold"], runs["warm"]
+    n_timed = sum(sp["n_timed"] for sp in cold["spaces"])
+    if n_timed > 3 or cold["totals"]["timings"] != n_timed:
+        raise SystemExit(f"cold search timed {cold['totals']['timings']} "
+                         f"passes for {n_timed} survivors (at most 3)")
+    if any(warm["totals"].values()) or \
+            not all(sp["warm"] for sp in warm["spaces"]):
+        raise SystemExit(f"warm re-tune was not pure cache: "
+                         f"{warm['totals']}")
+    log(f"tune search cold: {cold['seconds']:.2f} s, {n_timed} of "
+        f"{sum(sp['n_variants'] for sp in cold['spaces'])} variants timed, "
+        f"winners " + ", ".join(f"{sp['space']} {sp['winner']}"
+                                 for sp in cold["spaces"])
+        + f"; warm: {warm['seconds']:.2f} s, totals {warm['totals']}")
+
+    t0 = time.perf_counter()
+    study = autotune(load_profile(profile_path), trials=3)
+    log(f"autotune study (pruned + exhaustive): "
+        f"{time.perf_counter() - t0:.2f} s")
+    if study["timings"] != {"pruned": 3, "exhaustive": 14}:
+        raise SystemExit(f"autotune study timed {study['timings']}, not "
+                         f"3 pruned against 14 exhaustive")
+    for name, sp in study["spaces"].items():
+        times = list(sp["measured_us"].values()) + \
+            list(sp["predicted_us"].values())
+        if not all(math.isfinite(t) and t > 0 for t in times):
+            raise SystemExit(f"autotune {name}: {sp}")
+        log(f"{name}: pruned {sp['pruned_winner']} (survivors "
+            f"{sp['survivors']}), exhaustive {sp['exhaustive_winner']}, "
+            f"regret {sp['regret']:.4g}"
+            + ("" if sp["agree"] else " — DISAGREE (a finding)")
+            + f"; wall {sp['pruned']['wall_s']:.3f} s pruned "
+            f"({sp['pruned']['timer_s']:.3f} s in timing passes, "
+            f"{sp['pruned']['replay_s'] * 1e3:.3f} ms replayed) vs "
+            f"{sp['exhaustive']['wall_s']:.3f} s exhaustive "
+            f"({sp['exhaustive']['timer_s']:.3f} s, "
+            f"{sp['exhaustive']['replay_s'] * 1e3:.3f} ms)")
+    log(f"winner agreement {study['winner_agreement']}, "
+        f"speedup_timings_x {study['speedup_timings_x']:.3g}, "
+        f"speedup_wall_x {study['speedup_wall_x']:.3g}")
+
+    rc, _text, seconds = echo_run(tune_main, [
+        "search", "--synthetic", "citra", "--smoke", "--trials", "2",
+        "--margin", "0", "--verify-optimum", "--max-timed-fraction", "0.2",
+        "--profile", str(tmp / "citra_tuned.json"), "--save"])
+    if rc != 0:
+        raise SystemExit(f"synthetic tune search exited {rc}")
+    return {"cli": {run: {"seconds": r["seconds"], "totals": r["totals"],
+                          "spaces": {sp["space"]: {
+                              k: sp[k] for k in ("winner", "n_timed",
+                                                 "n_variants", "survivors",
+                                                 "measured", "warm")}
+                              for sp in r["spaces"]}}
+                    for run, r in runs.items()},
+            "study": study, "synthetic_citra_seconds": seconds}
+
+
+def audit_path(PerfSession, calibrate_main, lint_main, abstract_like,
+               items, profile_path) -> dict:
+    """Phase 12 (b): the static audit on the card's items, counted
+    (the caller zeroes the launch counters before and reads them after).
+    ``PerfSession.audit`` of the ten hand-kernel items of phases 7–8 on
+    fake ``cuda`` tensors, ``predict --audit`` of the eight targets, and
+    ``python -m repro_torch.lint --kernels`` against the port's
+    baseline.  Fails on an error-severity finding, a timing, or a
+    fake-tensor run count other than two an item.  Returns the codes
+    found per target."""
+    session = PerfSession.open(profile_path)
+    fake = [(fn, abstract_like(args, "cuda")) for fn, args in items.values()]
+    t0 = time.perf_counter()
+    report = session.audit(fake, model="base")
+    seconds = time.perf_counter() - t0
+    if report.stats != {"timings": 0, "traces": 2 * len(items)} or \
+            report.errors or session.timer.calls:
+        raise SystemExit(f"PerfSession.audit: stats {report.stats}, "
+                         f"errors {[d.key for d in report.errors]}")
+    names = list(items)
+    codes = {"session": {}}
+    for d in report.sorted():
+        idx = int(d.location.rsplit("[", 1)[1].rstrip("]"))
+        codes["session"].setdefault(names[idx], []).append(d.code)
+    log(f"PerfSession.audit of {len(items)} hand-kernel items on fake "
+        f"cuda tensors: {seconds:.3f} s host, stats {report.stats}")
+
+    targets = ["matmul", "stencil5", "dg_diff", "stream_strided",
+               "madd_throughput", "flash_attention", "mamba2_ssd",
+               "slstm_cell"]
+    argv = ["predict", str(profile_path), "--audit", "--model", "base",
+            "--expect-zero-timings"]
+    for t in targets:
+        argv += ["--kernel", f"kernels.ops.{t}"]
+    rc, text, _ = echo_run(calibrate_main, argv)
+    stats = re.search(r"\[audit\] timings=(\d+) traces=(\d+)", text)
+    if rc != 0 or stats is None or stats[1] != "0" or \
+            "timings_performed=0" not in text:
+        raise SystemExit(f"predict --audit exited {rc}: {stats}")
+    codes["predict"] = sorted(set(re.findall(
+        r"\[audit\] \w+: (kernel:\S+): \[([\w-]+)\]", text)))
+
+    rc, text, seconds = echo_run(lint_main, [
+        "--kernels", "--json", "--baseline",
+        str(ROOT / "torch_lint_baseline.json")], echo=False)
+    lint = json.loads(text)
+    if rc != 0 or lint["stats"]["timings"] or lint["new_errors"]:
+        raise SystemExit(f"lint --kernels exited {rc}: new errors "
+                         f"{lint['new_errors']}, stats {lint['stats']}")
+    from repro_torch.analysis.targets import kernel_targets
+    codes["lint"] = {f"kernel:{t.name}": [] for t in kernel_targets()}
+    for d in lint["diagnostics"]:
+        codes["lint"].setdefault(d["location"], []).append(d["code"])
+    log(f"repro_torch.lint --kernels: {seconds:.2f} s host, counts "
+        f"{lint['counts']}, stats {lint['stats']}")
+    return {"codes": codes, "session_stats": report.stats,
+            "predict_stats": {"timings": int(stats[1]),
+                              "traces": int(stats[2])},
+            "lint_stats": lint["stats"], "lint_counts": lint["counts"],
+            "lint_baselined": sorted({d["code"] + "@" + d["location"]
+                                      for d in lint["diagnostics"]
+                                      if d["severity"] == "error"})}
+
+
 def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
     """Phase 6-7's predictions: the zoo study on the card and on the
     synthetic device apex, ``compare --sweep``, and each kernel's
@@ -1286,6 +1459,10 @@ def main() -> int:
     from repro_torch.profiles.cli import main as calibrate_main
     from repro_torch.studies import paper_figures
     from repro_torch.testing import variants
+    from repro_torch.analysis.cli import main as lint_main
+    from repro_torch.analysis.scope import abstract_like
+    from repro_torch.studies.autotune import autotune
+    from repro_torch.tuning.cli import main as tune_main
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1517,6 +1694,29 @@ def main() -> int:
         raise SystemExit(f"pricing launched a hand kernel: "
                          f"{pricing_launches}")
     print(json.dumps({"amortization": amortization}), flush=True)
+
+    # ---- 12. autotuning and the static audit --------------------------------
+    zero_counts()
+    t12 = time.perf_counter()
+    tuning = tuning_path(tune_main, autotune, load_profile, profile_path,
+                         tmp)
+    log(f"phase 12 tuning took {time.perf_counter() - t12:.1f} s; "
+        f"hand-kernel launches on its path (aten generators only): "
+        f"{counts()}")
+    print(json.dumps({"tuning": tuning}), flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    audit = audit_path(PerfSession, calibrate_main, lint_main,
+                       abstract_like, items, profile_path)
+    audit_launches = counts()
+    log(f"phase 12 audit took {time.perf_counter() - t0:.1f} s; "
+        f"hand-kernel launches during it: {audit_launches}")
+    if any(audit_launches.values()):
+        raise SystemExit(f"the audit launched a hand kernel: "
+                         f"{audit_launches}")
+    audit["launches"] = audit_launches
+    print(json.dumps({"audit": audit}), flush=True)
+    log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",

@@ -24,7 +24,7 @@ packages give the same codes on the same table.
 from __future__ import annotations
 
 import itertools
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -146,3 +146,12 @@ def analyze_model(model: Model, features: np.ndarray, location: str
                 f"arithmetic but unstable under timing noise",
                 details={"condition_number": cond}))
     return out
+
+
+def audit_battery(model: Model, counts_rows: Sequence,
+                  location: str,
+                  *, missing: str = "zero") -> List[Diagnostic]:
+    """Convenience wrapper: align count rows (mappings or a FeatureTable)
+    against the model, then :func:`analyze_model`."""
+    F = model.align(counts_rows, missing=missing)
+    return analyze_model(model, F, location)

@@ -67,7 +67,7 @@ class PerfSession:
         self.cache = cache
         # the timing seam; prediction must leave .calls where opening
         # left it
-        self.timer = timer if timer is not None else CountingTimer()
+        self.timer = _as_counting_timer(timer)
         # in-process memo plus a persistent tier beside the measurement
         # cache, when one is attached
         self.engine = engine if engine is not None else CountEngine(
@@ -94,7 +94,9 @@ class PerfSession:
         """Open a prediction session.  ``source`` selects where the fitted
         models come from:
 
-        * a **path** or a :class:`MachineProfile` — zero measurements;
+        * a **path** or a :class:`MachineProfile` — zero measurements
+          (``timer``, when given, is what a later confirmation timing
+          such as :func:`repro_torch.tuning.tune_space` runs through);
         * ``None`` — calibrate THIS machine on demand: the model-zoo study
           (:func:`repro_torch.studies.run_study`: gather ``tags``, default
           ``STUDY_TAGS``, fit the zoo, keep a holdout) timed on
@@ -114,7 +116,7 @@ class PerfSession:
             source = load_profile(source)
         if isinstance(source, MachineProfile):
             return cls(source, cache=_as_cache(cache, source.fingerprint),
-                       engine=engine,
+                       timer=timer, engine=engine,
                        calibration={"source": "profile", "timings": 0,
                                     "retimed": 0})
         from repro_torch.studies.study import run_study
@@ -132,7 +134,7 @@ class PerfSession:
                 f"PerfSession.open expects a profile path, a "
                 f"MachineProfile, a device with .fingerprint/.timer, or "
                 f"None (this machine); got {type(source).__name__}")
-        counting = CountingTimer(base)
+        counting = _as_counting_timer(base)
         mcache = _as_cache(cache, fingerprint)
         if engine is None:
             engine = CountEngine(
@@ -197,6 +199,64 @@ class PerfSession:
         return self.predict_engine.try_predict_rows(
             rows, kernel_names, model=model, strict=strict)
 
+    def audit(self, items: Optional[Sequence[PredictItem]] = None, *,
+              model: Optional[str] = None):
+        """Static modelability audit of this session — no kernel runs, no
+        timings, only fake-tensor runs (the report's ``stats`` prove it).
+
+        Audits the resolved fit's identifiability against the profile's
+        held-out battery (when the profile carries one), plus — for each
+        given predict item — the aten-level scope, cache-signature
+        hazards, and any counted work outside the model's scope
+        (``out-of-scope-feature``, the static twin of ``strict=True``
+        prediction).  Returns a
+        :class:`repro_torch.analysis.DiagnosticReport` whose ``stats``
+        are ``{"timings": ..., "traces": ...}``: the timing passes the
+        session's timer ran meanwhile (0) and the fake-tensor runs."""
+        from repro_torch.analysis import Diagnostic, DiagnosticReport
+        from repro_torch.analysis.identifiability import analyze_model
+        from repro_torch.analysis.scope import abstract_args, audit_callable
+        from repro_torch.analysis.sighazards import audit_signature
+        from repro_torch.core.counting import count_fn
+
+        timings_before = self.timer.calls
+        fit_name, _mf, m = self.predict_engine.resolve(model)
+        report = DiagnosticReport(stats={"timings": 0, "traces": 0})
+        holdout = self.profile.holdout
+        if holdout is not None and len(holdout):
+            report.extend(analyze_model(
+                m, m.align(holdout, missing="zero"),
+                f"model:{fit_name}[holdout]"))
+        for idx, item in enumerate(items or ()):
+            kname, _key, _sig = _item_identity(item, idx)
+            loc = f"kernel:{kname}"
+            if isinstance(item, MeasurementKernel):
+                fn, args = item.fn, abstract_args(item.make_args)
+            elif isinstance(item, tuple):
+                fn, args = item
+            else:
+                fn, args = item, ()
+            report.extend(audit_callable(fn, args, loc,
+                                         stats=report.stats))
+            report.extend(audit_signature(fn, loc))
+            try:
+                counts = count_fn(fn, *args)
+                report.stats["traces"] += 1
+            except Exception:   # noqa: BLE001 — already diagnosed above
+                continue
+            extra = m.unmodeled_features(counts)
+            if extra:
+                report.extend([Diagnostic(
+                    "warning", "out-of-scope-feature", loc,
+                    f"kernel performs counted work model {fit_name!r} "
+                    f"has no term for: {', '.join(sorted(extra))} — "
+                    f"predictions silently omit that cost "
+                    f"(strict=True prediction would refuse)",
+                    details={"features": sorted(extra),
+                             "model": fit_name})])
+        report.stats["timings"] = self.timer.calls - timings_before
+        return report
+
     def _count_items(self, items: Sequence[PredictItem],
                      names: Optional[Sequence[str]]
                      ) -> Tuple[List[str], List[FeatureCounts]]:
@@ -260,6 +320,12 @@ def _item_identity(item: PredictItem, idx: int
     sig = callable_signature(fn)
     key = ("fn", sig or f"obj:{id(fn)}", args_signature(args))
     return f"{kname}[{idx}]", key, sig
+
+
+def _as_counting_timer(timer) -> CountingTimer:
+    if isinstance(timer, CountingTimer):
+        return timer
+    return CountingTimer(timer) if timer is not None else CountingTimer()
 
 
 def _as_cache(cache, fingerprint) -> Optional[MeasurementCache]:

@@ -102,20 +102,49 @@ _MEM_CONTIG = {"clone", "_to_copy", "copy", "constant_pad_nd", "zeros",
                "full_like", "where", "arange", "new_zeros", "new_ones",
                "new_full", "masked_fill", "repeat"}
 
-# Deliberately free.  `roll` belongs here only for parity: the reference
-# on the installed jax counts nothing for jnp.roll (its concatenate sits
-# in a nested jit the walker does not open), so neither side's battery
-# exercises f_mem_concat — see ROADMAP queue C.
-ZERO_COST_OPS = frozenset({
+# Views, aliases and allocations move no data: free by nature.
+_VIEW_OPS = frozenset({
     "view", "_unsafe_view", "reshape", "_reshape_alias", "slice", "select",
     "squeeze", "unsqueeze", "expand", "alias", "as_strided", "detach",
     "lift_fresh", "empty", "empty_like", "new_empty", "empty_strided",
-    "_local_scalar_dense", "roll", "split", "split_with_sizes", "unbind",
+    "split", "split_with_sizes", "unbind",
+})
+
+# Deliberately free, as the reference's ZERO_COST_PRIMITIVES: predicates
+# and bit bookkeeping ride along with the selects and arithmetic they
+# gate, and random draws build example inputs rather than kernel work.
+_ZERO_COST_WORK = frozenset({
     "lt", "le", "gt", "ge", "eq", "ne", "logical_and", "logical_or",
     "logical_not", "bitwise_and", "bitwise_or", "bitwise_not", "sign",
     "isfinite", "isnan", "randn", "rand", "randint", "normal", "uniform",
     "random", "bernoulli",
 })
+
+# Moves data yet earns no feature, for parity only: the reference on the
+# installed jax counts nothing for jnp.roll (its concatenate sits in a
+# nested jit the walker does not open), so neither side's battery
+# exercises f_mem_concat — see ROADMAP queue C.  The scope auditor
+# reports it as the unmodeled work it is.
+_UNPRICED_FOR_PARITY = frozenset({"roll"})
+
+# Ops whose result depends on tensor data the fake-tensor counter does
+# not have: a host read (``.item()``) or a data-sized output.  The
+# counter cannot count past them.
+DATA_DEPENDENT_OPS = frozenset({
+    "_local_scalar_dense", "nonzero", "masked_select", "unique",
+    "_unique2", "unique_consecutive", "unique_dim",
+})
+
+# what _count_op did with one dispatched op — the counter's
+# classification, which the scope auditor (repro_torch.analysis.scope)
+# reads instead of keeping op lists of its own
+ARITH = "arith"          # priced: arithmetic features
+MEMORY = "memory"        # priced: memory-traffic features
+KERNEL = "kernel"        # priced: a hand kernel's cost rule
+FREE = "free"            # no data moved: view, alias, allocation
+ZERO = "zero"            # work the counter deliberately leaves free
+UNPRICED = "unpriced"    # work that earns no feature
+OPAQUE = "opaque"        # an op outside the namespaces the counter reads
 
 # ---------------------------------------------------------------------------
 # cost rules of the hand kernels (repro_torch::* custom ops)
@@ -134,12 +163,16 @@ def register_op_cost_rule(op: str,
     _OP_COST_RULES[op] = rule
 
 
+class MissingCostRule(LookupError):
+    """A ``repro_torch::*`` op with no registered cost rule."""
+
+
 def _rule_for(op: str) -> Callable[..., FeatureCounts]:
     if op not in _OP_COST_RULES:
         importlib.import_module(_RULE_MODULE)    # registers on import
     rule = _OP_COST_RULES.get(op)
     if rule is None:
-        raise LookupError(
+        raise MissingCostRule(
             f"custom op {op!r} has no registered cost rule: the counter "
             f"cannot price a hand kernel it does not know "
             f"(register one in {_RULE_MODULE})")
@@ -158,18 +191,28 @@ def _first_tensor(tree) -> Optional[torch.Tensor]:
     return None
 
 
-def _count_op(func, args, kwargs, out, counts: FeatureCounts) -> None:
+def _count_op(func, args, kwargs, out, counts: FeatureCounts) -> str:
+    """Add one dispatched op's features to ``counts`` and return what the
+    counter made of it: :data:`ARITH`, :data:`MEMORY` or :data:`KERNEL`
+    when it priced the op, else :data:`FREE`, :data:`ZERO`,
+    :data:`UNPRICED` or :data:`OPAQUE`."""
     if func.namespace == "repro_torch":
         name = f"{func.namespace}::{func.overloadpacket.__name__}"
         for k, v in _rule_for(name)(*args, **kwargs).items():
             counts.add(k, v)
-        return
-    if func.namespace != "aten":
-        return
-    op = func.overloadpacket.__name__.rstrip("_")   # in-place == out-of-place
+        return KERNEL
     res = _first_tensor(out)
-    if res is None or op in ZERO_COST_OPS:
-        return
+    if res is None:
+        return FREE                     # metadata: prim::device, sizes
+    if func.namespace != "aten":
+        return OPAQUE
+    op = func.overloadpacket.__name__.rstrip("_")   # in-place == out-of-place
+    if op in _VIEW_OPS:
+        return FREE
+    if op in _ZERO_COST_WORK:
+        return ZERO
+    if op in _UNPRICED_FOR_PARITY:
+        return UNPRICED
     dt = dtype_name(res.dtype)
 
     if op in _MATMUL:
@@ -181,7 +224,7 @@ def _count_op(func, args, kwargs, out, counts: FeatureCounts) -> None:
         counts.add(f"f_mem_contig_{dt}_store", res.numel())
         if op.startswith(("add", "baddbmm")):
             counts.add(f"f_op_{dt}_add", res.numel())
-        return
+        return ARITH
     if op == "pow":
         exp = args[1] if len(args) > 1 else kwargs.get("exponent")
         if isinstance(exp, int) or (isinstance(exp, float)
@@ -196,40 +239,41 @@ def _count_op(func, args, kwargs, out, counts: FeatureCounts) -> None:
                 counts.add(f"f_op_{dt}_div", res.numel())
         else:
             counts.add(f"f_op_{dt}_transc", res.numel())
-        return
+        return ARITH
     if op in ("max", "min"):
         if func._overloadname == "other":       # elementwise
             counts.add(f"f_op_{dt}_cmp", res.numel())
         else:                                   # reduction
             src = args[0]
             counts.add(f"f_op_{dtype_name(src.dtype)}_cmp", src.numel())
-        return
+        return ARITH
     if op in _ARITH:
         counts.add(f"f_op_{dt}_{_ARITH[op]}", res.numel())
-        return
+        return ARITH
     if op in _REDUCE:
         src = args[0]
         counts.add(f"f_op_{dtype_name(src.dtype)}_{_REDUCE[op]}", src.numel())
-        return
+        return ARITH
     if op in _MEM_GATHER:
         counts.add(f"f_mem_gather_{dt}_load", res.numel())
-        return
+        return MEMORY
     if op in _MEM_SCATTER:
         upd = args[-1] if isinstance(args[-1], torch.Tensor) else res
         counts.add(f"f_mem_scatter_{dtype_name(upd.dtype)}_store",
                    upd.numel())
-        return
+        return MEMORY
     if op in _MEM_STRIDED:
         counts.add(f"f_mem_strided_{dt}_load", res.numel())
         counts.add(f"f_mem_strided_{dt}_store", res.numel())
-        return
+        return MEMORY
     if op in _MEM_CONCAT:
         counts.add(f"f_mem_concat_{dt}_store", res.numel())
-        return
+        return MEMORY
     if op in _MEM_CONTIG:
         counts.add(f"f_mem_contig_{dt}_store", res.numel())
-        return
+        return MEMORY
     # anything else: ignored, as the reference ignores unlisted primitives
+    return UNPRICED
 
 
 class _CountingMode(TorchDispatchMode):
@@ -310,21 +354,30 @@ def count_fn(fn: Callable, *example_args: Any,
     they are replaced by fake tensors, so nothing executes and no kernel
     launches."""
     counts = FeatureCounts()
+    run_fake(fn, example_args, example_kwargs, _CountingMode(counts), counts)
+    counts.add("f_sync_launch_kernel", 1.0)
+    return counts
+
+
+def run_fake(fn: Callable, args: tuple, kwargs: Mapping[str, Any],
+             mode: TorchDispatchMode, counts: FeatureCounts) -> Any:
+    """Run ``fn`` once on fake copies of its tensor arguments under
+    ``mode``, with ``counts`` as the active counts of
+    :func:`counted_range`/:func:`counted_loop` (a loop runs one step).
+    The one trace behind :func:`count_fn` and the scope auditor."""
     fake = FakeTensorMode()
 
     def to_fake(x):
         return fake.from_tensor(x) if isinstance(x, torch.Tensor) else x
 
-    args = tree_map(to_fake, example_args)
-    kwargs = tree_map(to_fake, example_kwargs)
+    args = tree_map(to_fake, tuple(args))
+    kwargs = tree_map(to_fake, dict(kwargs))
     token = _ACTIVE.set(counts)
     try:
-        with fake, _CountingMode(counts):
-            fn(*args, **kwargs)
+        with fake, mode:
+            return fn(*args, **kwargs)
     finally:
         _ACTIVE.reset(token)
-    counts.add("f_sync_launch_kernel", 1.0)
-    return counts
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ from repro_torch.profiles.profile import (
     MachineProfile,
     ModelFit,
     ProfileError,
+    TunedChoice,
     load_profile,
     merge_profiles,
     save_profile,
@@ -13,4 +14,4 @@ from repro_torch.profiles.profile import (
 
 __all__ = ["CacheEntry", "DeviceFingerprint", "GCStats", "MachineProfile",
            "MeasurementCache", "ModelFit", "ProfileError", "load_profile",
-           "merge_profiles", "save_profile"]
+           "TunedChoice", "merge_profiles", "save_profile"]

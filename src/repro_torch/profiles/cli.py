@@ -284,6 +284,12 @@ def _cmd_predict(argv: List[str]) -> int:
     ap.add_argument("--strict-scope", action="store_true",
                     help="error on kernels whose counted work the model "
                          "has no term for")
+    ap.add_argument("--audit", action="store_true",
+                    help="print the static modelability audit of the "
+                         "selected kernels against the fit (scope gaps, "
+                         "signature hazards, holdout identifiability) "
+                         "before predicting — observability only, never "
+                         "changes the exit code")
     ap.add_argument("--expect-zero-timings", action="store_true",
                     help="exit 1 if any kernel timing pass ran")
     ap.add_argument("--device", default="cuda",
@@ -327,6 +333,10 @@ def _cmd_predict(argv: List[str]) -> int:
         print("[predict] nothing to predict: pass --tags and/or --kernel",
               file=sys.stderr)
         return 2
+    if args.audit:
+        report = session.audit(items, model=args.model)
+        for line in report.render().splitlines():
+            print(f"[audit] {line}")
     try:
         preds = session.predict_batch(items, model=args.model, names=names,
                                       strict=args.strict_scope)

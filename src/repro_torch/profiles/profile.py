@@ -6,7 +6,7 @@ port and the two packages' profiles can be compared side by side.
 Saved atomically (tmp + fsync + rename); loading is strict: corrupt
 files, missing fields, other schema versions and, when asked, foreign
 fingerprints raise :class:`ProfileError`.  :func:`merge_profiles` unions
-the fits of same-machine profiles.
+the fits and tuned choices of same-machine profiles.
 """
 from __future__ import annotations
 
@@ -98,8 +98,79 @@ class ModelFit:
 
 
 @dataclass
+class TunedChoice:
+    """One autotuning decision, recorded in the profile that made it
+    (the reference's ``TunedChoice``, same fields and JSON form).
+
+    The predictor-guided search (:mod:`repro_torch.tuning`) prices a
+    whole variant space in one batched evaluation, times only the pruned
+    survivors and stores the winner here, keyed by the space's content
+    signature, so a warm re-tune on this machine performs zero timings
+    and zero counting passes.  ``timings_spent`` is the timing passes
+    the search actually ran (cache hits cost nothing).
+    """
+
+    space_signature: str
+    space_name: str
+    model: str                  # fit name the pricing ran under
+    winner: str                 # winning variant's kernel name
+    predicted_s: float          # winner's predicted seconds
+    measured_s: float           # winner's confirmation seconds
+    n_variants: int             # enumerated space size
+    n_timed: int                # survivors confirmed by measurement
+    timings_spent: int          # timing passes actually executed
+    trials: int                 # trials per confirmation timing
+    margin: float = 0.0         # prune margin the search ran with
+    tags: List[str] = field(default_factory=list)
+    predicted: Dict[str, float] = field(default_factory=dict)
+    measured: Dict[str, float] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "space_signature": self.space_signature,
+            "space_name": self.space_name,
+            "model": self.model,
+            "winner": self.winner,
+            "predicted_s": self.predicted_s,
+            "measured_s": self.measured_s,
+            "n_variants": self.n_variants,
+            "n_timed": self.n_timed,
+            "timings_spent": self.timings_spent,
+            "trials": self.trials,
+            "margin": self.margin,
+            "tags": list(self.tags),
+            "predicted": {k: float(v)
+                          for k, v in sorted(self.predicted.items())},
+            "measured": {k: float(v)
+                         for k, v in sorted(self.measured.items())},
+        }
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "TunedChoice":
+        return cls(
+            space_signature=str(d["space_signature"]),
+            space_name=str(d["space_name"]),
+            model=str(d["model"]),
+            winner=str(d["winner"]),
+            predicted_s=float(d["predicted_s"]),
+            measured_s=float(d["measured_s"]),
+            n_variants=int(d["n_variants"]),
+            n_timed=int(d["n_timed"]),
+            timings_spent=int(d["timings_spent"]),
+            trials=int(d["trials"]),
+            margin=float(d.get("margin", 0.0)),
+            tags=[str(t) for t in d.get("tags", [])],
+            predicted={str(k): float(v)
+                       for k, v in dict(d.get("predicted", {})).items()},
+            measured={str(k): float(v)
+                      for k, v in dict(d.get("measured", {})).items()},
+        )
+
+
+@dataclass
 class MachineProfile:
-    """Fingerprint, fitted models and measurement provenance."""
+    """Fingerprint, fitted models, measurement provenance and tuned
+    choices."""
 
     fingerprint: DeviceFingerprint
     fits: Dict[str, ModelFit] = field(default_factory=dict)
@@ -107,6 +178,9 @@ class MachineProfile:
     kernel_names: List[str] = field(default_factory=list)
     schema_version: int = PROFILE_SCHEMA_VERSION
     holdout: Optional[FeatureTable] = None
+    # autotuning decisions keyed by variant-space signature; written only
+    # when present, so a profile without them keeps its bytes
+    tuning: Dict[str, TunedChoice] = field(default_factory=dict)
 
     @property
     def fit_names(self) -> List[str]:
@@ -130,6 +204,9 @@ class MachineProfile:
         }
         if self.holdout is not None:
             out["holdout"] = self.holdout.to_dict()
+        if self.tuning:
+            out["tuning"] = {sig: tc.to_dict()
+                             for sig, tc in sorted(self.tuning.items())}
         return out
 
     @classmethod
@@ -151,6 +228,8 @@ class MachineProfile:
                 schema_version=int(version),
                 holdout=(FeatureTable.from_dict(holdout)
                          if holdout is not None else None),
+                tuning={str(sig): TunedChoice.from_dict(tc)
+                        for sig, tc in dict(d.get("tuning", {})).items()},
             )
         except (KeyError, TypeError, ValueError) as e:
             raise ProfileError(f"malformed profile: {e!r}") from e
@@ -201,11 +280,12 @@ def _merge_holdouts(tables: List[Optional[FeatureTable]]
 
 def merge_profiles(profiles: List[MachineProfile]) -> MachineProfile:
     """Merge ≥ 2 profiles calibrated on the same machine into one holding
-    the union of their fits.  Raises :class:`ProfileError` when the
-    fingerprints differ (cross-machine collections are fleet bundles,
-    :mod:`repro_torch.studies`), when one fit name maps to conflicting
-    payloads, or when the held-out tables disagree: a merge never
-    silently prefers one measurement over another."""
+    the union of their fits and tuned choices.  Raises
+    :class:`ProfileError` when the fingerprints differ (cross-machine
+    collections are fleet bundles, :mod:`repro_torch.studies`), when one
+    fit name or one space signature maps to conflicting payloads, or when
+    the held-out tables disagree: a merge never silently prefers one
+    measurement over another."""
     if len(profiles) < 2:
         raise ProfileError(f"merge needs at least 2 profiles, "
                            f"got {len(profiles)}")
@@ -218,6 +298,7 @@ def merge_profiles(profiles: List[MachineProfile]) -> MachineProfile:
                 f"(use a fleet bundle for cross-machine collections)")
     fits: Dict[str, ModelFit] = {}
     kernel_names: List[str] = []
+    tuning: Dict[str, TunedChoice] = {}
     for prof in profiles:
         for name, mf in prof.fits.items():
             if name in fits and fits[name].to_dict() != mf.to_dict():
@@ -229,11 +310,20 @@ def merge_profiles(profiles: List[MachineProfile]) -> MachineProfile:
         for k in prof.kernel_names:
             if k not in kernel_names:
                 kernel_names.append(k)
+        for sig, tc in prof.tuning.items():
+            if sig in tuning and tuning[sig].to_dict() != tc.to_dict():
+                raise ProfileError(
+                    f"conflicting tuned choice for space "
+                    f"{tc.space_name!r} ({sig}) while merging: the inputs "
+                    f"disagree on the winner or its measurements — "
+                    f"re-tune instead of merging")
+            tuning[sig] = tc
     return MachineProfile(
         fingerprint=base.fingerprint, fits=fits,
         trials=max(p.trials for p in profiles),
         kernel_names=kernel_names,
-        holdout=_merge_holdouts([p.holdout for p in profiles]))
+        holdout=_merge_holdouts([p.holdout for p in profiles]),
+        tuning=tuning)
 
 
 def save_profile(profile: MachineProfile, path) -> Path:

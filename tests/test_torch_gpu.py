@@ -479,3 +479,26 @@ def test_graph_replay_equals_eager_on_the_loop_and_figure_kernels(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, eager, msg=k.name)
         del graph, out, eager, args
+
+
+@pytest.mark.gpu
+def test_section8_tune_and_warm_retune_on_card(cuda, tmp_path):
+    """The three §8 spaces priced by an exact synthetic fit and confirmed
+    on the card (one CUDA-graph timing per space at margin 0), then a
+    fresh session over the saved profile re-tunes from the record with
+    zero timings, zero counting passes and zero evaluations."""
+    from repro_torch.api.session import PerfSession
+    from repro_torch.profiles.profile import save_profile
+    from repro_torch.testing.synthdev import exact_profile, fleet_device
+    from repro_torch.tuning import section8_spaces, tune_space
+
+    session = PerfSession.open(exact_profile(fleet_device("citra")))
+    for space in section8_spaces():
+        res = tune_space(session, space, margin=0.0, trials=3)
+        assert not res.warm and res.timings_performed == 1, space.name
+        assert 0.0 < res.choice.measured_s < 1.0, space.name
+    path = save_profile(session.profile, tmp_path / "tuned.json")
+    warm = PerfSession.open(path)
+    assert all(tune_space(warm, space).warm for space in section8_spaces())
+    assert (warm.timer.calls, warm.engine.trace_count,
+            warm.eval_calls) == (0, 0, 0)
