@@ -100,6 +100,24 @@ Phases, each fatal on failure:
    ``python -m repro_torch.lint --kernels`` against
    ``torch_lint_baseline.json``; one ``{"audit": ...}`` line with the
    codes found per target.
+13. (after phase 12, before that ``kernels`` line) serving and fleet
+   routing (:func:`serving_path`): (a) ``python -m repro_torch.serve
+   --smoke --burst 64 --expect-zero-timings`` on phase 3's profile with
+   a four-machine fleet (phase 6's card and ``apex`` zoo profiles, exact
+   ``bulk`` and ``citra``): every reply 200, 0 timings, at most 8 count
+   lookups, fewer batched evaluations than requests, the burst in one
+   batch, routes over 4 machines, no load left; (b) a ``FleetRouter``
+   over the same four routes phase 11's ten items and completes each one
+   placed on the card with the card's time from phases 7–8, logging the
+   price tables and the card's health (skew, weight, flag) without
+   gating on them; routing times nothing; (c) ``recalibrate`` re-studies
+   the card (``STUDY_TAGS``, 3 trials, no cache) — the fresh fingerprint
+   must be the slot's, its health cleared, the routing sessions' timers
+   at 0 — and logs the fresh held-out gmre per rung beside phase 6's;
+   (d) ``python -m repro_torch.fleet simulate`` and ``health
+   --recalibrate`` must exit 0, then ``studies.serve_bench`` (synthetic
+   and phase 3's profile) and ``studies.fleet_bench``; one
+   ``{"serving": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -112,6 +130,8 @@ around phase 10 (the figures run aten ops, no hand kernel), and set to 0
 before phase 11 and read after it, which fails if pricing launched any;
 logged around phase 12's tuning (aten generators, no hand kernel) and
 set to 0 before its audit and read after it, which fails if the audit
+launched any; set to 0 before phase 13 and read after it, which fails
+if serving, routing or the card's recalibration (aten generators)
 launched any.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
@@ -1383,6 +1403,184 @@ def audit_path(PerfSession, calibrate_main, lint_main, abstract_like,
                                       if d["severity"] == "error"})}
 
 
+def measured_ms(measured, name) -> float:
+    """The card's time (ms) of one of phase 11's ten items, from phases
+    7–8's rows (the ``stride4`` and ``global`` variants ride on their
+    kernel's row)."""
+    for base, tag in (("stream_strided", "stride4"),
+                      ("flash_attention", "global")):
+        if name == f"{base}_{tag}":
+            return measured[base][tag]["ms"]
+    return measured[name]["ms"]
+
+
+def serving_path(serve_main, fleet_main, FleetRouter, studies, synthdev,
+                 save_profile, serve_bench, fleet_bench, load_profile,
+                 items, measured, profile_path, tmp) -> dict:
+    """Phase 13: serving and fleet routing on the card.  (a) ``python -m
+    repro_torch.serve --smoke --burst 64 --expect-zero-timings`` on phase
+    3's profile with a four-machine fleet (phase 6's ``h100_zoo`` and
+    ``apex_zoo``, exact ``bulk`` and ``citra``); (b) a ``FleetRouter``
+    over the same four profiles routes ``items`` (phase 11's ten
+    real-size hand-kernel items), and each decision placed on the H100
+    completes with the card's own time from phases 7–8 (the others with
+    their predicted time), feeding the health layer; routing times
+    nothing; (c) ``recalibrate`` re-studies the card (``STUDY_TAGS``, 3
+    trials, no cache) and swaps the fresh session in; (d) the fleet
+    CLI's ``simulate`` and ``health --recalibrate`` gates, then the two
+    benches.  Returns the ``{"serving": ...}`` payload."""
+    from repro_torch.core.calibrate import gmre_of
+    from repro_torch.studies.zoo import STUDY_TAGS
+
+    out = {}
+    fleet_paths = [tmp / "h100_zoo.json", tmp / "apex_zoo.json"]
+    for name in ("bulk", "citra"):
+        fleet_paths.append(tmp / f"{name}_exact.json")
+        save_profile(synthdev.exact_profile(synthdev.fleet_device(name)),
+                     fleet_paths[-1])
+
+    # (a) the served burst, with the fleet mounted
+    argv = ["--profile", str(profile_path), "--smoke", "--burst", "64",
+            "--expect-zero-timings"]
+    for path in fleet_paths:
+        argv += ["--fleet", str(path)]
+    rc, text, seconds = echo_run(serve_main, argv)
+    stats = re.search(r"serve smoke: stats (\{.*\})", text)
+    routed = re.search(r"routed (\d+) kernels over (\d+) machines", text)
+    if rc != 0 or stats is None or routed is None:
+        raise SystemExit(f"serve --smoke exited {rc}")
+    stats = json.loads(stats[1])
+    if stats["timings"] or stats["count_lookups"] > 8 or \
+            not 0 < stats["eval_calls"] < 64 or \
+            stats["batcher"]["max_batch_size"] != 64 or \
+            stats["batcher"]["requests"] != 64 or int(routed[2]) != 4 or \
+            stats["fleet"]["timings"] or \
+            any(v > 1e-12 for v in stats["fleet"]["outstanding"].values()):
+        raise SystemExit(f"serve --smoke gates: {stats}, routed over "
+                         f"{routed[2]} machines")
+    out["serve_smoke"] = {"seconds": seconds, "stats": stats,
+                          "fleet_machines": int(routed[2])}
+    log(f"serve --smoke: {seconds:.2f} s host, 64 requests, "
+        f"{stats['eval_calls']} batched evaluation(s), "
+        f"{stats['count_lookups']} count lookups, {stats['timings']} "
+        f"timings, routed over {routed[2]} machines")
+
+    # (b) route the card's real-size items; the card's own times complete
+    router = FleetRouter.open([str(p) for p in fleet_paths])
+    try:
+        short = {load_profile(p).fingerprint.id: label for p, label in
+                 zip(fleet_paths, ("H100", "apex", "bulk", "citra"))}
+        h100 = router.machines[0]
+        t0 = time.perf_counter()
+        decisions = router.route_batch(list(items.values()),
+                                       names=list(items))
+        route_s = time.perf_counter() - t0
+        if router.timings():
+            raise SystemExit(f"routing timed {router.timings()} kernels")
+        placed, observed = [], []
+        for name, d in zip(items, decisions):
+            on_card = d.machine == h100
+            obs = measured_ms(measured, name) / 1e3 if on_card \
+                else d.predicted_s
+            router.complete(d, observed_s=obs)
+            placed.append({"kernel": name, "machine": short[d.machine],
+                           "predicted_s": {short[m]: v for m, v
+                                           in d.predicted.items()},
+                           "observed_s": obs})
+            if on_card:
+                observed.append({"kernel": name, "predicted_s": d.predicted_s,
+                                 "observed_s": obs,
+                                 "ratio": obs / d.predicted_s})
+            log(f"route {name} -> {short[d.machine]}; prices "
+                + ", ".join(f"{short[m]} {v:.4g} s"
+                            for m, v in d.predicted.items())
+                + (f"; measured on the card {obs:.4g} s "
+                   f"({obs / d.predicted_s:.3g}× predicted)"
+                   if on_card else ""))
+        health = router.health.report()
+        # completing drains each predicted cost: float residue, not load
+        if any(v > 1e-12 for v in router.outstanding().values()) or \
+                router.timings():
+            raise SystemExit(f"routing left load {router.outstanding()} or "
+                             f"timed {router.timings()} kernels")
+        log(f"H100 health under its measured times: "
+            f"{health.get(h100, 'no observation')}; flagged "
+            f"{[short[m] for m in router.health.needs_recalibration()]}; "
+            f"measured ÷ predicted "
+            + ", ".join(f"{o['kernel']} {o['ratio']:.3g}" for o in observed))
+        out["routing"] = {
+            "seconds": route_s, "timings": router.timings(),
+            "decisions": placed, "on_card": observed,
+            "health": {short[m]: h for m, h in health.items()},
+            "flagged": [short[m]
+                        for m in router.health.needs_recalibration()]}
+
+        # (c) close the loop on the card
+        routing_calls = {m: router.session(m).timer.calls
+                         for m in router.machines}
+        t0 = time.perf_counter()
+        fresh = router.recalibrate(h100, None, tags=STUDY_TAGS, trials=3,
+                                   cache=None)
+        recal_s = time.perf_counter() - t0
+        others = {m: router.session(m).timer.calls for m in router.machines
+                  if m != h100}
+        if fresh.profile.fingerprint.id != h100 or \
+                router.session(h100) is not fresh or \
+                router.health.state(h100).n_obs or \
+                router.health.needs_recalibration() or \
+                any(routing_calls.values()) or any(others.values()):
+            raise SystemExit(f"recalibration: fingerprint "
+                             f"{fresh.profile.fingerprint.id}, routing "
+                             f"timer calls {routing_calls} / {others}")
+        gmre = {}
+        for run, prof in (("phase6", studies.load_profiles_any(
+                fleet_paths[0])[0]), ("recalibrated", fresh.profile)):
+            acc = studies.profile_accuracy(prof)
+            gmre[run] = {rung: gmre_of(acc[rung]) for rung in ZOO}
+        again = router.route_batch(list(items.values()), names=list(items),
+                                   dispatch=False)
+        out["recalibration"] = {
+            "seconds": recal_s, "timings": fresh.timer.calls,
+            "holdout_gmre": gmre,
+            "placements_after": {n: short[d.machine]
+                                 for n, d in zip(items, again)}}
+        log(f"recalibrated the card in {recal_s:.2f} s "
+            f"({fresh.timer.calls} timings); held-out gmre "
+            + "; ".join(f"{rung} {gmre['recalibrated'][rung]:.2%} (phase 6 "
+                        f"{gmre['phase6'][rung]:.2%})" for rung in ZOO)
+            + f"; placements after: {sum(d.machine == h100 for d in again)}"
+            f" of {len(again)} on the card")
+    finally:
+        router.close()
+
+    # (d) the fleet CLI's gates and the two benches
+    out["fleet_cli"] = {}
+    for argv in (["simulate", "--synthetic", "4", "--jobs", "120",
+                  "--expect-zero-timings"],
+                 ["health", "--synthetic", "4", "--degrade-factor", "4",
+                  "--recalibrate"]):
+        rc, text, seconds = echo_run(fleet_main, argv)
+        if rc != 0:
+            raise SystemExit(f"fleet {argv[0]} exited {rc}")
+        out["fleet_cli"][argv[0]] = {"seconds": seconds}
+    out["serve_bench"] = {}
+    for label, prof in (("synthetic", None),
+                        ("h100_profile", load_profile(profile_path))):
+        res = serve_bench.serve_bench(prof)
+        if res["timings"]:
+            raise SystemExit(f"serve_bench timed {res['timings']} kernels")
+        out["serve_bench"][label] = res
+        for row in serve_bench.rows(res):
+            print(f"serve_bench[{label}] {row}", flush=True)
+    res = fleet_bench.fleet_bench()
+    if res["route_timings"] or res["sim_timings"]:
+        raise SystemExit(f"fleet_bench timed kernels: {res}")
+    out["fleet_bench"] = res
+    for row in fleet_bench.rows(res):
+        print(f"fleet_bench {row}", flush=True)
+    return out
+
+
 def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
     """Phase 6-7's predictions: the zoo study on the card and on the
     synthetic device apex, ``compare --sweep``, and each kernel's
@@ -1463,6 +1661,12 @@ def main() -> int:
     from repro_torch.analysis.scope import abstract_like
     from repro_torch.studies.autotune import autotune
     from repro_torch.tuning.cli import main as tune_main
+    from repro_torch.fleet import FleetRouter
+    from repro_torch.fleet.cli import main as fleet_main
+    from repro_torch.profiles.profile import save_profile
+    from repro_torch.serving.cli import main as serve_main
+    from repro_torch.studies import fleet_bench, serve_bench
+    from repro_torch.testing import synthdev
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1717,6 +1921,23 @@ def main() -> int:
     audit["launches"] = audit_launches
     print(json.dumps({"audit": audit}), flush=True)
     log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    # ---- 13. serving and fleet routing ---------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    serving = serving_path(
+        serve_main, fleet_main, FleetRouter, studies, synthdev,
+        save_profile, serve_bench, fleet_bench, load_profile, items,
+        measured, profile_path, tmp)
+    serving_launches = counts()
+    serving["seconds"] = time.perf_counter() - t0
+    serving["launches"] = serving_launches
+    log(f"phase 13 took {serving['seconds']:.1f} s; hand-kernel launches "
+        f"during it: {serving_launches}")
+    if any(serving_launches.values()):
+        raise SystemExit(f"serving or routing launched a hand kernel: "
+                         f"{serving_launches}")
+    print(json.dumps({"serving": serving}), flush=True)
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",

@@ -10,15 +10,15 @@ reference-schema :class:`~repro_torch.profiles.MachineProfile`, and
 predict the §8 hand kernels (:mod:`repro_torch.kernels.ops`) from it with
 zero timings (:mod:`repro_torch.api`); around it the model-zoo study,
 the count engine and measurement cache, predictor-guided autotuning
-(:mod:`repro_torch.tuning`) and the static modelability audit
-(:mod:`repro_torch.analysis`).
+(:mod:`repro_torch.tuning`), the static modelability audit
+(:mod:`repro_torch.analysis`), the prediction daemon
+(:mod:`repro_torch.serving`) and fleet routing (:mod:`repro_torch.fleet`).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``"cpu"``; without a card they raise instead of falling back.
 
 The stable surface is the reference's, lazily re-exported so
-``import repro_torch`` stays cheap and cycle-free (the reference's fleet
-names are not ported yet).
+``import repro_torch`` stays cheap and cycle-free.
 """
 from importlib import import_module
 from typing import Any
@@ -70,6 +70,9 @@ _EXPORTS = {
     "compare_profiles": "repro_torch.studies",
     "scope_accuracy_sweep": "repro_torch.studies",
     "StudyReport": "repro_torch.studies",
+    # fleet
+    "FleetRouter": "repro_torch.fleet",
+    "FleetHealth": "repro_torch.fleet",
 }
 
 __all__ = sorted(_EXPORTS)

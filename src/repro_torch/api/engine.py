@@ -4,11 +4,28 @@
 It resolves a fit by name, aligns counted features against the fitted
 model and evaluates the per-term breakdown of a whole batch in one
 float64 torch expression.  It owns no timer and never touches the
-filesystem; ``eval_calls`` counts batched evaluations.
+filesystem.
+
+**Thread safety.**  One engine is shared by every request thread of a
+serving daemon: its memos (resolved fits, per-signature evaluators, fit
+diagnostics) and its counters are guarded by one lock, and evaluation
+itself is functional.  ``eval_calls`` counts batched evaluations and
+``trace_count`` the evaluators built, one per distinct model signature
+(the counterpart of the reference's jit trace).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+import threading
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+    Union,
+)
 
 import torch
 
@@ -35,6 +52,9 @@ class PredictEngine:
     def __init__(self, profile: MachineProfile):
         self.profile = profile
         self.eval_calls = 0
+        self.trace_count = 0
+        self._lock = threading.Lock()
+        self._evaluators: Dict[str, Callable] = {}
         self._fit_diag: Dict[str, Dict[str, Any]] = {}
         self._resolved: Dict[str, Tuple[ModelFit, Model]] = {}
 
@@ -53,8 +73,10 @@ class PredictEngine:
                     f"profile for {self.profile.fingerprint.id!r} carries "
                     f"fits {self.profile.fit_names} and none is the "
                     f"default {DEFAULT_MODEL!r}; pass model=<name>")
-        if name in self._resolved:
-            return name, *self._resolved[name]
+        with self._lock:
+            cached = self._resolved.get(name)
+        if cached is not None:
+            return name, *cached
         try:
             mf = self.profile.get_fit(name)
         except ProfileError as e:
@@ -66,7 +88,8 @@ class PredictEngine:
                 f"fit {name!r} lacks fitted values for parameter(s) "
                 f"{missing} of its own expression — the profile was "
                 f"edited or corrupted; recalibrate")
-        self._resolved[name] = (mf, m)
+        with self._lock:
+            self._resolved[name] = (mf, m)
         return name, mf, m
 
     def predict_rows(self, counts_rows: Sequence[FeatureCounts],
@@ -116,9 +139,10 @@ class PredictEngine:
         aligned = m.align(counts_rows)
         p_vec = torch.as_tensor([mf.params[n] for n in m.param_names],
                                 dtype=DTYPE)
-        parts = m.batched_breakdown(p_vec, torch.as_tensor(aligned,
-                                                           dtype=DTYPE))
-        self.eval_calls += 1
+        parts = self._evaluator(m)(p_vec, torch.as_tensor(aligned,
+                                                          dtype=DTYPE))
+        with self._lock:
+            self.eval_calls += 1
         preds = assemble_predictions(
             kernel_names=list(kernel_names),
             fit_name=fit_name,
@@ -132,9 +156,22 @@ class PredictEngine:
         )
         return preds, errors
 
+    def _evaluator(self, model: Model) -> Callable:
+        """The batched breakdown evaluator of ``model``, built once per
+        model signature (each build counts in ``trace_count``)."""
+        sig = model.signature()
+        with self._lock:
+            fn = self._evaluators.get(sig)
+            if fn is None:
+                fn = model.batched_breakdown
+                self._evaluators[sig] = fn
+                self.trace_count += 1
+        return fn
+
     def diagnostics_for(self, fit_name: str, mf: ModelFit, m: Model
                         ) -> Dict[str, Any]:
-        diag = self._fit_diag.get(fit_name)
+        with self._lock:
+            diag = self._fit_diag.get(fit_name)
         if diag is None:
             diag = {
                 "fingerprint": self.profile.fingerprint.id,
@@ -153,5 +190,6 @@ class PredictEngine:
                     diag["holdout_noise"] = holdout.noise_summary()
                 except ValueError:
                     pass        # holdout lacks this model's columns
-            self._fit_diag[fit_name] = diag
+            with self._lock:
+                self._fit_diag[fit_name] = diag
         return diag

@@ -16,6 +16,11 @@ nothing executes; memoized by content and persisted beside a measurement
 cache when the session has one) and every batch is one evaluation.
 ``session.timer.calls`` and ``session.engine.trace_count`` are the
 observables of those guarantees.
+
+Prediction is thread-safe: the predict engine and the count engine
+serialize internally, so one session is shared across every request
+thread of a serving daemon.  Opening and calibrating follow a
+single-writer convention.
 """
 from __future__ import annotations
 
@@ -80,6 +85,11 @@ class PerfSession:
     @property
     def eval_calls(self) -> int:
         return self.predict_engine.eval_calls
+
+    @property
+    def trace_count(self) -> int:
+        """Batched evaluators built, one per distinct model signature."""
+        return self.predict_engine.trace_count
 
     @classmethod
     def open(cls, source: Union[None, str, Path, MachineProfile, Any] = None,

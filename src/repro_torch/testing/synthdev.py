@@ -13,12 +13,10 @@ the port's :func:`~repro_torch.core.uipick.unit_hash`, the reference's
 definition — so for equal counts a synthetic device gives the port the
 timings it gives the reference, up to the reference's float32
 evaluation of the truth model (the port evaluates in float64).
-
-Not ported: ``SyntheticDevice.degraded`` (it serves the fleet health
-layer, ROADMAP queue A item 14).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Tuple
 
@@ -99,6 +97,23 @@ class SyntheticDevice:
         median = t * (1.0 + self.noise * u)
         return TimingStats(median=median, std=self.noise * t,
                            min=t * (1.0 - self.noise))
+
+    def degraded(self, factor: float) -> "SyntheticDevice":
+        """The same machine running ``factor``× slower than when it was
+        calibrated (thermal throttling, a sick memory stack): every rate
+        parameter scales by ``factor``, while the shape parameter
+        ``p_edge`` and the fingerprint stay put.  The unchanged
+        fingerprint is the point: the fleet health layer exists because
+        identity checks cannot see a machine whose behaviour drifted.  A
+        measurement cache warmed before the degradation must therefore
+        not serve a recalibration after it (pass ``cache=None``)."""
+        if not factor > 0.0:
+            raise ValueError(f"degradation factor must be positive, "
+                             f"got {factor}")
+        shape_params = {"p_edge"}
+        scaled = {p: (v if p in shape_params else v * factor)
+                  for p, v in self.p_true.items()}
+        return dataclasses.replace(self, p_true=scaled)
 
 
 # ---------------------------------------------------------------------------

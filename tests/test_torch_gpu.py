@@ -502,3 +502,59 @@ def test_section8_tune_and_warm_retune_on_card(cuda, tmp_path):
     assert all(tune_space(warm, space).warm for space in section8_spaces())
     assert (warm.timer.calls, warm.engine.trace_count,
             warm.eval_calls) == (0, 0, 0)
+
+
+@pytest.mark.gpu
+def test_daemon_serves_a_card_profile_without_timing_or_launching(cuda):
+    """A profile calibrated on the card (the smoke study tags, 2 trials)
+    served by a ``PredictionDaemon``: a held 16-request burst over the
+    eight hand-kernel targets (``meta`` tensors) is one batched
+    evaluation with zero timings and no hand-kernel launch."""
+    import json
+    import time
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.api.session import PerfSession
+    from repro_torch.kernels import stencil5
+    from repro_torch.serving import PredictionDaemon
+    from repro_torch.studies.zoo import STUDY_SMOKE_TAGS
+
+    calibrated = PerfSession.open(None, tags=STUDY_SMOKE_TAGS, trials=2)
+    assert calibrated.timer.calls > 0
+    session = PerfSession.open(calibrated.profile)
+    modules = (tmm, tfa, tssd, tsc, tdg, stencil5)
+    for m in modules:
+        m.launches = 0
+    for name in tmb.launches:
+        tmb.launches[name] = 0
+    d = PredictionDaemon(session, port=0, max_wait_s=0.001).start()
+    try:
+        names = sorted(d.targets)
+        assert len(names) == 8
+        d.batcher.hold()
+
+        def post(name):
+            req = urllib.request.Request(
+                f"{d.url}/predict", method="POST",
+                data=json.dumps({"kernel": name}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, json.loads(resp.read())
+
+        with ThreadPoolExecutor(max_workers=16) as pool:
+            futs = [pool.submit(post, names[i % 8]) for i in range(16)]
+            deadline = time.monotonic() + 30.0
+            while d.batcher.pending_count() < 16:
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+            d.batcher.release()
+            replies = [f.result(timeout=60) for f in futs]
+        stats = d.stats()
+    finally:
+        d.close()
+    assert all(s == 200 and b["seconds"] > 0 for s, b in replies)
+    assert stats["timings"] == 0 and stats["eval_calls"] == 1
+    assert stats["count_lookups"] == 8
+    assert [m.launches for m in modules] == [0] * len(modules)
+    assert not any(tmb.launches.values())
