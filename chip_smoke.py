@@ -24,6 +24,10 @@ Phases, each fatal on failure:
    the fault its design invites (the SSD's state one chunk late, the
    sLSTM's peers' h one step stale), which must fail the same check;
    attention logs the kv tiles it visits per layer against a full sweep;
+   ``dg_diff`` also at the DG node counts N = 10, 20, 35, 56 (M = 3,
+   K = 8192), which the kernel runs at its next instantiated width, each
+   against its plain version, and N = 56 timed beside N = 64 at K = 8192
+   and at the main path's K: one ``{"dg_diff_node_counts": ...}`` line;
 3. calibrate the default battery on the card through
    ``python -m repro_torch.calibrate`` (3 trials, one CUDA-graph replay
    per timing) into a temporary profile;
@@ -118,6 +122,17 @@ Phases, each fatal on failure:
    --recalibrate`` must exit 0, then ``studies.serve_bench`` (synthetic
    and phase 3's profile) and ``studies.fleet_bench``; one
    ``{"serving": ...}`` line.
+14. (after phase 13, before that ``kernels`` line) work removal and the
+   host benches (:func:`workremoval_path`): the battery kernel
+   ``matmul_sq`` (n 1024, f32, prefetch, tile 64) stripped of its first
+   operand by :func:`repro_torch.core.workremoval.remove_work` must
+   return Σb on the card and count 0 madds and only b's loads; it is
+   timed as a CUDA graph beside the unstripped kernel
+   (``MeasurementKernel.time_stats``); then ``python -m
+   repro_torch.studies.run calibration study predict counting`` runs in
+   process (host seconds; no ``.FAILED`` row, the batched fit within
+   1e-4 of the row-by-row reference).  One ``{"workremoval": ...}`` and
+   one ``{"benches": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -132,7 +147,8 @@ logged around phase 12's tuning (aten generators, no hand kernel) and
 set to 0 before its audit and read after it, which fails if the audit
 launched any; set to 0 before phase 13 and read after it, which fails
 if serving, routing or the card's recalibration (aten generators)
-launched any.  Without a
+launched any; and set to 0 before phase 14 and read after it, which
+fails if work removal or the benches launched any.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -166,6 +182,10 @@ MATMUL_SHAPES = [(128, 128, 128, 128, 128, 128),
 STENCIL_SHAPES = [(256, 256, 128, 128), (256, 512, 256, 256),
                   (128, 128, 64, 128)]
 DG_SHAPES = [(3, 64, 1024, 256), (1, 32, 512, 512)]
+# the DG node counts of tetrahedra of order 2-5 (paper §8.4), which the
+# kernel runs at its next instantiated width; M = 3, K = 8192
+DG_NODE_COUNTS = (10, 20, 35, 56)
+DG_NODE_SHAPE = (3, 8192)
 
 STREAM_SHAPES = [(8192, 256, stride, n_arrays) for stride in (1, 2, 4)
                  for n_arrays in (1, 3)] + [
@@ -234,6 +254,10 @@ REAL_ATTN_F32_TOL = dict(TOL["bfloat16"], row_rtol=1e-2)
 FIGURE_KERNELS = {"fig1": 6, "fig2": 6, "fig5": 7, "fig7": 4, "fig8": 8,
                   "fig9": 4, "table3": 0}
 FIGURE_TRIALS = 3
+
+# phase 14: the stripped battery kernel (matmul_sq, prefetch, tile 64)
+WR_N = 1024
+WR_TRIALS = 20
 
 
 def log(msg: str) -> None:
@@ -437,6 +461,38 @@ def check_kernels(ops, ref, dev) -> dict:
         f"{REAL_MATMUL_TOL}, madd_throughput {REAL_MADD_TOL}, others "
         f"{TOL['float32']})")
     return errs
+
+
+def check_dg_node_counts(ops, ref, dev) -> dict:
+    """``dg_diff`` at the DG node counts between its instantiated widths,
+    each against its plain version (f32 tolerance); then N = 56 timed
+    beside N = 64 with :func:`time_ms`, at M = 3 and K = 8192 and at the
+    main path's K.  Returns each N's max |err| and the times, with the
+    bound of each timed shape."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    mm_, kk = DG_NODE_SHAPE
+    out = {"max_abs_err": {}, "ms": {}, "bound_ms": {}}
+    for nn in DG_NODE_COUNTS:
+        d, ut = randn(rng, mm_, nn, nn).to(dev), randn(rng, nn, kk).to(dev)
+        err = verify(ops.dg_diff, ref.dg_diff_ref, (d, ut), **TOL["float32"])
+        out["max_abs_err"][nn] = err
+        log(f"dg_diff at N = {nn} {(mm_, nn, kk)}: max|err| {err:.3g} "
+            f"({TOL['float32']})")
+    for k in (kk, REAL_DG[2]):
+        for nn in (56, 64):
+            d, ut = randn(rng, mm_, nn, nn).to(dev), \
+                randn(rng, nn, k).to(dev)
+            ms = time_ms(ops.dg_diff, d, ut)
+            bound = max(2 * mm_ * nn * nn * k / PEAK_F32_FLOPS,
+                        4 * (mm_ * nn * nn + nn * k + mm_ * nn * k)
+                        / PEAK_HBM_BYTES) * 1e3
+            key = f"N{nn}_K{k}"
+            out["ms"][key], out["bound_ms"][key] = ms, bound
+            log(f"dg_diff {(mm_, nn, k)}: {ms:.4g} ms (bound {bound:.4g} "
+                f"ms)")
+            del d, ut
+    return out
 
 
 def model_layer_sizes(configs) -> dict:
@@ -1414,6 +1470,78 @@ def measured_ms(measured, name) -> float:
     return measured[name]["ms"]
 
 
+def workremoval_path(uipick, remove_work, count_fn, run_main, dev) -> dict:
+    """Phase 14: work removal and the four host benches.  The battery
+    kernel ``matmul_sq`` (n 1024, f32, prefetch, tile 64) stripped of its
+    first operand: its value on the card must be Σb (float64) within
+    1e-5 of Σ|b| (f32 sums of 16 panels of 65536), its counts 0 madds and
+    the contiguous loads of b alone (n², against 2n² unstripped); both
+    kernels are timed as CUDA graphs through
+    ``MeasurementKernel.time_stats``.  Then ``studies.run calibration
+    study predict counting`` in process; a ``.FAILED`` row fails the
+    phase.  Returns the numbers and the bench rows."""
+    import torch
+    (kern,) = uipick.KernelCollection(uipick.ALL_GENERATORS) \
+        .generate_kernels(["matmul_sq", f"n:{WR_N}", "dtype:float32",
+                           "prefetch:True", "tile:64"])
+    args = kern.make_args(dev)
+    stripped = remove_work(kern.fn, *args, remove_args=(0,))
+    value = float(stripped(*args))
+    want = float(args[1].double().sum())
+    room = 1e-5 * float(args[1].double().abs().sum())
+    log(f"stripped {kern.name}: {value!r} against Σb {want!r} "
+        f"(|diff| {abs(value - want):.3g}, room {room:.3g})")
+    if not abs(value - want) <= room:
+        raise SystemExit(f"stripped {kern.name} returned {value}, Σb is "
+                         f"{want}")
+    meta = kern.make_args("meta")
+    cs, co = count_fn(stripped, *meta), count_fn(kern.fn, *meta)
+    n2 = WR_N * WR_N
+    if cs["f_op_float32_madd"] != 0 or \
+            cs["f_mem_contig_float32_load"] != n2 or \
+            co["f_mem_contig_float32_load"] != 2 * n2:
+        raise SystemExit(f"stripped counts {dict(cs)} against "
+                         f"{dict(co)}")
+    log(f"stripped counts: madd {cs['f_op_float32_madd']:.0f} (was "
+        f"{co['f_op_float32_madd']:.0f}), contiguous f32 loads "
+        f"{cs['f_mem_contig_float32_load']:.0f} (was "
+        f"{co['f_mem_contig_float32_load']:.0f})")
+    strip_kernel = uipick.MeasurementKernel(
+        name=f"{kern.name}_stripped", fn=stripped, make_args=kern.make_args,
+        tags=dict(kern.tags))
+    del args
+    times = {}
+    for label, k in (("unstripped", kern), ("stripped", strip_kernel),
+                     ("unstripped again", kern)):
+        st = k.time_stats(trials=WR_TRIALS, device=dev)
+        times.setdefault(label.split()[0], []).append(st.to_dict())
+        log(f"{label} {kern.name} as a CUDA graph: median "
+            f"{st.median * 1e3:.4g} ms, min {st.min * 1e3:.4g} ms, std "
+            f"{st.std * 1e3:.3g} ms ({WR_TRIALS} trials)")
+    rc, text, seconds = echo_run(
+        run_main, ["calibration", "study", "predict", "counting"])
+    rows = {}
+    for line in text.splitlines()[1:]:
+        name, us, derived = line.split(",", 2)
+        rows[name] = {"us_per_call": float(us), "derived": derived}
+    failed = [n for n in rows if n.endswith(".FAILED")]
+    if rc != 0 or failed or len(rows) < 4 * 2:
+        raise SystemExit(f"studies.run exited {rc}, failed {failed}")
+    log(f"benches took {seconds:.1f} s; the row-by-row reference fit "
+        f"{rows['calibration.fit64x3_reference']['us_per_call'] / 1e6:.3f}"
+        f" s, param_max_rel_diff "
+        f"{rows['calibration.param_max_rel_diff']['us_per_call']:.3g}")
+    if not rows["calibration.param_max_rel_diff"]["us_per_call"] < 1e-4:
+        raise SystemExit("the batched fit disagrees with the reference "
+                         "engine")
+    return {"workremoval": {
+        "kernel": kern.name, "value": value, "sum_b": want,
+        "abs_diff": abs(value - want), "room": room,
+        "counts_stripped": dict(cs), "counts_unstripped": dict(co),
+        "time_stats": times},
+        "benches": {"rows": rows, "seconds": seconds}}
+
+
 def serving_path(serve_main, fleet_main, FleetRouter, studies, synthdev,
                  save_profile, serve_bench, fleet_bench, load_profile,
                  items, measured, profile_path, tmp) -> dict:
@@ -1667,6 +1795,9 @@ def main() -> int:
     from repro_torch.serving.cli import main as serve_main
     from repro_torch.studies import fleet_bench, serve_bench
     from repro_torch.testing import synthdev
+    from repro_torch.core.counting import count_fn
+    from repro_torch.core.workremoval import remove_work
+    from repro_torch.studies.run import main as run_main
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1696,6 +1827,8 @@ def main() -> int:
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     errs = check_kernels(ops, ref, dev)
+    print(json.dumps({"dg_diff_node_counts": check_dg_node_counts(
+        ops, ref, dev)}), flush=True)
     sizes = model_layer_sizes(configs)
     log(f"model-layer real sizes (port configs): {sizes}")
     errs.update(check_model_kernels(ops, ref, variants, dev, sizes))
@@ -1938,6 +2071,20 @@ def main() -> int:
         raise SystemExit(f"serving or routing launched a hand kernel: "
                          f"{serving_launches}")
     print(json.dumps({"serving": serving}), flush=True)
+
+    # ---- 14. work removal and the host benches -------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    phase14 = workremoval_path(uipick, remove_work, count_fn, run_main, dev)
+    wr_launches = counts()
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s; hand-kernel "
+        f"launches during it: {wr_launches}")
+    if any(wr_launches.values()):
+        raise SystemExit(f"work removal or the benches launched a hand "
+                         f"kernel: {wr_launches}")
+    phase14["workremoval"]["launches"] = wr_launches
+    print(json.dumps({"workremoval": phase14["workremoval"]}), flush=True)
+    print(json.dumps({"benches": phase14["benches"]}), flush=True)
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",

@@ -73,6 +73,7 @@ _EXPORTS = {
     # fleet
     "FleetRouter": "repro_torch.fleet",
     "FleetHealth": "repro_torch.fleet",
+    "RoutingDecision": "repro_torch.fleet",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -47,6 +47,7 @@ from repro_torch.profiles.cache import MeasurementCache
 from repro_torch.profiles.fingerprint import DeviceFingerprint
 from repro_torch.profiles.profile import (
     MachineProfile,
+    ProfileError,
     load_profile,
     save_profile,
 )
@@ -95,6 +96,8 @@ class PerfSession:
     def open(cls, source: Union[None, str, Path, MachineProfile, Any] = None,
              *, tags: Optional[Sequence[str]] = None, trials: int = 8,
              cache: Union[None, str, Path, MeasurementCache] = None,
+             expected_fingerprint: Union[None, str,
+                                         DeviceFingerprint] = None,
              holdout_fraction: float = 0.25,
              retime_rel_std: Optional[float] = None,
              timer: Optional[Callable] = None,
@@ -107,6 +110,9 @@ class PerfSession:
         * a **path** or a :class:`MachineProfile` — zero measurements
           (``timer``, when given, is what a later confirmation timing
           such as :func:`repro_torch.tuning.tune_space` runs through);
+          with ``expected_fingerprint`` (a fingerprint, or ``"local"``
+          for ``device``'s) a profile of another machine raises
+          :class:`~repro_torch.profiles.ProfileError`;
         * ``None`` — calibrate THIS machine on demand: the model-zoo study
           (:func:`repro_torch.studies.run_study`: gather ``tags``, default
           ``STUDY_TAGS``, fit the zoo, keep a holdout) timed on
@@ -122,9 +128,17 @@ class PerfSession:
         an on-demand calibration as a profile file.  The session's
         ``timer`` is the calibration's: its ``calls`` count the study's
         timings, and prediction adds none."""
+        if expected_fingerprint == "local":
+            expected_fingerprint = DeviceFingerprint.local(device)
         if isinstance(source, (str, Path)):
-            source = load_profile(source)
+            profile = load_profile(source,
+                                   expected_fingerprint=expected_fingerprint)
+            return cls(profile, cache=_as_cache(cache, profile.fingerprint),
+                       timer=timer, engine=engine,
+                       calibration={"source": f"profile:{source}",
+                                    "timings": 0, "retimed": 0})
         if isinstance(source, MachineProfile):
+            _check_fingerprint(source, expected_fingerprint)
             return cls(source, cache=_as_cache(cache, source.fingerprint),
                        timer=timer, engine=engine,
                        calibration={"source": "profile", "timings": 0,
@@ -327,6 +341,8 @@ def _item_identity(item: PredictItem, idx: int
             f"got {type(item).__name__}")
     kname = getattr(fn, "__name__", None) or getattr(
         getattr(fn, "func", None), "__name__", "kernel")
+    if kname == "<lambda>":
+        kname = "kernel"
     sig = callable_signature(fn)
     key = ("fn", sig or f"obj:{id(fn)}", args_signature(args))
     return f"{kname}[{idx}]", key, sig
@@ -336,6 +352,15 @@ def _as_counting_timer(timer) -> CountingTimer:
     if isinstance(timer, CountingTimer):
         return timer
     return CountingTimer(timer) if timer is not None else CountingTimer()
+
+
+def _check_fingerprint(profile: MachineProfile,
+                       expected: Optional[DeviceFingerprint]) -> None:
+    if expected is not None and profile.fingerprint != expected:
+        raise ProfileError(
+            f"profile was calibrated on {profile.fingerprint.id!r} but "
+            f"{expected.id!r} was required; recalibrate with "
+            f"`python -m repro_torch.calibrate`")
 
 
 def _as_cache(cache, fingerprint) -> Optional[MeasurementCache]:

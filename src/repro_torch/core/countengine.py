@@ -220,6 +220,11 @@ def _state_digest(value: Any, depth: int, seen: frozenset,
             return None
         return (f"{arr.dtype}[{','.join(map(str, arr.shape))}]:"
                 f"{hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:12]}")
+    if value is counting.counted_range or value is counting.counted_loop:
+        # the loop helpers read the counter's ContextVar through their
+        # globals: they sign as the counter itself, so an edit to it
+        # still turns every count of a kernel that loops into a miss
+        return f"counter:{value.__name__}:{_counter_signature()}"
     if callable(value):
         if id(value) in seen:
             # a cycle (a self-recursive closure): the callable's own

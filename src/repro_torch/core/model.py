@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import overlap as _ovl
+from repro_torch.deprecation import warn_once
 
 DTYPE = torch.float64
 
@@ -149,6 +150,17 @@ class FeatureTable:
         if j is None:
             return np.zeros((len(self),), np.float64)
         return self.values[:, j]
+
+    def row(self, i: int) -> Dict[str, float]:
+        """Row ``i`` as a feature → value dict, its kernel under
+        ``"_kernel"``."""
+        d = {f: float(self.values[i, j]) for f, j in self._col.items()}
+        d["_kernel"] = self.row_names[i]
+        return d
+
+    def rows(self) -> List[Dict[str, float]]:
+        """Dict-per-row view (the reference's compatibility API)."""
+        return [self.row(i) for i in range(len(self))]
 
     @classmethod
     def from_rows(cls, rows: Sequence[Mapping[str, float]]) -> "FeatureTable":
@@ -282,6 +294,32 @@ class Model:
                 if k not in known and not k.startswith("_") and float(v)}
 
     # -- evaluation ---------------------------------------------------------
+    def _eval(self, env: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The expression over ``env`` (every parameter and feature name
+        bound to a tensor or number)."""
+        return eval(self._code, {"__builtins__": {}}, {**_FUNCS, **env})
+
+    def evaluate(self, param_values: Mapping[str, float],
+                 feature_values: Mapping[str, float]) -> torch.Tensor:
+        """One prediction from named parameters and features (absent
+        features read as 0), as a float64 scalar tensor."""
+        env = {n: torch.as_tensor(param_values[n], dtype=DTYPE)
+               for n in self.param_names}
+        env.update({n: torch.as_tensor(float(feature_values.get(n, 0.0)),
+                                       dtype=DTYPE)
+                    for n in self.feature_names})
+        return self._eval(env)
+
+    def eval_with_counts(self, param_values: Mapping[str, float],
+                         counts: Mapping[str, float]) -> float:
+        """Deprecated: use :meth:`align` + :meth:`batched_eval`, or the
+        :class:`repro_torch.api.PerfSession` facade."""
+        warn_once(
+            "Model.eval_with_counts",
+            "Model.eval_with_counts is deprecated; use Model.align + "
+            "Model.batched_eval, or repro_torch.api.PerfSession.predict")
+        return float(self.evaluate(param_values, counts))
+
     def _env(self, p_vec: torch.Tensor, features: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
         env = {n: p_vec[i] for i, n in enumerate(self.param_names)}
@@ -293,9 +331,8 @@ class Model:
                      ) -> torch.Tensor:
         """``features`` ``[n_rows, n_features]`` (columns as
         ``self.feature_names``) → ``[n_rows]`` predictions."""
-        out = eval(self._code, {"__builtins__": {}},
-                   {**_FUNCS, **self._env(p_vec, features)})
-        return _rows(out, features.shape[0])
+        return _rows(self._eval(self._env(p_vec, features)),
+                     features.shape[0])
 
     def param_feature_map(self) -> Dict[str, List[str]]:
         """Parameter name → the sorted features appearing in the same

@@ -44,6 +44,7 @@ from repro_torch.core.counting import (
     counted_range,
 )
 from repro_torch.core.model import FeatureTable
+from repro_torch.deprecation import warn_once
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -503,6 +504,23 @@ def gather_feature_table(
                          row_noise)
     table.retimed_rows = retimed
     return table
+
+
+def gather_feature_values(
+    features: Sequence[str],
+    kernels: Sequence[MeasurementKernel],
+    *,
+    trials: int = 20,
+    timer: Optional[Callable[[MeasurementKernel, int], TimerResult]] = None,
+    cache: Optional[Any] = None,
+) -> List[Dict[str, float]]:
+    """Deprecated dict-per-row view of :func:`gather_feature_table`."""
+    warn_once(
+        "gather_feature_values",
+        "gather_feature_values is deprecated; use "
+        "gather_feature_table(...).rows() (or the FeatureTable directly)")
+    return gather_feature_table(features, kernels, trials=trials,
+                                timer=timer, cache=cache).rows()
 
 
 def unit_hash(*parts: object) -> float:

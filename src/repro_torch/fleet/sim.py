@@ -34,9 +34,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
     Tuple
 
-import torch
-
-from repro_torch.core.model import DTYPE
 from repro_torch.core.uipick import (
     ALL_GENERATORS,
     KernelCollection,
@@ -125,15 +122,13 @@ def _truth_law(device: SyntheticDevice) -> Callable[[MeasurementKernel],
     built once and each kernel's time evaluated once (a
     :meth:`SyntheticDevice.true_time` call builds a fresh model)."""
     model = device.truth_model()
-    p_vec = torch.as_tensor([device.p_true[n] for n in model.param_names],
-                            dtype=DTYPE)
     memo: Dict[str, float] = {}
 
     def law(kernel: MeasurementKernel) -> float:
         t = memo.get(kernel.name)
         if t is None:
-            F = torch.as_tensor(model.align(kernel.counts()), dtype=DTYPE)
-            t = memo[kernel.name] = float(model.batched_eval(p_vec, F)[0])
+            t = memo[kernel.name] = float(
+                model.evaluate(device.p_true, kernel.counts()))
         return t
 
     return law

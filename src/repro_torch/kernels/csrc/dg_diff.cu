@@ -33,6 +33,15 @@
 // The last slab is masked when E does not divide K; when K % 4 != 0 or a
 // pointer is not 16-byte aligned the same kernel copies and stores one
 // float at a time.
+//
+// Any N <= 64: the kernel is instantiated at the widths W = 8, 16, 32, 64
+// and an N between them (the DG node counts 10, 20, 35, 56) runs at the
+// next W with N as a runtime bound: only the N rows of ut are copied, the
+// j loop stops at N, and output rows i >= N are computed in registers and
+// never stored.  D_m is read with its own row stride N (float4 reads only
+// when N % 4 == 0).  Nothing is padded on the host.  N equal to its width
+// takes an instantiation with N a compile-time constant (kFull), so the
+// widths themselves keep their fully unrolled loops.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -50,17 +59,17 @@ constexpr int kChunks = 4;         // commit groups the slab arrives in
 constexpr int kBlocksPerSM = 4;
 constexpr int kBlocksPerSMOneFloat = 2;
 
-template <int N>
+template <int W>
 struct Tile {
-  static constexpr int E = kSlabFloats / N;          // slab width
-  static constexpr int IG = N / kTile;               // row groups
+  static constexpr int E = kSlabFloats / W;          // slab width
+  static constexpr int IG = W / kTile;               // row groups
   static constexpr int EG = E / kTile;               // element groups
   static constexpr int IGW = IG < 4 ? IG : 4;        // row groups a warp spans
   static constexpr int EGW = 32 / IGW;               // element groups a warp spans
   static constexpr int WI = IG / IGW;                // warps along i
   static_assert(IG * EG == kThreads, "one tile per thread");
   static_assert(kThreads / 32 / WI * EGW == EG, "warps cover the slab");
-  static_assert(N % kChunks == 0, "whole rows per commit group");
+  static_assert(W % kChunks == 0, "whole rows per commit group");
   static_assert(kSlabFloats / kChunks % (4 * kThreads) == 0,
                 "every thread copies whole 16-byte pieces of a group");
 };
@@ -90,47 +99,53 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 }
 static_assert(kChunks <= 4, "cp_async_wait covers up to 3 pending groups");
 
-// D_m (row-major N × N) into dt transposed, dt[j·N + i] = D_m[i][j].
-// Consecutive threads take consecutive i, so the stores hit consecutive
-// banks; the reads come from L2 (D is 16 KB a matrix at N = 64).
-template <int N, bool kVec>
+// D_m (row-major n × n) into dt transposed, dt[j·W + i] = D_m[i][j] for
+// i, j < n.  Consecutive threads take consecutive i, so the stores hit
+// consecutive banks; the reads come from L2 (D is 16 KB a matrix at
+// n = 64).
+template <int W, bool kVec>
 __device__ __forceinline__ void stage_d(float* dt,
-                                        const float* __restrict__ dm) {
-  if constexpr (kVec) {
-    for (int q = threadIdx.x; q < N * N / 4; q += kThreads) {
-      const int i = q % N, j = q / N * 4;
-      const float4 v = __ldg(reinterpret_cast<const float4*>(dm + i * N + j));
-      dt[(j + 0) * N + i] = v.x;
-      dt[(j + 1) * N + i] = v.y;
-      dt[(j + 2) * N + i] = v.z;
-      dt[(j + 3) * N + i] = v.w;
+                                        const float* __restrict__ dm,
+                                        int n) {
+  if (kVec && n % 4 == 0) {
+    for (int q = threadIdx.x; q < n * n / 4; q += kThreads) {
+      const int i = q % n, j = q / n * 4;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(dm + i * n + j));
+      dt[(j + 0) * W + i] = v.x;
+      dt[(j + 1) * W + i] = v.y;
+      dt[(j + 2) * W + i] = v.z;
+      dt[(j + 3) * W + i] = v.w;
     }
   } else {
-    for (int q = threadIdx.x; q < N * N; q += kThreads) {
-      const int i = q % N, j = q / N;
-      dt[j * N + i] = __ldg(dm + i * N + j);
+    for (int q = threadIdx.x; q < n * n; q += kThreads) {
+      const int i = q % n, j = q / n;
+      dt[j * W + i] = __ldg(dm + i * n + j);
     }
   }
 }
 
 // kVec: K % 4 == 0 and every pointer 16-byte aligned (16-byte copies and
-// float4 stores); otherwise one float at a time.
-template <int N, bool kVec>
+// float4 stores); otherwise one float at a time.  W is the instantiated
+// width, n_nodes <= W the node count; kFull: n_nodes == W.
+template <int W, bool kVec, bool kFull>
 __global__ void __launch_bounds__(kThreads,
                                   kVec ? kBlocksPerSM : kBlocksPerSMOneFloat)
 dg_diff_kernel(const float* __restrict__ d, const float* __restrict__ ut,
-               float* __restrict__ out, int n_mats, int k_dim) {
-  using T = Tile<N>;
-  constexpr int kChunkRows = N / kChunks;
+               float* __restrict__ out, int n_mats, int n_nodes,
+               int k_dim) {
+  using T = Tile<W>;
+  const int n = kFull ? W : n_nodes;
+  constexpr int kChunkRows = W / kChunks;
   constexpr int kHalf = kTile / 2;
   __shared__ __align__(16) float us[kSlabFloats];  // us[j·E + c] = ut[j][e0 + c]
-  __shared__ __align__(16) float dt[N * N];        // dt[j·N + i] = D_m[i][j]
+  __shared__ __align__(16) float dt[W * W];        // dt[j·W + i] = D_m[i][j]
   const int tid = threadIdx.x;
   const int e0 = blockIdx.x * T::E;
   const int valid = min(T::E, k_dim - e0);   // elements of this slab in K
 
   // the slab, one commit group per kChunkRows rows: 2048 floats a group,
-  // 4 16-byte copies (or 16 4-byte ones) a thread
+  // 4 16-byte copies (or 16 4-byte ones) a thread; rows >= n are not
+  // copied (the j loop never reads them)
 #pragma unroll 1
   for (int c = 0; c < kChunks; ++c) {
     if constexpr (kVec) {
@@ -140,7 +155,7 @@ dg_diff_kernel(const float* __restrict__ d, const float* __restrict__ ut,
         const int p = tid + q * kThreads;
         const int r = c * kChunkRows + p / (T::E / 4);
         const int col = p % (T::E / 4) * 4;
-        if (col < valid)
+        if (col < valid && (kFull || r < n))
           cp_async16(&us[r * T::E + col], ut + (size_t)r * k_dim + e0 + col);
       }
     } else {
@@ -150,14 +165,14 @@ dg_diff_kernel(const float* __restrict__ d, const float* __restrict__ ut,
         const int p = tid + q * kThreads;
         const int r = c * kChunkRows + p / T::E;
         const int col = p % T::E;
-        if (col < valid)
+        if (col < valid && (kFull || r < n))
           cp_async4(&us[r * T::E + col], ut + (size_t)r * k_dim + e0 + col);
       }
     }
     cp_async_commit();
   }
 
-  // this thread's rows i0 + r and N/2 + i0 + r, elements c0 + c and
+  // this thread's rows i0 + r and W/2 + i0 + r, elements c0 + c and
   // E/2 + c0 + c (r, c < 4)
   const int warp = tid / 32, lane = tid % 32;
   const int i0 = ((warp % T::WI) * T::IGW + lane / T::EGW) * kHalf;
@@ -165,7 +180,7 @@ dg_diff_kernel(const float* __restrict__ d, const float* __restrict__ ut,
 
   for (int m = 0; m < n_mats; ++m) {
     if (m > 0) __syncthreads();   // every thread is done with D_{m-1}
-    stage_d<N, kVec>(dt, d + (size_t)m * N * N);
+    stage_d<W, kVec>(dt, d + (size_t)m * n * n, n);
     float acc[kTile][kTile];
 #pragma unroll
     for (int r = 0; r < kTile; ++r)
@@ -177,12 +192,14 @@ dg_diff_kernel(const float* __restrict__ d, const float* __restrict__ ut,
       // also publishes D_m
       if (m == 0) cp_async_wait(kChunks - 1 - c);
       if (m == 0 || c == 0) __syncthreads();
+      const int j_end =
+          kFull ? (c + 1) * kChunkRows : min((c + 1) * kChunkRows, n);
 #pragma unroll 4
-      for (int j = c * kChunkRows; j < (c + 1) * kChunkRows; ++j) {
-        const float* dj = &dt[j * N + i0];
+      for (int j = c * kChunkRows; j < j_end; ++j) {
+        const float* dj = &dt[j * W + i0];
         const float* uj = &us[j * T::E + c0];
         const float4 da = *reinterpret_cast<const float4*>(dj);
-        const float4 db = *reinterpret_cast<const float4*>(dj + N / 2);
+        const float4 db = *reinterpret_cast<const float4*>(dj + W / 2);
         const float4 ua = *reinterpret_cast<const float4*>(uj);
         const float4 ub = *reinterpret_cast<const float4*>(uj + T::E / 2);
         const float dv[kTile] = {da.x, da.y, da.z, da.w,
@@ -198,8 +215,9 @@ dg_diff_kernel(const float* __restrict__ d, const float* __restrict__ ut,
     }
 #pragma unroll
     for (int r = 0; r < kTile; ++r) {
-      const int row = r < kHalf ? i0 + r : N / 2 + i0 + r - kHalf;
-      float* o = out + ((size_t)m * N + row) * k_dim + e0;
+      const int row = r < kHalf ? i0 + r : W / 2 + i0 + r - kHalf;
+      if (!kFull && row >= n) continue;
+      float* o = out + ((size_t)m * n + row) * k_dim + e0;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = c0 + h * (T::E / 2);
@@ -219,36 +237,45 @@ dg_diff_kernel(const float* __restrict__ d, const float* __restrict__ ut,
   }
 }
 
-template <int N>
-int launch(const void* d, const void* ut, void* out, int m, int k,
+template <int W, bool kFull>
+void launch_as(const void* d, const void* ut, void* out, int m, int n, int k,
+               bool vec, cudaStream_t stream) {
+  const int slabs = (k + Tile<W>::E - 1) / Tile<W>::E;
+  if (vec) {
+    dg_diff_kernel<W, true, kFull><<<slabs, kThreads, 0, stream>>>(
+        (const float*)d, (const float*)ut, (float*)out, m, n, k);
+  } else {
+    dg_diff_kernel<W, false, kFull><<<slabs, kThreads, 0, stream>>>(
+        (const float*)d, (const float*)ut, (float*)out, m, n, k);
+  }
+}
+
+template <int W>
+int launch(const void* d, const void* ut, void* out, int m, int n, int k,
            cudaStream_t stream) {
-  const int slabs = (k + Tile<N>::E - 1) / Tile<N>::E;
   const bool vec = k % 4 == 0 &&
       ((uintptr_t)d | (uintptr_t)ut | (uintptr_t)out) % 16 == 0;
-  if (vec) {
-    dg_diff_kernel<N, true><<<slabs, kThreads, 0, stream>>>(
-        (const float*)d, (const float*)ut, (float*)out, m, k);
+  if (n == W) {
+    launch_as<W, true>(d, ut, out, m, n, k, vec, stream);
   } else {
-    dg_diff_kernel<N, false><<<slabs, kThreads, 0, stream>>>(
-        (const float*)d, (const float*)ut, (float*)out, m, k);
+    launch_as<W, false>(d, ut, out, m, n, k, vec, stream);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// d [m, n, n], ut [n, k], out [m, n, k], all contiguous f32; n must be one
-// of 8, 16, 32, 64 (the wrapper checks).  One block per slab of
-// 8192 / n elements.
+// d [m, n, n], ut [n, k], out [m, n, k], all contiguous f32; 1 <= n <= 64
+// (the wrapper checks), run at the width 8, 16, 32 or 64 at or above n.
+// One block per slab of 8192 / width elements.
 extern "C" int repro_dg_diff_f32(const void* d, const void* ut, void* out,
                                  int m, int n, int k, void* stream) {
   if (m == 0 || k == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (n) {
-    case 8: return launch<8>(d, ut, out, m, k, s);
-    case 16: return launch<16>(d, ut, out, m, k, s);
-    case 32: return launch<32>(d, ut, out, m, k, s);
-    case 64: return launch<64>(d, ut, out, m, k, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (n <= 8) return launch<8>(d, ut, out, m, n, k, s);
+  if (n <= 16) return launch<16>(d, ut, out, m, n, k, s);
+  if (n <= 32) return launch<32>(d, ut, out, m, n, k, s);
+  if (n <= 64) return launch<64>(d, ut, out, m, n, k, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,9 @@
 
 ``dg_diff_cuda`` launches ``csrc/dg_diff.cu`` on CUDA tensors; the
 custom op ``repro_torch::dg_diff`` runs the plain version on CPU tensors
-and gives the counter its fake impl.  The CUDA grid is the
+and gives the counter its fake impl.  The kernel takes any N ≤ 64: it is
+instantiated at the widths :data:`WIDTHS` and runs an N between them at
+the next width, masking rows and columns ≥ N.  The CUDA grid is the
 kernel's own: one block per slab of ``slab_width(N)`` elements stages
 its ``SLAB_FLOATS`` floats of ut in shared memory once and computes all
 M outputs of the slab, walking m with D_m staged beside it, whatever
@@ -21,17 +23,27 @@ from repro_torch.kernels.ref import dg_diff_ref
 #: launches of the CUDA kernel in this process
 launches = 0
 
-#: unit-node counts the CUDA kernel is instantiated for
-SUPPORTED_N = (8, 16, 32, 64)
+#: unit-node counts the CUDA kernel is instantiated for; any N up to the
+#: last runs at the first width at or above it
+WIDTHS = (8, 16, 32, 64)
 
 #: floats of ut one CUDA block stages (N rows × its slab width;
 #: kSlabFloats in the source)
 SLAB_FLOATS = 8192
 
 
+def width(n: int) -> int:
+    """The instantiated width the kernel runs N = ``n`` at (W in the
+    source)."""
+    for w in WIDTHS:
+        if n <= w:
+            return w
+    raise ValueError(f"dg_diff kernel takes N <= {WIDTHS[-1]}, got {n}")
+
+
 def slab_width(n: int) -> int:
     """Elements of one CUDA block's slab at N = ``n`` (E in the source)."""
-    return SLAB_FLOATS // n
+    return SLAB_FLOATS // width(n)
 
 
 @torch.library.custom_op("repro_torch::dg_diff", mutates_args=(),
@@ -55,8 +67,8 @@ def dg_diff_cuda(diff_mat: torch.Tensor, ut: torch.Tensor,
     if not (n == n2 == n3) or k % block_e:
         raise ValueError(f"dg_diff: shapes {tuple(diff_mat.shape)}, "
                          f"{tuple(ut.shape)} with block_e={block_e}")
-    if n not in SUPPORTED_N:
-        raise ValueError(f"dg_diff kernel supports N in {SUPPORTED_N}, "
+    if not 1 <= n <= WIDTHS[-1]:
+        raise ValueError(f"dg_diff kernel takes 1 <= N <= {WIDTHS[-1]}, "
                          f"got {n}")
     if not (diff_mat.is_contiguous() and ut.is_contiguous()):
         raise ValueError("dg_diff takes contiguous operands")

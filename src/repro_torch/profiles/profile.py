@@ -194,6 +194,18 @@ class MachineProfile:
                 f"the model you want to predict with")
         return self.fits[name]
 
+    def fit_for(self, model: Model) -> ModelFit:
+        """The stored fit matching ``model`` (by content signature); none
+        raises :class:`ProfileError` naming the fits the profile has."""
+        sig = model.signature()
+        for mf in self.fits.values():
+            if mf.signature == sig:
+                return mf
+        have = {name: mf.output_feature for name, mf in self.fits.items()}
+        raise ProfileError(
+            f"profile has no fit for model {model.output_feature!r} "
+            f"(signature {sig}); stored fits: {have}")
+
     def to_dict(self) -> Dict[str, Any]:
         out = {
             "schema_version": self.schema_version,

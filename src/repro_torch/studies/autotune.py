@@ -83,7 +83,7 @@ class _SpentTimer:
         return res
 
 
-def autotune(profile: MachineProfile, *, trials: int,
+def autotune(profile: MachineProfile, *, trials: int = 8,
              model: str = "base", device: DeviceLike = "cuda",
              timer: Optional[Callable] = None) -> Dict[str, Any]:
     """The pruned search and the exhaustive baseline of each §8 space,

@@ -400,19 +400,28 @@ def test_plain_closure_over_scalars_is_clean():
 
 
 def test_counted_loop_helpers_make_a_kernel_unsignable():
-    """A kernel looping with ``counted_range`` reaches the counter's
-    active-counts ContextVar through that helper's globals: the engine
-    signs it ``""`` (ROADMAP queue C).  Generator kernels are stored by
-    their generator's source signature instead, so only bare callables
-    pay for it."""
-    from repro_torch.core.counting import counted_range
+    """A kernel looping with ``counted_range`` or ``counted_loop`` reaches
+    the counter's active-counts ContextVar through that helper's
+    globals.  The helpers once made it unsignable; they now sign as the
+    counter itself, so the kernel signs and the audit finds nothing,
+    while a ContextVar the kernel captures itself still leaves it
+    unsignable."""
+    import contextvars
+
+    from repro_torch.core.counting import counted_loop, counted_range
 
     def kern(x):
         for _ in counted_range(2):
             x = x + 1.0
-        return x
+        return counted_loop(2, lambda i, y: y * 2.0, x)
 
-    diags = audit_signature(kern, "kernel:loop")
+    assert audit_signature(kern, "kernel:loop") == []
+    var = contextvars.ContextVar("state", default=None)
+
+    def own(x):
+        return x if var.get() is None else x + 1.0
+
+    diags = audit_signature(own, "kernel:own")
     assert _codes(diags) == ["unsignable-callable"]
     assert "ContextVar" in diags[0].details["reasons"][0]
 

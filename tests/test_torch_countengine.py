@@ -773,3 +773,78 @@ def test_signatures_and_store_are_stable_across_processes(tmp_path):
     here = [callable_signature(t.fn) for t in kernel_targets()]
     assert runs[0][0] == runs[1][0] == here and all(here)
     assert runs[0][1] == len(here) and runs[1][1] == 0
+
+
+# ---------------------------------------------------------------------------
+# the loop helpers sign by the counter's own signature
+# ---------------------------------------------------------------------------
+
+#: the generators whose kernels loop with counted_range / counted_loop
+LOOPING_GENERATORS = ("flops_dot_pattern", "flops_madd_pattern",
+                      "matmul_sq", "onchip_pattern", "overlap_pattern",
+                      "sync_loop_pattern")
+
+
+def _looping_kernel(name):
+    gen = next(g for g in ALL_GENERATORS if g.name == name)
+    for k in gen.variants({}):
+        code = k.fn.__code__
+        if {"counted_range", "counted_loop"} & \
+                countengine._referenced_names(code):
+            return k
+    raise AssertionError(f"no variant of {name} loops")
+
+
+@pytest.mark.parametrize("name", LOOPING_GENERATORS)
+def test_looping_generator_kernels_sign(name):
+    """A kernel reaching ``counted_range``/``counted_loop`` (whose
+    globals hold the counter's ContextVar) signs by content, and the
+    engine counts it once."""
+    k = _looping_kernel(name)
+    assert callable_signature(k.fn)
+    assert signature_hazards(k.fn) == []
+    engine = CountEngine()
+    args = k.make_args("meta")
+    first = engine.counts_of_callable(k.fn, args)
+    assert (engine.trace_count, engine.misses, engine.hits) == (1, 1, 0)
+    assert engine.counts_of_callable(k.fn, args) == first
+    assert (engine.trace_count, engine.misses, engine.hits) == (1, 1, 1)
+
+
+def test_an_edit_to_the_counter_changes_a_looping_kernel_s_signature(
+        monkeypatch):
+    """The loop helpers sign as the counter: editing ``counting.py``
+    turns every stored count of a looping kernel into a miss."""
+    k = _looping_kernel("matmul_sq")
+    before = callable_signature(k.fn)
+    source = countengine.source_signature
+
+    def edited(obj):
+        if obj is counting:
+            import hashlib
+            import inspect
+            text = inspect.getsource(counting) + "\n# an edit\n"
+            return hashlib.sha256(text.encode()).hexdigest()[:16]
+        return source(obj)
+
+    countengine._counter_signature.cache_clear()
+    monkeypatch.setattr(countengine, "source_signature", edited)
+    try:
+        after = callable_signature(k.fn)
+    finally:
+        countengine._counter_signature.cache_clear()
+    assert after and after != before
+
+
+def test_another_undigestable_global_still_leaves_a_looper_unsignable():
+    """Only the two helpers sign by the counter: a looping callable that
+    also reaches captured state without a digest stays ``""``."""
+    opaque = object()
+
+    def fn(x):
+        for _ in counting.counted_range(2):
+            x = x + 1.0
+        return x if opaque else x
+
+    assert callable_signature(fn) == ""
+    assert any("object" in r for r in signature_hazards(fn))

@@ -105,6 +105,47 @@ def test_dg_diff_kernel_on_card(cuda, M, N, K, be):
     _check(got, tref.dg_diff_ref, d, ut)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 10, 20, 35, 56, 63])
+@pytest.mark.parametrize("K", [8192, "ragged", 250])
+def test_dg_diff_kernel_at_any_node_count_on_card(cuda, N, K):
+    """N between the instantiated widths (the DG node counts of
+    tetrahedra of order 2–5 among them) runs at the next width, rows and
+    columns >= N masked: K = 8192, a ragged last slab, and K = 250 (the
+    one-float path)."""
+    if K == "ragged":
+        K = 2 * tdg.slab_width(N) + 36
+    d = torch.from_numpy(rn(17, 3, N, N)).to(cuda)
+    ut = torch.from_numpy(rn(18, N, K)).to(cuda)
+    before = tdg.launches
+    got = tops.dg_diff(d, ut, block_e=K)
+    assert tdg.launches == before + 1
+    _check(got, tref.dg_diff_ref, d, ut)
+
+
+@pytest.mark.gpu
+def test_stripped_battery_kernel_replays_as_a_cuda_graph(cuda):
+    """``remove_work`` of ``matmul_sq`` (prefetch, tile 64) without its
+    first operand: captured and replayed as a CUDA graph, it returns the
+    sum of b, fresh on every call."""
+    from repro_torch.core.workremoval import remove_work
+
+    (kern,) = tuipick.KernelCollection(tuipick.ALL_GENERATORS) \
+        .generate_kernels(["matmul_sq", "n:256", "dtype:float32",
+                           "prefetch:True", "tile:64"])
+    args = kern.make_args(cuda)
+    stripped = remove_work(kern.fn, *args, remove_args=(0,))
+    want = float(args[1].double().sum())
+    graph, out = tuipick.MeasurementKernel(
+        name="stripped", fn=stripped, make_args=kern.make_args,
+        tags={}).capture(args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert float(out) == pytest.approx(want, abs=1e-5 * float(
+            args[1].abs().sum()))
+
+
 def _unaligned(x: np.ndarray, dev) -> torch.Tensor:
     """``x`` on the card, contiguous, one float past a 16-byte boundary."""
     t = torch.empty(x.size + 1, device=dev)[1:].view(x.shape)

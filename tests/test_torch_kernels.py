@@ -375,3 +375,62 @@ def test_dg_diff_staging_term_follows_the_kernel_slab(M, N, K, be):
     assert (tdg.SLAB_FLOATS, width * N) == (8192, 8192)
     assert c["f_vmem_contig_float32_store"] == \
         N * K + -(-K // width) * M * N * N
+
+
+# ---------------------------------------------------------------------------
+# dg_diff at any N <= 64: the DG node counts of the paper's §8.4
+# ---------------------------------------------------------------------------
+
+DG_NODE_COUNTS = (10, 20, 35, 56)
+
+
+@pytest.mark.parametrize("N", DG_NODE_COUNTS)
+def test_dg_diff_at_dg_node_counts_matches_reference(N):
+    """The wrapper takes the tetrahedra's node counts of order 2–5 (on
+    the CPU, the plain version) and agrees with the reference kernel."""
+    M, K, be = 3, 1024, 256
+    (jd, td), (ju, tu) = _both(rn(31, M, N, N), "float32"), \
+        _both(rn(32, N, K), "float32")
+    want = jops.dg_diff(jd, ju, block_e=be)
+    _close(tops.dg_diff(td, tu, block_e=be), want, "float32")
+
+
+@pytest.mark.parametrize("N,width", [(1, 8), (8, 8), (10, 16), (20, 32),
+                                     (35, 64), (56, 64), (64, 64)])
+def test_dg_diff_runs_at_the_next_instantiated_width(N, width):
+    assert tdg.width(N) == width
+    assert tdg.slab_width(N) == tdg.SLAB_FLOATS // width
+
+
+@pytest.mark.parametrize("N", DG_NODE_COUNTS)
+@pytest.mark.parametrize("K,be", [(8192, 512), (262144, 512), (1000, 1000)])
+def test_dg_diff_cost_rule_follows_the_launched_grid(N, K, be):
+    """The staging term counts one D_m per slab of the grid the kernel
+    launches at N: slabs of 8192 / width(N) elements, not 8192 / N."""
+    M = 3
+    c = count_fn(functools.partial(tops.dg_diff, block_e=be),
+                 f32(M, N, N), f32(N, K))
+    slabs = -(-K // (8192 // tdg.width(N)))
+    assert c["f_vmem_contig_float32_store"] == N * K + slabs * M * N * N
+    assert c["f_op_float32_madd"] == M * N * N * K
+    assert c["f_sync_grid_programs"] == M * K // be
+
+
+def test_dg_diff_cuda_raises_only_above_64_and_for_non_f32(monkeypatch):
+    """The launcher's own checks: N above 64 and a dtype other than
+    float32 raise; N = 10 reaches the launch (recorded here, not run)
+    with N itself, no padded copy."""
+    from repro_torch.kernels import _build
+
+    with pytest.raises(ValueError, match="N <= 64"):
+        tdg.dg_diff_cuda(torch.ones(1, 65, 65), torch.ones(65, 16), 16)
+    with pytest.raises(TypeError, match="float32"):
+        tdg.dg_diff_cuda(torch.ones(1, 10, 10, dtype=torch.float64),
+                         torch.ones(10, 16, dtype=torch.float64), 16)
+    calls = []
+    monkeypatch.setattr(_build, "launch_on",
+                        lambda dev, name, *a: calls.append((name, a[3:])))
+    before = tdg.launches
+    out = tdg.dg_diff_cuda(torch.ones(2, 10, 10), torch.ones(10, 16), 16)
+    assert calls == [("repro_dg_diff_f32", (2, 10, 16))]
+    assert out.shape == (2, 10, 16) and tdg.launches == before + 1

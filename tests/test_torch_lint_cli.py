@@ -64,12 +64,6 @@ DEFAULT_FINDINGS = sorted([
     ("error", "unmodeled-op", "generator:finite_diff"),
     ("error", "unmodeled-op", "generator:onchip_pattern"),
     ("warning", "probe-lattice-divisibility", "generator:overlap_pattern"),
-    ("warning", "unsignable-callable", "generator:flops_dot_pattern"),
-    ("warning", "unsignable-callable", "generator:flops_madd_pattern"),
-    ("warning", "unsignable-callable", "generator:matmul_sq"),
-    ("warning", "unsignable-callable", "generator:onchip_pattern"),
-    ("warning", "unsignable-callable", "generator:overlap_pattern"),
-    ("warning", "unsignable-callable", "generator:sync_loop_pattern"),
     ("info", "family-degree-overdeclared", "generator:mem_stream"),
 ])
 
