@@ -134,6 +134,24 @@ Phases, each fatal on failure:
    1e-4 of the row-by-row reference).  One ``{"workremoval": ...}`` and
    one ``{"benches": ...}`` line.
 
+15. (after phase 14, before that ``kernels`` line) the port's language
+   models served on the card (:func:`lm_path`): gemma2-9b at its full
+   published size (batch 2, a prompt of 4608 past the local layers'
+   4096 window, so they prefill into and decode from their ring
+   buffers), xlstm-125m (prompt 4096) and zamba2-7b at full width cut to
+   9 layers (prompt 4608), each through ``python -m
+   repro_torch.launch.serve`` in process, 16 tokens: prefill and decode
+   ms between CUDA events after a warm-up, tokens per second, peak
+   memory, and each hand kernel's launches in prefill (exactly
+   ``LM_PREFILL_LAUNCHES``) and decode (none); each kernel's first call
+   (attention's first with a window and first without) on the model's
+   own inputs, and the SSD's and sLSTM's final states, against their
+   plain versions in float64; the whole model at full width and the
+   smallest depth with every block kind (gemma2's window cut below the
+   prompt), f32, card against host, and the card's prefill-then-decode
+   against its forward.  One ``{"lm": ...}``
+   line.  Memory is freed between models.
+
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
 
@@ -148,7 +166,10 @@ set to 0 before its audit and read after it, which fails if the audit
 launched any; set to 0 before phase 13 and read after it, which fails
 if serving, routing or the card's recalibration (aten generators)
 launched any; and set to 0 before phase 14 and read after it, which
-fails if work removal or the benches launched any.  Without a
+fails if work removal or the benches launched any; and set to 0
+before each served model of phase 15 and read after it, which fails
+unless every kernel launched exactly twice a prefill's count (warm-up
+and timed request).  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -258,6 +279,35 @@ FIGURE_TRIALS = 3
 # phase 14: the stripped battery kernel (matmul_sq, prefetch, tile 64)
 WR_N = 1024
 WR_TRIALS = 20
+
+# phase 15: the served language models — arch, depth (None: the
+# published one), batch, prompt; 16 tokens each, greedy
+LM_SERVED = (("gemma2-9b", None, 2, 4608),
+             ("xlstm-125m", None, 2, 4096),
+             ("zamba2-7b", 9, 2, 4608))
+LM_TOKENS = 16
+# hand-kernel launches of one prefill: every attention layer (zamba2's
+# shared block once per group), every Mamba-2 block, every sLSTM block
+LM_PREFILL_LAUNCHES = {
+    "gemma2-9b": {"flash_attention": 42, "mamba2_ssd": 0, "slstm_cell": 0},
+    "zamba2-7b": {"flash_attention": 1, "mamba2_ssd": 9, "slstm_cell": 0},
+    "xlstm-125m": {"flash_attention": 0, "mamba2_ssd": 0, "slstm_cell": 6},
+}
+# the whole model, card (kernels) against host (plain versions): full
+# width, f32, the smallest depth that keeps every block kind, a prompt
+# of 256 and 4 decode steps, held to 2e-3 × max |logit| (the attention
+# tolerance of tests/test_serving.py); then the card's prefill of S − 1
+# tokens and decode of token S − 1 against its full forward at S − 1,
+# within tests/test_serving.py's TOL
+LM_WHOLE_PROMPT = 256
+LM_WHOLE_DECODE = 4
+LM_WHOLE_REL = 2e-3
+LM_WHOLE_SOFTCAP = 2.0
+# (b) a served model's bf16 attention against the plain version in
+# float64, not rounded back: a few bf16 ulps of each output and of its
+# row's rms (chip_smoke.attention_excess)
+LM_ATTN_BF16_TOL = dict(rtol=1e-2, row_atol=2e-2)
+LM_SERVING_TOL = {"gemma2-9b": 2e-3, "zamba2-7b": 2e-2, "xlstm-125m": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -1761,6 +1811,268 @@ def zoo_path(calibrate_main, load_profile, PerfSession, f32, ops, tmp):
     return preds
 
 
+class KernelRecorder:
+    """Wraps the model-layer wrappers of ``ops`` (the models call them
+    through the module) and keeps the first call of each, attention's
+    first call with a window and its first without (gemma2's local and
+    global layers): its arguments and its result, on the card.  Counts
+    nothing: the launch counters stay the kernels' own."""
+
+    NAMES = ("flash_attention", "mamba2_ssd", "mamba2_ssd_state",
+             "slstm_cell", "slstm_cell_state")
+
+    def __init__(self, ops):
+        self.ops, self.first = ops, {}
+        self.real = {name: getattr(ops, name) for name in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in self.real.items():
+            setattr(self.ops, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.ops, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            key = name
+            if name == "flash_attention":
+                key = (name, kwargs.get("window") is None)
+            self.first.setdefault(key, (name, args, kwargs, out))
+            return out
+        return call
+
+
+def attention_excess(got, want, rtol, row_atol) -> float:
+    """How far bf16 attention ``got`` lies from ``want`` (float64, not
+    rounded), in units of the tolerance: the worst element under
+    |got − want| <= rtol·|want| + row_atol·rms(want's row).  The row's
+    rms is the scale of the error of a probability-weighted sum of
+    values with the probabilities rounded to bf16; a fixed atol would be
+    the size of a typical output over thousands of keys.  NaN fails."""
+    got, want = got.double(), want.double()
+    rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+    return float(((got - want).abs()
+                  / (rtol * want.abs() + row_atol * rms)).max())
+
+
+def check_recorded(first, ref) -> dict:
+    """Phase 15 (b): each kernel's first call in a served model against
+    its plain version on the same card tensors, computed in float64 and
+    not rounded back — attention in bf16 at ``LM_ATTN_BF16_TOL`` (its
+    first local and first global call), the SSD and the sLSTM (and
+    their final states) at the f32 tolerance.  Returns max |err| per
+    kernel and output."""
+    import torch
+    errs = {}
+
+    def hold(label, got, want, tol, worst=None):
+        if worst is None:
+            worst = excess(got, want, **tol)
+        err = float((got.double() - want.double()).abs().max())
+        log(f"  {label}: max|err| {err:.3g}, worst {worst:.3g}× {tol}")
+        if not worst <= 1:
+            raise SystemExit(f"{label} on the model's inputs disagrees with "
+                             f"its plain version ({worst:.3g}× {tol})")
+        errs[label] = err
+
+    for name, args, kw, out in first.values():
+        if name == "flash_attention":
+            q = args[0]
+            want = torch.cat([   # one batch row at a time: S² scores in f64
+                ref.attention_ref(
+                    *(t[i:i + 1].double() for t in args),
+                    causal=kw["causal"], window=kw["window"],
+                    softcap=kw["softcap"], scale=kw["scale"])
+                for i in range(q.shape[0])])
+            label = (f"flash_attention {tuple(q.shape)} {q.dtype} window "
+                     f"{kw['window']}")
+            if q.dtype == torch.float32:
+                hold(label, out, want, TOL["float32"])
+            else:
+                hold(label, out, want, LM_ATTN_BF16_TOL,
+                     attention_excess(out, want, **LM_ATTN_BF16_TOL))
+            del want
+            continue
+        wide = tuple(t.double() for t in args)
+        if name == "mamba2_ssd_state":
+            y, state = ref.ssd_state_ref(*wide)
+            hold(f"mamba2_ssd {tuple(args[0].shape)} y", out[0], y,
+                 TOL["float32"])
+            hold("mamba2_ssd final state", out[1], state, TOL["float32"])
+        elif name == "mamba2_ssd":
+            hold(f"mamba2_ssd {tuple(args[0].shape)} y", out,
+                 ref.ssd_ref(*wide), TOL["float32"])
+        elif name == "slstm_cell_state":
+            h, cnm = ref.slstm_cell_state_ref(*wide)
+            hold(f"slstm_cell {tuple(args[0].shape)} h", out[0], h,
+                 TOL["float32"])
+            for label, got, want in zip("cnm", out[1], cnm):
+                hold(f"slstm_cell final {label}", got, want, TOL["float32"])
+        elif name == "slstm_cell":
+            hold(f"slstm_cell {tuple(args[0].shape)} h", out,
+                 ref.slstm_cell_ref(*wide), TOL["float32"])
+    return errs
+
+
+def whole_model_config(configs, arch):
+    """Full width, f32, the smallest depth with every block kind:
+    gemma2 a local and a global layer, zamba2 one prefix Mamba-2 block, a
+    group of two and the shared attention, xlstm an mLSTM and an sLSTM.
+    gemma2's window is cut to half the prompt, so its local layer
+    prefills into its ring buffer and decodes from it, and its attention
+    softcap to ``LM_WHOLE_SOFTCAP``, so the cap bends scores of O(1)."""
+    cfg = configs.get_config(arch).replace(param_dtype="float32",
+                                           activation_dtype="float32")
+    if arch == "gemma2-9b":
+        return cfg.replace(num_layers=2, attention=cfg.attention.replace(
+            window=LM_WHOLE_PROMPT // 2, logit_softcap=LM_WHOLE_SOFTCAP))
+    if arch == "zamba2-7b":
+        return cfg.replace(num_layers=3, prefix_blocks=("mamba2",),
+                           block_pattern=("mamba2",) * 2,
+                           shared_attn_every=2)
+    return cfg.replace(num_layers=2)
+
+
+def whole_model_check(lm, tree_map, launch_counts, cfg, arch, dev) -> dict:
+    """Phase 15 (c): the same weights (drawn on the card, copied to the
+    host) served on the card through the kernels and on the host through
+    their plain versions, the same prompt and teacher-forced decode
+    tokens; then the card's prefill-then-decode against its full
+    forward.  Returns the relative differences."""
+    import torch
+    S, D = LM_WHOLE_PROMPT, LM_WHOLE_DECODE
+    gen = torch.Generator(device=dev).manual_seed(22)
+    with torch.inference_mode():
+        params = lm.init(gen, cfg, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, S + D), generator=gen,
+                               device=dev)
+
+        def serve_on(p, toks, device):
+            cache = lm.zero_cache(cfg, 1, S + D, device)
+            cache, lg = lm.prefill(p, cfg, cache, {"tokens": toks[:, :S]})
+            outs = [lg[:, 0]]
+            for i in range(D):
+                cache, lg = lm.decode_step(p, cfg, cache,
+                                           toks[:, S + i: S + i + 1], S + i)
+                outs.append(lg[:, 0])
+            return outs
+
+        before = launch_counts()
+        card = serve_on(params, tokens, dev)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        host_params = tree_map(lambda t: t.cpu(), params)
+        t0 = time.perf_counter()
+        host = serve_on(host_params, tokens.cpu(), torch.device("cpu"))
+        host_s = time.perf_counter() - t0
+        del host_params
+        rel = [float((c.cpu().double() - h.double()).abs().max()
+                     / h.double().abs().max()) for c, h in zip(card, host)]
+        # the card's own invariant: prefill S − 1, decode token S − 1
+        full, _, _ = lm.forward(params, cfg, {"tokens": tokens[:, :S]})
+        cache = lm.zero_cache(cfg, 1, S, dev)
+        cache, _ = lm.prefill(params, cfg, cache,
+                              {"tokens": tokens[:, :S - 1]})
+        _, dec = lm.decode_step(params, cfg, cache, tokens[:, S - 1:S],
+                                S - 1)
+        want = full[:, -1].double()
+        invariant = float((dec[:, 0].double() - want).abs().max()
+                          / want.abs().max())
+        finite = all(bool(torch.isfinite(c).all()) for c in card)
+    del params, full, cache
+    torch.cuda.empty_cache()
+    log(f"{arch} whole model ({cfg.num_layers} layers, f32, prompt {S}): "
+        f"card kernels {launched}; card vs host rel |Δlogit| prefill "
+        f"{rel[0]:.3g}, decode " + " ".join(f"{r:.3g}" for r in rel[1:])
+        + f" (host {host_s:.1f} s); card prefill S−1 + decode vs forward "
+        f"{invariant:.3g}")
+    if not finite or not max(rel) < LM_WHOLE_REL:
+        raise SystemExit(f"{arch}: card and host logits differ: {rel}")
+    if not invariant < LM_SERVING_TOL[arch]:
+        raise SystemExit(f"{arch}: decode after prefill is {invariant:.3g} "
+                         f"off the full forward on the card")
+    expect = {k: int(v > 0) for k, v in LM_PREFILL_LAUNCHES[arch].items()}
+    if {k: int(v > 0) for k, v in launched.items()} != expect:
+        raise SystemExit(f"{arch}: the card's run launched {launched}")
+    return {"layers": cfg.num_layers, "prompt": S, "decode_steps": D,
+            "card_vs_host_rel": rel, "host_s": host_s,
+            "invariant_rel": invariant, "card_launches": launched}
+
+
+def lm_path(serve_main, lm, counting, InputShape, tree_map, configs, ops,
+            ref, launch_counts, zero_counts, dev) -> dict:
+    """Phase 15: the port's language models served on the card.  For each
+    of ``LM_SERVED``: (a) ``python -m repro_torch.launch.serve`` in
+    process (one warm-up request, then prefill and 15 decode steps timed
+    between CUDA events), the launches of each hand kernel in prefill
+    (exactly ``LM_PREFILL_LAUNCHES``) and decode (none), the counters set
+    to 0 before and read after (warm-up and timed request: twice a
+    prefill's); (b) each kernel's first call held against its plain
+    version (:func:`check_recorded`); (c) the whole model at a small
+    depth, card against host (:func:`whole_model_check`).  Bounds: decode
+    = the parameters' bytes once ÷ 3.35 TB/s, prefill = (model + attention
+    FLOPs) ÷ 989 TFLOP/s."""
+    import torch
+    out = {}
+    for arch, layers, batch, prompt in LM_SERVED:
+        t0 = time.perf_counter()
+        argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+                str(prompt), "--tokens", str(LM_TOKENS)]
+        if layers is not None:
+            argv += ["--num-layers", str(layers)]
+        zero_counts()
+        with KernelRecorder(ops) as rec:
+            rc, text, seconds = echo_run(serve_main, argv)
+        total = launch_counts()
+        if rc != 0:
+            raise SystemExit(f"serve {arch} exited {rc}")
+        res = json.loads(text.strip().splitlines()[-1])["serve"]
+        want = LM_PREFILL_LAUNCHES[arch]
+        if res["launches"]["prefill"] != want \
+                or any(res["launches"]["decode"].values()) \
+                or total != {k: 2 * v for k, v in want.items()}:
+            raise SystemExit(f"{arch}: launches prefill "
+                             f"{res['launches']['prefill']}, decode "
+                             f"{res['launches']['decode']}, in all {total}; "
+                             f"a prefill should launch {want}")
+        if not res["logits_finite"]:
+            raise SystemExit(f"{arch}: served logits not finite")
+        res["launches_run"] = total   # warm-up and timed request
+        cfg = configs.get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        shape = InputShape("served", prompt, batch, "prefill")
+        flops = counting.model_flops(cfg, shape) \
+            + counting.attention_flops(cfg, shape)
+        res["prefill_bound_ms"] = flops / PEAK_BF16_FLOPS * 1e3
+        res["decode_bound_ms"] = res["param_bytes"] / PEAK_HBM_BYTES * 1e3
+        res["layers"] = cfg.num_layers
+        res["serve_s"] = seconds
+        log(f"{arch} ({cfg.num_layers} layers, {res['params'] / 1e9:.3f} B "
+            f"params, batch {batch}, prompt {prompt}): prefill "
+            f"{res['prefill_ms']:.4g} ms (bound {res['prefill_bound_ms']:.4g}"
+            f" ms, {res['prefill_tokens_per_s']:.0f} tok/s), decode "
+            f"{res['decode_ms_per_token']:.4g} ms/token (bound "
+            f"{res['decode_bound_ms']:.4g} ms, "
+            f"{res['decode_tokens_per_s']:.1f} tok/s), peak "
+            f"{res.get('max_memory_allocated', 0) / 2**30:.2f} GiB; launches "
+            f"prefill {res['launches']['prefill']}, decode "
+            f"{res['launches']['decode']}")
+        res["kernel_checks"] = check_recorded(rec.first, ref)
+        del rec
+        torch.cuda.empty_cache()
+        res["whole_model"] = whole_model_check(
+            lm, tree_map, launch_counts, whole_model_config(configs, arch),
+            arch, dev)
+        res["seconds"] = time.perf_counter() - t0
+        log(f"{arch} took {res['seconds']:.1f} s")
+        out[arch] = res
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1798,6 +2110,11 @@ def main() -> int:
     from repro_torch.core.counting import count_fn
     from repro_torch.core.workremoval import remove_work
     from repro_torch.studies.run import main as run_main
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import counting as lm_counting
+    from repro_torch.models import lm
+    from repro_torch.models.param import tree_map
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2086,6 +2403,20 @@ def main() -> int:
     print(json.dumps({"workremoval": phase14["workremoval"]}), flush=True)
     print(json.dumps({"benches": phase14["benches"]}), flush=True)
 
+    # ---- 15. the served language models -------------------------------------
+    t0 = time.perf_counter()
+    served = lm_path(lm_serve.main, lm, lm_counting, InputShape, tree_map,
+                     configs, ops, ref, lm_serve.launch_counts, zero_counts,
+                     dev)
+    lm_launches = {name: sum(m["launches_run"][name]
+                             for m in served.values())
+                   for name in lm_serve.KERNELS}
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s; hand-kernel "
+        f"launches serving the three models: {lm_launches}")
+    print(json.dumps({"lm": {"models": served, "launches": lm_launches,
+                             "seconds": time.perf_counter() - t0,
+                             "device": smi}}), flush=True)
+
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
                "dg_diff": "src/repro/kernels/dg_diff.py:41",
@@ -2100,6 +2431,8 @@ def main() -> int:
                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                "replaces": sources[name], "launches": launches[name],
                "max_abs_err": errs[name], **meas}
+        if name in lm_launches:   # phase 15, the served models
+            row["launches_lm"] = lm_launches[name]
         if name in base_pred:
             row["predicted_ms"]["base"] = base_pred[name]
             row["pred_over_meas"]["base"] = base_pred[name] / meas["ms"]

@@ -281,6 +281,17 @@ def mamba2_ssd_cost(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     return c
 
 
+def mamba2_ssd_state_cost(xdt: torch.Tensor, da: torch.Tensor,
+                          bm: torch.Tensor, cm: torch.Tensor,
+                          chunk: int) -> FeatureCounts:
+    """:func:`mamba2_ssd_cost` and the state after the last chunk: one
+    P × N float32 block per (batch, head), written by pass (b)."""
+    b, _, h, p = xdt.shape
+    c = mamba2_ssd_cost(xdt, da, bm, cm, chunk)
+    _traffic(c, "out", torch.float32, p * bm.shape[-1], b * h)
+    return c
+
+
 def slstm_cell_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
                     b_gates: torch.Tensor) -> FeatureCounts:
     """Grid (B,); g_in (S, 4, H, dh) and y (S, H, dh) blocks per batch
@@ -315,6 +326,16 @@ def slstm_cell_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
     return c
 
 
+def slstm_cell_state_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
+                          b_gates: torch.Tensor) -> FeatureCounts:
+    """:func:`slstm_cell_cost` and the state after the last step: c, n
+    and m of every hidden unit, float32, stored by the gating threads."""
+    b, _, _, h, dh = g_in.shape
+    c = slstm_cell_cost(g_in, r_gates, b_gates)
+    _traffic(c, "out", torch.float32, 3 * h * dh, b)
+    return c
+
+
 register_op_cost_rule("repro_torch::matmul_tiled", matmul_tiled_cost)
 register_op_cost_rule("repro_torch::stencil5", stencil5_cost)
 register_op_cost_rule("repro_torch::dg_diff", dg_diff_cost)
@@ -323,3 +344,5 @@ register_op_cost_rule("repro_torch::madd_throughput", madd_throughput_cost)
 register_op_cost_rule("repro_torch::flash_attention", flash_attention_cost)
 register_op_cost_rule("repro_torch::mamba2_ssd", mamba2_ssd_cost)
 register_op_cost_rule("repro_torch::slstm_cell", slstm_cell_cost)
+register_op_cost_rule("repro_torch::mamba2_ssd_state", mamba2_ssd_state_cost)
+register_op_cost_rule("repro_torch::slstm_cell_state", slstm_cell_state_cost)

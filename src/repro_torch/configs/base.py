@@ -1,8 +1,7 @@
 """Configuration dataclasses — a copy of ``repro.configs.base`` for the
 port, which reads the architectures' widths from it without importing
-the reference.  ``ModelConfig.param_count``/``active_param_count`` are
-left out: they count a model's parameters and come with the port of the
-models.
+the reference.  ``ModelConfig.param_count``/``active_param_count`` count
+from the port's model schemas (:mod:`repro_torch.models.counting`).
 
 The config system is deliberately explicit: every architecture in the assigned
 pool is expressed as a frozen ``ModelConfig`` built out of small, composable
@@ -195,6 +194,17 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + body), exact for our defs."""
+        from repro_torch.models.counting import config_param_count
+
+        return config_param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.counting import config_active_param_count
+
+        return config_active_param_count(self)
 
 
 # ---------------------------------------------------------------------------

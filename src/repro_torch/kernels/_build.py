@@ -53,14 +53,15 @@ SIGNATURES: Dict[str, List] = {
     # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap, causal, window
     "repro_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
     "repro_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    # the SSD's passes: (a) xdt, da, B, states, decay; (b) states, decay;
+    # the SSD's passes: (a) xdt, da, B, states, decay; (b) states, decay,
+    # final (the state after the last chunk, or 0);
     # (c) xdt, da, B, C, states, y; then batch, S, H, P, N, chunk
     "repro_ssd_chunk_state_f32": [_P] * 5 + [_I] * 6 + [_P],
-    "repro_ssd_state_pass_f32": [_P] * 2 + [_I] * 6 + [_P],
+    "repro_ssd_state_pass_f32": [_P] * 3 + [_I] * 6 + [_P],
     "repro_ssd_chunk_out_f32": [_P] * 6 + [_I] * 6 + [_P],
-    # g_in, r, b, y, batch, S, H, dh, cluster blocks, batch rows per
-    # cluster (the plan's)
-    "repro_slstm_cell_f32": [_P] * 4 + [_I] * 6 + [_P],
+    # g_in, r, b, y, state (c, n, m after the last step, or 0), batch, S,
+    # H, dh, cluster blocks, batch rows per cluster (the plan's)
+    "repro_slstm_cell_f32": [_P] * 5 + [_I] * 6 + [_P],
     # host side, no stream: batch, H, dh, cluster blocks, out[3]
     "repro_slstm_cell_plan": [_I] * 4 + [ctypes.POINTER(_I)],
 }

@@ -23,7 +23,10 @@
 //       scratch beside exp(la_L);
 //   (b) state_pass_kernel, one thread per state element of a (batch,
 //       head): S_0 = 0, S_c = S_{c−1}·exp(la_L, c−1) + ds_{c−1}, in place
-//       over the scratch, so slot c holds the state before chunk c;
+//       over the scratch, so slot c holds the state before chunk c; when
+//       the caller asks for it (a served prefill leaves it in the cache),
+//       the state after the last chunk goes to one more slot, `final`
+//       [B, H, P, N];
 //   (c) chunk_out_kernel, one block per (head, chunk, batch):
 //       y = exp(la) ∘ (C·S_cᵀ) + ((C·Bᵀ) ∘ exp(la_i − la_j), j <= i)·x,
 //       its three 64 × 64 products on the tensor cores in
@@ -264,12 +267,13 @@ chunk_state_kernel(Params prm) {
 }
 
 // pass (b): slot c of each (batch, head) becomes the state before chunk
-// c.  A chunk's slots of all heads are contiguous, so the threads, each
+// c, and `final` (when not null) the state after the last one.  A
+// chunk's slots of all heads are contiguous, so the threads, each
 // walking one element along the chunks, stream through memory together;
 // loads and stores bypass L1 (each value is read once, then overwritten).
 __global__ void __launch_bounds__(kThreads)
 state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
-                  int heads, int nc, int elems) {
+                  float* __restrict__ final, int heads, int nc, int elems) {
   const int b = blockIdx.y;
   const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t per_chunk = (size_t)heads * elems;   // one chunk, all heads
@@ -279,11 +283,11 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
   constexpr int kBatch = 16;   // loads in flight ahead of the chain
   float run = 0.f;
   for (int c0 = 0; c0 < nc; c0 += kBatch) {
-    float v[kBatch], f[kBatch];
+    float v[kBatch], f[kBatch];   // past the last chunk: run · 1 + 0
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
       v[i] = c0 + i < nc ? __ldcg(st + (size_t)(c0 + i) * per_chunk) : 0.f;
-      f[i] = c0 + i < nc ? dk[(size_t)(c0 + i) * heads] : 0.f;
+      f[i] = c0 + i < nc ? dk[(size_t)(c0 + i) * heads] : 1.f;
     }
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
@@ -291,6 +295,7 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
       run = fmaf(run, f[i], v[i]);
     }
   }
+  if (final != nullptr) final[(size_t)b * per_chunk + idx] = run;
 }
 
 // pass (c): one chunk, on the tensor cores in error-compensated TF32
@@ -424,17 +429,20 @@ extern "C" int repro_ssd_chunk_state_f32(const void* xdt, const void* da,
   return (int)cudaGetLastError();
 }
 
-// (b) slot c of `states` becomes the state before chunk c
+// (b) slot c of `states` becomes the state before chunk c, and the state
+// after the last chunk goes to final[B, H, P, N] unless `final` is null
 extern "C" int repro_ssd_state_pass_f32(void* states, const void* decay,
-                                        int batch, int s, int h, int p,
-                                        int n, int chunk, void* stream) {
+                                        void* final, int batch, int s, int h,
+                                        int p, int n, int chunk,
+                                        void* stream) {
   if (!shape_ok(p, n, chunk, s)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || s == 0 || h == 0) return (int)cudaSuccess;
   const size_t per_chunk = (size_t)h * p * n;
   state_pass_kernel<<<dim3((unsigned)((per_chunk + kThreads - 1) / kThreads),
                            batch),
                       kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)states, (const float*)decay, h, s / chunk, p * n);
+      (float*)states, (const float*)decay, (float*)final, h, s / chunk,
+      p * n);
   return (int)cudaGetLastError();
 }
 

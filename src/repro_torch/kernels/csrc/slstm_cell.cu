@@ -58,6 +58,9 @@
 // rows, and no cluster waits for a second wave.  Clusters of 6 then
 // spread those 16 clusters over 96 SMs where clusters of 4 would take 64
 // (~10% faster at xlstm-125m).
+// After the last step the gating threads store their c, n, m into
+// `state` [3, B, H, dh] when it is not null: a served prefill leaves the
+// recurrent state in the cache (h after the last step is y's last row).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -148,7 +151,8 @@ __global__ void __launch_bounds__(max_threads(DPT, CS), 1)
 slstm_cluster_kernel(const float* __restrict__ g_in,
                      const float* __restrict__ r,
                      const float* __restrict__ bias, float* __restrict__ y,
-                     int batch, int steps, int heads, int dh) {
+                     float* __restrict__ state, int batch, int steps,
+                     int heads, int dh) {
   constexpr int kW = kSlices * DPT;       // h row, zero-padded past dh
   constexpr int kUnits = (kW + CS - 1) / CS;
   __shared__ __align__(16) float hbuf[2][ROWS][kW];
@@ -291,6 +295,13 @@ slstm_cluster_kernel(const float* __restrict__ g_in,
       }
     }
   }
+  if (state != nullptr && row_ok) {
+    const size_t plane = (size_t)batch * heads * dh;
+    const size_t at = ((size_t)(row0 + row) * heads + h) * dh + my_u;
+    state[at] = c;
+    state[plane + at] = n;
+    state[2 * plane + at] = m;
+  }
   cluster.sync();   // no block leaves while a peer may still write to it
 }
 
@@ -381,11 +392,12 @@ extern "C" int repro_slstm_cell_plan(int batch, int heads, int dh, int cs,
 
 // g_in[B, S, 4, H, dh], r_gates[H, dh, 4, dh], b_gates[4, H, dh] →
 // y[B, S, H, dh], all f32 and contiguous; dh <= 256; clusters of `cs`
-// blocks, `rows` batch rows a cluster (the plan's).
+// blocks, `rows` batch rows a cluster (the plan's).  Unless `state` is
+// null, c, n, m after the last step go to state[3, B, H, dh].
 extern "C" int repro_slstm_cell_f32(const void* g_in, const void* r_gates,
-                                    const void* b_gates, void* y, int batch,
-                                    int steps, int heads, int dh, int cs,
-                                    int rows, void* stream) {
+                                    const void* b_gates, void* y, void* state,
+                                    int batch, int steps, int heads, int dh,
+                                    int cs, int rows, void* stream) {
   if (batch == 0 || steps == 0 || heads == 0)
     return (int)with_instance(dh, cs, rows, [](auto) { return cudaSuccess; });
   const cudaError_t err = with_instance(dh, cs, rows, [&](auto inst) {
@@ -396,8 +408,8 @@ extern "C" int repro_slstm_cell_f32(const void* g_in, const void* r_gates,
     return cudaLaunchKernelEx(&cfg,
                               slstm_cluster_kernel<I::dpt, I::cs, I::rows>,
                               (const float*)g_in, (const float*)r_gates,
-                              (const float*)b_gates, (float*)y, batch, steps,
-                              heads, dh);
+                              (const float*)b_gates, (float*)y,
+                              (float*)state, batch, steps, heads, dh);
   });
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

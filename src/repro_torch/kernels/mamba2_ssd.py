@@ -5,16 +5,19 @@
 three passes (each chunk's own state, the states passed along the
 chunks, each chunk's output) over scratch it allocates; the custom op
 ``repro_torch::mamba2_ssd`` runs the plain sequential recurrence on CPU
-tensors and gives the counter its fake impl.
+tensors and gives the counter its fake impl.  ``mamba2_ssd_state_cuda``
+launches the same passes with pass (b) also writing the state after the
+last chunk, which a served prefill leaves in the cache; its custom op
+``repro_torch::mamba2_ssd_state`` runs ``ref.ssd_state_ref``.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_ref
+from repro_torch.kernels.ref import ssd_ref, ssd_state_ref
 
 #: calls of ``mamba2_ssd_cuda`` that launched the kernel's passes, in
 #: this process
@@ -41,6 +44,16 @@ def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     return ssd_ref(xdt, da, bm, cm)
 
 
+@torch.library.custom_op("repro_torch::mamba2_ssd_state", mutates_args=(),
+                         device_types="cpu")
+def mamba2_ssd_state(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+                     cm: torch.Tensor, chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mamba2_ssd` and the state after the last step [B, H, P, N]
+    (float32 at least)."""
+    return ssd_state_ref(xdt, da, bm, cm)
+
+
 def inner_chunk(chunk: int) -> int:
     """The chunk the kernel runs at for a caller's ``chunk``: its largest
     divisor up to ``INNER_CHUNK``."""
@@ -49,14 +62,17 @@ def inner_chunk(chunk: int) -> int:
 
 
 def pass_calls(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
-               cm: torch.Tensor, chunk: int
+               cm: torch.Tensor, chunk: int,
+               final: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, List[Tuple[str, Callable[[], None]]]]:
     """Check the operands and allocate the output and the scratch
     (``states`` [B, S/L, H, P, N] and ``decay`` [B, S/L, H], f32, L =
     ``inner_chunk(chunk)``);
     return the output and, per pass in launch order, its C entry point's
     name and a call that launches it on the current stream (raising on a
-    launch error).  Calling them in order computes the output."""
+    launch error).  Calling them in order computes the output, and with
+    ``final`` (f32 [B, H, P, N]) pass (b) also writes the state after the
+    last chunk there."""
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
     if any(t.dtype != torch.float32 for t in (xdt, da, bm, cm)):
@@ -83,11 +99,18 @@ def pass_calls(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     decay = torch.empty((b, s // inner, h), dtype=torch.float32, device=dev)
     dims = (b, s, h, p, n, inner)
 
+    if final is not None and (
+            final.shape != (b, h, p, n) or final.dtype != torch.float32
+            or not final.is_contiguous() or final.device != dev):
+        raise ValueError(f"mamba2_ssd: final state must be a contiguous "
+                         f"float32 [{b}, {h}, {p}, {n}] on {dev}")
+
     def launch(name, *tensors):   # holds its tensors, scratch included
         return name, lambda: _build.launch_on(
-            dev, name, *(t.data_ptr() for t in tensors), *dims)
+            dev, name, *(0 if t is None else t.data_ptr() for t in tensors),
+            *dims)
     calls = [launch(PASSES[0], xdt, da, bm, states, decay),
-             launch(PASSES[1], states, decay),
+             launch(PASSES[1], states, decay, final),
              launch(PASSES[2], xdt, da, bm, cm, states, out)]
     return out, calls
 
@@ -104,6 +127,30 @@ def mamba2_ssd_cuda(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     return out
 
 
+def mamba2_ssd_state_cuda(xdt: torch.Tensor, da: torch.Tensor,
+                          bm: torch.Tensor, cm: torch.Tensor, chunk: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the three passes with pass (b) writing the state after the
+    last chunk; count the call.  Returns (y, state [B, H, P, N], f32)."""
+    global launches
+    b, _, h, p = xdt.shape
+    final = torch.empty((b, h, p, bm.shape[-1]), dtype=torch.float32,
+                        device=xdt.device)
+    out, calls = pass_calls(xdt, da, bm, cm, chunk, final)
+    for _, launch in calls:
+        launch()
+    launches += 1
+    return out, final
+
+
 @mamba2_ssd.register_fake
 def _mamba2_ssd_fake(xdt, da, bm, cm, chunk):
     return torch.empty_like(xdt)
+
+
+@mamba2_ssd_state.register_fake
+def _mamba2_ssd_state_fake(xdt, da, bm, cm, chunk):
+    b, _, h, p = xdt.shape
+    return torch.empty_like(xdt), xdt.new_empty(
+        (b, h, p, bm.shape[-1]),
+        dtype=torch.promote_types(xdt.dtype, torch.float32))

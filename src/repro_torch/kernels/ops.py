@@ -13,7 +13,7 @@ op and prices it with its cost rule instead of running it.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -75,6 +75,20 @@ def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     return fn(xdt, da, Bm, Cm, chunk)
 
 
+def mamba2_ssd_state(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
+                     Cm: torch.Tensor, *, chunk: int = 256
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mamba2_ssd` with the state after the last step: (y, state
+    [B, H, P, N], float32).  The kernel writes it from its pass (b)."""
+    s = xdt.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"mamba2_ssd: S={s} does not tile by chunk={chunk}")
+    fn = _ssd.mamba2_ssd_state_cuda if _on_card(xdt) \
+        else _ssd.mamba2_ssd_state
+    return fn(xdt, da, Bm, Cm, chunk)
+
+
 def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
                b_gates: torch.Tensor) -> torch.Tensor:
     """g_in: [B, S, 4, H, dh]; r_gates: [H, dh, 4, dh]; b_gates:
@@ -84,6 +98,21 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
                          f"{tuple(g_in.shape)}")
     fn = _sc.slstm_cell_cuda if _on_card(g_in) else _sc.slstm_cell
     return fn(g_in, r_gates, b_gates)
+
+
+def slstm_cell_state(g_in: torch.Tensor, r_gates: torch.Tensor,
+                     b_gates: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """:func:`slstm_cell` with the state after the last step: (h,
+    (c, n, m), each [B, H, dh] float32).  The kernel's gating threads
+    store it after their last step."""
+    if g_in.dim() != 5 or g_in.shape[2] != 4:
+        raise ValueError(f"slstm_cell: g_in must be [B, S, 4, H, dh], got "
+                         f"{tuple(g_in.shape)}")
+    fn = _sc.slstm_cell_state_cuda if _on_card(g_in) \
+        else _sc.slstm_cell_state
+    h, state = fn(g_in, r_gates, b_gates)
+    return h, tuple(state.unbind(0))
 
 
 def stencil5(u: torch.Tensor, *, block_m: int = 256,

@@ -96,11 +96,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, sq, hq, dv).to(q.dtype)
 
 
-def ssd_ref(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
-            cm: torch.Tensor) -> torch.Tensor:
+def ssd_state_ref(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+                  cm: torch.Tensor):
     """Sequential SSD recurrence s_t = exp(da_t)·s_{t-1} + B_t ⊗ x_t,
     y_t = C_t · s_t.  xdt: [B, S, H, P]; da: [B, S, H]; bm/cm:
-    [B, S, H, N]."""
+    [B, S, H, N] → (y [B, S, H, P], the state after the last step
+    [B, H, P, N] in float32 at least)."""
     bsz, steps, h, p = xdt.shape
     x, a, bw, cw = _wide(xdt), _wide(da), _wide(bm), _wide(cm)
     state = x.new_zeros((bsz, h, p, bm.shape[-1]))
@@ -109,7 +110,13 @@ def ssd_ref(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
         state = state * torch.exp(a[:, t])[..., None, None] + torch.einsum(
             "bhn,bhp->bhpn", bw[:, t], x[:, t])
         ys.append(torch.einsum("bhn,bhpn->bhp", cw[:, t], state))
-    return torch.stack(ys, dim=1).to(xdt.dtype)
+    return torch.stack(ys, dim=1).to(xdt.dtype), state
+
+
+def ssd_ref(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+            cm: torch.Tensor) -> torch.Tensor:
+    """:func:`ssd_state_ref`'s y alone."""
+    return ssd_state_ref(xdt, da, bm, cm)[0]
 
 
 def slstm_gate(gg: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
@@ -126,11 +133,12 @@ def slstm_gate(gg: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
     return torch.sigmoid(o_raw) * c / torch.clamp_min(n, 1e-6), c, n, m_new
 
 
-def slstm_cell_ref(g_in: torch.Tensor, r_gates: torch.Tensor,
-                   b_gates: torch.Tensor) -> torch.Tensor:
+def slstm_cell_state_ref(g_in: torch.Tensor, r_gates: torch.Tensor,
+                         b_gates: torch.Tensor):
     """Sequential sLSTM with stabilized exponential gating.  g_in:
     [B, S, 4, H, dh]; r_gates: [H, dh, 4, dh]; b_gates: [4, H, dh] →
-    h: [B, S, H, dh]."""
+    (h [B, S, H, dh], (c, n, m) after the last step, each [B, H, dh] in
+    float32 at least)."""
     bsz, steps, _, h, dh = g_in.shape
     g_all, r, bias = _wide(g_in), _wide(r_gates), _wide(b_gates)
     c = n = m = hid = g_all.new_zeros((bsz, h, dh))
@@ -139,4 +147,10 @@ def slstm_cell_ref(g_in: torch.Tensor, r_gates: torch.Tensor,
         gg = g_all[:, t] + torch.einsum("bhd,hdge->bghe", hid, r) + bias
         hid, c, n, m = slstm_gate(gg, c, n, m)
         hs.append(hid)
-    return torch.stack(hs, dim=1).to(g_in.dtype)
+    return torch.stack(hs, dim=1).to(g_in.dtype), (c, n, m)
+
+
+def slstm_cell_ref(g_in: torch.Tensor, r_gates: torch.Tensor,
+                   b_gates: torch.Tensor) -> torch.Tensor:
+    """:func:`slstm_cell_state_ref`'s h alone."""
+    return slstm_cell_state_ref(g_in, r_gates, b_gates)[0]

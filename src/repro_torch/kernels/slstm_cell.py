@@ -7,17 +7,21 @@ holding its share of the hidden units with their slice of r in
 registers, h exchanged through distributed shared memory) on CUDA
 tensors; the custom op ``repro_torch::slstm_cell`` runs the plain
 sequential cell on CPU tensors and gives the counter its fake impl.
+``slstm_cell_state_cuda`` launches the same kernel with its gating
+threads also storing c, n, m after the last step, which a served
+prefill leaves in the cache; its custom op
+``repro_torch::slstm_cell_state`` runs ``ref.slstm_cell_state_ref``.
 """
 from __future__ import annotations
 
 import ctypes
 import logging
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import slstm_cell_ref
+from repro_torch.kernels.ref import slstm_cell_ref, slstm_cell_state_ref
 
 _log = logging.getLogger(__name__)
 
@@ -60,11 +64,38 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
     return slstm_cell_ref(g_in, r_gates, b_gates)
 
 
+@torch.library.custom_op("repro_torch::slstm_cell_state", mutates_args=(),
+                         device_types="cpu")
+def slstm_cell_state(g_in: torch.Tensor, r_gates: torch.Tensor,
+                     b_gates: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`slstm_cell` and the state after the last step: c, n, m
+    stacked [3, B, H, dh] (float32 at least)."""
+    h, cnm = slstm_cell_state_ref(g_in, r_gates, b_gates)
+    return h, torch.stack(cnm)
+
+
 def slstm_cell_cuda(g_in: torch.Tensor, r_gates: torch.Tensor,
                     b_gates: torch.Tensor) -> torch.Tensor:
     """Check the operands, launch ``csrc/slstm_cell.cu``, count the
     launch.  The launch plan of each new (B, H, dh) is queried and logged
     once."""
+    return _launch(g_in, r_gates, b_gates, None)
+
+
+def slstm_cell_state_cuda(g_in: torch.Tensor, r_gates: torch.Tensor,
+                          b_gates: torch.Tensor):
+    """:func:`slstm_cell_cuda` with the state after the last step: (h
+    [B, S, H, dh], c, n, m stacked [3, B, H, dh] f32)."""
+    b, _, _, h, dh = g_in.shape
+    state = torch.zeros((3, b, h, dh), dtype=torch.float32,
+                        device=g_in.device)
+    return _launch(g_in, r_gates, b_gates, state), state
+
+
+def _launch(g_in: torch.Tensor, r_gates: torch.Tensor,
+            b_gates: torch.Tensor, state: Optional[torch.Tensor]
+            ) -> torch.Tensor:
     global launches
     b, s, four, h, dh = g_in.shape
     if any(t.dtype != torch.float32 for t in (g_in, r_gates, b_gates)):
@@ -90,7 +121,8 @@ def slstm_cell_cuda(g_in: torch.Tensor, r_gates: torch.Tensor,
                   g_in.device, b, h, dh, plans[key])
     _build.launch_on(g_in.device, "repro_slstm_cell_f32", g_in.data_ptr(),
                      r_gates.data_ptr(), b_gates.data_ptr(), out.data_ptr(),
-                     b, s, h, dh, plans[key]["cluster_blocks"],
+                     0 if state is None else state.data_ptr(), b, s, h, dh,
+                     plans[key]["cluster_blocks"],
                      plans[key]["rows_per_cluster"])
     launches += 1
     return out
@@ -100,3 +132,10 @@ def slstm_cell_cuda(g_in: torch.Tensor, r_gates: torch.Tensor,
 def _slstm_cell_fake(g_in, r_gates, b_gates):
     b, s, _, h, dh = g_in.shape
     return g_in.new_empty((b, s, h, dh))
+
+
+@slstm_cell_state.register_fake
+def _slstm_cell_state_fake(g_in, r_gates, b_gates):
+    b, s, _, h, dh = g_in.shape
+    return g_in.new_empty((b, s, h, dh)), g_in.new_empty(
+        (3, b, h, dh), dtype=torch.promote_types(g_in.dtype, torch.float32))

@@ -438,6 +438,61 @@ def test_mamba2_ssd_kernel_edges_on_card(cuda, B, S, H, P, N, chunk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES + [
+    # a prefill padded to the chunk (the padded steps are exact no-ops),
+    # zamba2-7b's head widths, a caller chunk the kernel splits
+    (1, 256, 3, 64, 64, 256), (2, 100, 2, 6, 5, 50)])
+def test_mamba2_ssd_state_kernel_on_card(cuda, B, S, H, P, N, chunk):
+    """The final state from pass (b)'s extra slot, and y unchanged."""
+    xdt = torch.from_numpy(rn(26, B, S, H, P)).to(cuda)
+    da = torch.from_numpy(-np.abs(rn(27, B, S, H)) * 0.1).to(cuda)
+    bm = torch.from_numpy(rn(28, B, S, H, N)).to(cuda)
+    cm = torch.from_numpy(rn(29, B, S, H, N)).to(cuda)
+    before = tssd.launches
+    y, state = tops.mamba2_ssd_state(xdt, da, bm, cm, chunk=chunk)
+    assert tssd.launches == before + 1
+    assert state.shape == (B, H, P, N) and state.dtype == torch.float32
+    want_y, want_state = tref.ssd_state_ref(
+        *(t.double() for t in (xdt, da, bm, cm)))
+    np.testing.assert_allclose(y.double().cpu().numpy(),
+                               want_y.cpu().numpy(), **TOL["float32"])
+    np.testing.assert_allclose(state.double().cpu().numpy(),
+                               want_state.cpu().numpy(), **TOL["float32"])
+    # the state before the last step is not the state after it
+    _, early = tref.ssd_state_ref(
+        *(t[:, :-1].double() for t in (xdt, da, bm, cm)))
+    assert not np.allclose(state.double().cpu().numpy(),
+                           early.cpu().numpy(), **TOL["float32"])
+    torch.testing.assert_close(y, tops.mamba2_ssd(xdt, da, bm, cm,
+                                                  chunk=chunk),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dh", SLSTM_SHAPES + [(9, 12, 2, 192),
+                                                     (2, 12, 2, 200)])
+def test_slstm_cell_state_kernel_on_card(cuda, B, S, H, dh):
+    """c, n, m after the last step from the gating threads (one and two
+    batch rows a cluster, clusters of 6 and 8), and h unchanged."""
+    g_in = torch.from_numpy(rn(56, B, S, 4, H, dh) * 0.5).to(cuda)
+    r = torch.from_numpy(rn(57, H, dh, 4, dh) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(58, 4, H, dh) * 0.1).to(cuda)
+    before = tsc.launches
+    h, (c, n, m) = tops.slstm_cell_state(g_in, r, b)
+    assert tsc.launches == before + 1
+    want_h, want = tref.slstm_cell_state_ref(g_in.double(), r.double(),
+                                             b.double())
+    np.testing.assert_allclose(h.double().cpu().numpy(),
+                               want_h.cpu().numpy(), **TOL["float32"])
+    for got, w in zip((c, n, m), want):
+        assert got.shape == (B, H, dh)
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   w.cpu().numpy(), **TOL["float32"])
+    torch.testing.assert_close(h, tops.slstm_cell(g_in, r, b), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,dh", SLSTM_SHAPES)
 def test_slstm_cell_kernel_on_card(cuda, B, S, H, dh):
     g_in = torch.from_numpy(rn(50, B, S, 4, H, dh) * 0.5).to(cuda)
@@ -475,7 +530,7 @@ def test_slstm_cell_cluster_plans_on_card(cuda, B, S, H, dh):
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.launch_on(
                 g_in.device, "repro_slstm_cell_f32", g_in.data_ptr(), r.data_ptr(),
-                b.data_ptr(), got.data_ptr(), B, S, H, dh, cs, 1)
+                b.data_ptr(), got.data_ptr(), 0, B, S, H, dh, cs, 1)
 
 
 def _default_battery():

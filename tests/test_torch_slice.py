@@ -213,6 +213,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     files.append(ROOT / "chip_smoke.py")
     files += sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 20
+    # the language models and their launcher are scanned too
+    for sub in ("models", "launch"):
+        assert any(f.parent.name == sub for f in files), sub
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
