@@ -151,6 +151,26 @@ Phases, each fatal on failure:
    prompt), f32, card against host, and the card's prefill-then-decode
    against its forward.  One ``{"lm": ...}``
    line.  Memory is freed between models.
+16. (after phase 15, before that ``kernels`` line) training on the
+   card: (a) the attention backward kernel (``csrc/flash_attention_bwd
+   .cu``, through ``ops.flash_attention`` under autograd) against the
+   plain version's autograd in float64 at ``ATTN_BWD_CASES`` (gemma2-9b's
+   global and local layers at seq 4096, a window of 128, yi-6b's G = 8,
+   Dk 192 / Dv 128 non-causal with Sq ≠ Skv), f32 and bf16, then timed at
+   gemma2-9b's global layer beside the forward with lse, the plain vjp,
+   ``torch.compile``'d ``flex_attention`` forward + backward and its
+   bound (:func:`check_attention_backward`); (b) gemma2-9b at full width
+   (8 layers, seq 4096, batch 4 in 4 microbatches, bf16, remat full)
+   trained 6 steps through ``Trainer.train``: per step s, tokens/s,
+   loss (falling), grad_norm, lr, share of the bound, and peak memory,
+   the counters set to 0 before and read after, exactly 64 forward and 32
+   backward attention launches a step (:func:`train_path`); (c) the
+   failure injected after step 5 at the smoke width, restored from step
+   4 and replayed, bit for bit against an uninterrupted run
+   (:func:`fault_tolerance_path`); (d) one train step of the whole model
+   at full width, f32, card against host (:func:`whole_train_check`).
+   One ``{"train": ...}`` line; the ``kernels`` line gains the
+   backward's row.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -169,7 +189,9 @@ launched any; and set to 0 before phase 14 and read after it, which
 fails if work removal or the benches launched any; and set to 0
 before each served model of phase 15 and read after it, which fails
 unless every kernel launched exactly twice a prefill's count (warm-up
-and timed request).  Without a
+and timed request); and set to 0 before phase 16 (b)'s steps and read
+after them, which fails unless the attention kernels launched exactly
+``TRAIN_STEP_LAUNCHES`` a step.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -269,6 +291,71 @@ REAL_ATTN_TOL = TOL["bfloat16"]
 # before P·V (as the reference kernel rounds it) leaves elements 1.8×
 # over it
 REAL_ATTN_F32_TOL = dict(TOL["bfloat16"], row_rtol=1e-2)
+
+# phase 16 (a): the attention backward kernel against the plain
+# version's autograd in float64 — (label, B, Sq, Skv, Hq, Hkv, D, Dv,
+# causal, window, softcap, q scale): gemma2-9b's global and local layers
+# at train_4k's 4096 (the local window, 4096, does not bite there), the
+# same with a biting window of 128, yi-6b's G = 8 at D = 128, and
+# deepseek-v2's Dk 192 / Dv 128 non-causal with Sq ≠ Skv, ragged against
+# the tiles
+ATTN_BWD_CASES = (
+    ("gemma2-9b global", 1, 4096, 4096, 16, 8, 256, 256, True, None, 50.0,
+     ATTN_Q_SCALE),
+    ("gemma2-9b local", 1, 4096, 4096, 16, 8, 256, 256, True, 4096, 50.0,
+     ATTN_Q_SCALE),
+    ("window 128", 1, 4096, 4096, 16, 8, 256, 256, True, 128, 50.0,
+     ATTN_Q_SCALE),
+    ("yi-6b G=8", 1, 4096, 4096, 32, 4, 128, 128, True, None, None, 1.0),
+    ("Dk 192 / Dv 128 cross", 2, 1000, 1544, 16, 16, 192, 128, False, None,
+     None, 1.0),
+)
+# f32: each of dq, dk, dv within 1e-4 × its max |g| of the float64 vjp;
+# bf16: P and dS are rounded to bf16 before their products, as the
+# forward rounds P, so each element is held within 1e-2 of itself plus
+# 2e-2 × its row's rms (phase 15's form) plus 1e-4 × max |g| (the f32
+# tolerance): a causal dq's first row is exactly 0 (one visible key, so
+# dS = P·(dP − Δ) = 0), and in rows that attend to one or two keys dq
+# nearly cancels, so no rounding passes a test relative to the row alone
+ATTN_BWD_F32_REL = 1e-4
+ATTN_BWD_BF16_TOL = dict(rtol=1e-2, row_atol=2e-2, floor=1e-4)
+
+# phase 16 (b): gemma2-9b at full width trained on the card — depth cut to
+# 8 of its 42 layers (4 local + 4 global), train_4k's seq 4096, global
+# batch 4 of its 256 in the preset's 4 microbatches, bf16 params, f32
+# moments, remat "full", 6 AdamW steps (lr 1e-3, warmup 1) on the
+# synthetic stream,
+# checkpointing off (one checkpoint of this state is ~25 GB of .npy)
+TRAIN_ARCH = "gemma2-9b"
+TRAIN_LAYERS = 8
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_STEPS = 6
+# hand-kernel launches of one step: each attention layer once per
+# microbatch forward, once more in remat's recompute, once backward
+TRAIN_STEP_LAUNCHES = {"flash_attention": TRAIN_LAYERS * 4 * 2,
+                       "flash_attention_bwd": TRAIN_LAYERS * 4}
+# (c) fault tolerance at the smoke width: seq 256, batch 4 in 2
+# microbatches, a checkpoint every 2 steps, a failure injected after the
+# fifth step (the trainer restores step 4 and replays), 8 steps
+FT_SEQ, FT_BATCH, FT_STEPS, FT_FAIL_AT = 256, 4, 8, 4
+# the losses must agree bit for bit, else within 1e-6 relative (logged,
+# with the steps before the failure showing whether two runs differ at
+# all without one)
+FT_REL = 1e-6
+# (d) one train step of the whole model (full width, f32, a local and a
+# global layer, whole_model_config), card against host: loss within 1e-5
+# relative, each gradient leaf within 2e-3 × its max |g|, the parameters
+# after the AdamW step within 1e-5 × max |p| — plus 2·lr where a nonzero
+# |g| is inside the gradient tolerance (2e-3 × max |g|): AdamW's first
+# step is lr·g/(|g| + eps), about ±lr, and where two gradients agree only
+# to the tolerance their signs may differ (at 1e-6 × max |g|, below the
+# 6e-6 the card and host gradients agree to, elements flip and miss by
+# 38×); and the card's AdamW against the host's from the same (the
+# card's) gradients within 1e-5 × max |p| everywhere
+TRAIN_WHOLE_LOSS_REL = 1e-5
+TRAIN_WHOLE_GRAD_REL = 2e-3
+TRAIN_WHOLE_PARAM_REL = 1e-5
 
 # phase 10: kernels each figure times (calibration + test), as the
 # reference's tags select them (tests/test_torch_paper_figures.py)
@@ -830,6 +917,7 @@ def ptxas_report(text: str) -> dict:
 
 #: kernel functions held to no register spills, by name fragment
 NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
+             "bwd_mma_kernel", "bwd_kernel", "delta_kernel",
              "dg_diff_kernel", "stream_kernel", "slstm_cluster_kernel",
              "chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
 
@@ -1845,17 +1933,22 @@ class KernelRecorder:
         return call
 
 
-def attention_excess(got, want, rtol, row_atol) -> float:
-    """How far bf16 attention ``got`` lies from ``want`` (float64, not
-    rounded), in units of the tolerance: the worst element under
-    |got − want| <= rtol·|want| + row_atol·rms(want's row).  The row's
-    rms is the scale of the error of a probability-weighted sum of
-    values with the probabilities rounded to bf16; a fixed atol would be
-    the size of a typical output over thousands of keys.  NaN fails."""
+def attention_excess(got, want, rtol, row_atol, floor=0.0) -> float:
+    """How far bf16 attention ``got`` (or its gradient) lies from ``want``
+    (float64, not rounded), in units of the tolerance: the worst element
+    under |got − want| <= rtol·|want| + row_atol·rms(want's row) +
+    floor·max |want|.  The row's rms is the scale of the error of a
+    probability-weighted sum of values with the probabilities rounded to
+    bf16; a fixed atol would be the size of a typical output over
+    thousands of keys.  The floor is for gradient rows whose exact value
+    cancels to about zero.  An element equal to ``want`` passes, also
+    where the tolerance is 0; NaN fails."""
     got, want = got.double(), want.double()
     rms = want.square().mean(dim=-1, keepdim=True).sqrt()
-    return float(((got - want).abs()
-                  / (rtol * want.abs() + row_atol * rms)).max())
+    diff = (got - want).abs()
+    ratio = diff / (rtol * want.abs() + row_atol * rms
+                    + floor * want.abs().max())
+    return float(ratio.where(diff != 0, diff.new_zeros(())).max())
 
 
 def check_recorded(first, ref) -> dict:
@@ -2073,6 +2166,376 @@ def lm_path(serve_main, lm, counting, InputShape, tree_map, configs, ops,
     return out
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs attention's mask keeps: query i sees keys
+    [max(0, i − window + 1) with a window, min(Skv, i + 1) when causal)."""
+    total = 0
+    for i in range(sq):
+        lo = max(0, i - window + 1) if window is not None else 0
+        hi = min(skv, i + 1) if causal else skv
+        total += max(0, hi - lo)
+    return total
+
+
+def attention_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, Dv, causal, window,
+                           dtype) -> tuple:
+    """The backward's bound: the vjp's five products over the visible
+    pairs, 2·(3·D + 2·Dv) operations each, at the dtype's peak (bf16
+    tensor cores, f32 FMA), against every byte of q, k, v, o, dO, lse,
+    dq, dk, dv once.  Returns (ms, "operations" or "bytes")."""
+    import torch
+    ops_n = (2 * B * Hq * visible_pairs(Sq, Skv, causal, window)
+             * (3 * D + 2 * Dv))
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * 2 * (B * Sq * Hq * (D + 2 * Dv)
+                          + B * Skv * Hkv * (D + Dv)) + 4 * B * Hq * Sq
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = ops_n / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_attention_backward(ops, ref, fa, dev) -> dict:
+    """Phase 16 (a): the attention backward kernel (through
+    ``ops.flash_attention`` under autograd: the forward kernel keeping
+    lse, then the backward kernel) against the plain version's autograd
+    in float64 on the same inputs, for every ``ATTN_BWD_CASES`` case in
+    f32 (max |err| <= ``ATTN_BWD_F32_REL`` × max |g| of each of dq, dk,
+    dv) and bf16 (:func:`attention_excess` at ``ATTN_BWD_BF16_TOL``); then
+    gemma2-9b's global layer in bf16 timed: the backward alone, the
+    forward with lse, forward + backward, the plain vjp, the
+    ``torch.compile``'d ``flex_attention`` forward + backward, and the
+    bound.  Launches here count nowhere."""
+    import functools
+
+    import torch
+    out = {"cases": {}}
+    for label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs in \
+            ATTN_BWD_CASES:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        base = (torch.randn(B, Sq, Hq, D, generator=gen, device=dev) * qs,
+                torch.randn(B, Skv, Hkv, D, generator=gen, device=dev),
+                torch.randn(B, Skv, Hkv, Dv, generator=gen, device=dev),
+                torch.randn(B, Sq, Hq, Dv, generator=gen, device=dev))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (t.to(dtype) for t in base)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            t0 = time.perf_counter()
+            o = ops.flash_attention(*leaves, block_q=Sq, block_k=Skv, **kw)
+            got = torch.autograd.grad(o, leaves, dout)
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t0
+            wide = [t.double().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(
+                ref.attention_ref(*wide, **kw), wide, dout.double())
+            del wide
+            row = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = float((g.double() - w).abs().max())
+                if dtype == torch.float32:
+                    worst = err / (ATTN_BWD_F32_REL * float(w.abs().max()))
+                else:
+                    worst = attention_excess(g, w, **ATTN_BWD_BF16_TOL)
+                row[name] = {"max_abs_err": err, "worst": worst}
+            del want, got, o, leaves
+            torch.cuda.empty_cache()
+            tag = f"{label} {str(dtype).split('.')[1]}"
+            log(f"attention backward {tag} ([{B}, {Sq}/{Skv}, {Hq}/{Hkv}, "
+                f"{D}/{Dv}] {kw}, kernel {kernel_s:.2f} s): " + ", ".join(
+                    f"{n} max|err| {r['max_abs_err']:.3g} worst "
+                    f"{r['worst']:.3g}×" for n, r in row.items()))
+            bad = [n for n, r in row.items() if not r["worst"] <= 1]
+            if bad:
+                raise SystemExit(f"attention backward {tag}: {bad} outside "
+                                 f"the tolerance: {row}")
+            out["cases"][tag] = row
+
+    # the main path's layer, timed
+    label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs = \
+        ATTN_BWD_CASES[0]
+    kw = dict(causal=causal, window=window, softcap=cap)
+    scale = 1.0 / math.sqrt(D)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, Sq, Hq, Hkv, D, qs)
+    dout = torch.randn(B, Sq, Hq, Dv, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    o, lse = fa.flash_attention_lse_cuda(q, k, v, causal, window, cap, scale)
+
+    def backward():
+        return fa.flash_attention_bwd_cuda(dout, q, k, v, lse, causal,
+                                           window, cap, scale)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def ours():
+        return torch.autograd.grad(
+            ops.flash_attention(*leaves, block_q=Sq, block_k=Skv, **kw),
+            leaves, dout)
+
+    flex = flex_library(kw, Sq, dev)
+    lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def library():
+        return torch.autograd.grad(flex(*lib_leaves), lib_leaves, dout)
+
+    bound, bound_by = attention_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, Dv,
+                                             causal, window, torch.bfloat16)
+    t0 = time.perf_counter()
+    library()   # compiles
+    compile_s = time.perf_counter() - t0
+    timed = {"ms": time_ms(backward),
+             "forward_lse_ms": time_ms(fa.flash_attention_lse_cuda, q, k, v,
+                                       causal, window, cap, scale),
+             "fwd_bwd_ms": time_ms(ours),
+             "plain_ms": time_ms(functools.partial(ref.attention_bwd_ref,
+                                                   **kw), dout, q, k, v,
+                                 iters=3),
+             "library_ms": time_ms(library),
+             "bound_ms": bound, "bound_by": bound_by,
+             "library": "torch.compile(flex_attention) forward + backward",
+             "shape": [B, Sq, Hq, Hkv, D], "options": kw}
+    log(f"attention backward {label} bf16: {timed['ms']:.4g} ms = "
+        f"{bound / timed['ms']:.1%} of its bound ({bound:.4g} ms by "
+        f"{bound_by}); forward with lse {timed['forward_lse_ms']:.4g} ms, "
+        f"forward + backward {timed['fwd_bwd_ms']:.4g} ms against "
+        f"flex_attention's {timed['library_ms']:.4g} ms (compiled in "
+        f"{compile_s:.1f} s); plain vjp {timed['plain_ms']:.4g} ms")
+    out["timed"] = timed
+    del flex, lib_leaves, leaves, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_counts(fa) -> dict:
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.backward_launches}
+
+
+def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
+               configs, counting, tree_leaves, fa, zero_counts, dev,
+               tmp) -> dict:
+    """Phase 16 (b): gemma2-9b at full width (``TRAIN_*`` cuts) trained
+    for ``TRAIN_STEPS`` steps through ``Trainer.train`` on the card; the
+    counters set to 0 before and read after, exactly
+    ``TRAIN_STEP_LAUNCHES`` a step.  Per step: wall s, tokens/s, loss,
+    grad_norm, lr, and the step's share of its bound — the work it needs
+    (6·N·tokens + attention forward and backward,
+    ``models.counting``) and with remat's recompute (8·N·tokens + 4/3 of
+    attention), over 989 TFLOP/s.  Peak memory over the run."""
+    import torch
+    cfg = configs.get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
+    run = make_run_config(TRAIN_ARCH, "train_4k", model_config=cfg)
+    shape = InputShape("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    run = run.replace(shape=shape, checkpoint_every=0,
+                      checkpoint_dir=str(tmp / "train_ckpt"),
+                      optimizer=OptimizerConfig(learning_rate=1e-3,
+                                                warmup_steps=1,
+                                                total_steps=100))
+    flops = counting.model_flops(cfg, shape)
+    attn = counting.attention_flops(cfg, shape)
+    bound_ms = (flops + attn) / PEAK_BF16_FLOPS * 1e3
+    remat_bound_ms = (flops * 8 / 6 + attn * 4 / 3) / PEAK_BF16_FLOPS * 1e3
+    t0 = time.perf_counter()
+    trainer = Trainer(run, device=dev)
+    state = trainer.init_state(run.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in tree_leaves(state.params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    state = trainer.train(state, TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    launched = train_counts(fa)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = [r for r in trainer.metrics_log if "loss" in r]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    for r in rows:
+        r["tokens_per_s"] = tokens / r["wall_s"]
+        r["share_of_bound"] = bound_ms / (r["wall_s"] * 1e3)
+        log(f"{TRAIN_ARCH} train step {r['step']}: {r['wall_s']:.4g} s, "
+            f"{r['tokens_per_s']:.0f} tok/s, loss {r['loss']:.5g}, "
+            f"grad_norm {r['grad_norm']:.4g}, lr {r['lr']:.3g}, "
+            f"{r['share_of_bound']:.1%} of its bound ({bound_ms:.4g} ms; "
+            f"{remat_bound_ms:.4g} ms with remat's recompute)")
+    want = {k: v * TRAIN_STEPS for k, v in TRAIN_STEP_LAUNCHES.items()}
+    log(f"{TRAIN_ARCH} ({TRAIN_LAYERS} layers, {params / 1e9:.4g} B params, "
+        f"seq {TRAIN_SEQ}, batch {TRAIN_BATCH} in {run.microbatches} "
+        f"microbatches, remat {run.remat}): init {init_s:.1f} s, peak "
+        f"{peak / 2**30:.2f} GiB, launches {launched} (want {want})")
+    losses = [r["loss"] for r in rows]
+    if len(rows) != TRAIN_STEPS or any(r.get("event") for r in
+                                       trainer.metrics_log):
+        raise SystemExit(f"training log: {trainer.metrics_log}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"{TRAIN_ARCH}: losses {losses} are not finite "
+                         f"and falling")
+    if launched != want:
+        raise SystemExit(f"{TRAIN_ARCH}: the steps launched {launched}, "
+                         f"not {want}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "params": params,
+            "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+            "microbatches": run.microbatches, "remat": run.remat,
+            "moment_dtype": run.optimizer.moment_dtype, "steps": rows,
+            "launches": launched, "launches_per_step": TRAIN_STEP_LAUNCHES,
+            "peak_memory_bytes": peak, "bound_ms": bound_ms,
+            "remat_bound_ms": remat_bound_ms, "init_s": init_s}
+
+
+def fault_tolerance_path(Trainer, InputShape, OptimizerConfig, RunConfig,
+                         configs, dev, tmp) -> dict:
+    """Phase 16 (c): gemma2-9b's pattern at its smoke width (``FT_*``):
+    one run with a failure injected after step ``FT_FAIL_AT + 1`` (the
+    hook first waits for the step-``FT_FAIL_AT`` checkpoint, so the
+    restore point is that step), one uninterrupted run; every step's
+    loss must equal the uninterrupted run's bit for bit (or within
+    ``FT_REL``, logged as not bit for bit), and one
+    ``metrics_log`` row must say ``restored``."""
+    import torch
+    cfg = configs.get_smoke_config(TRAIN_ARCH)
+
+    def run_for(name):
+        return RunConfig(
+            model=cfg, shape=InputShape("ft", FT_SEQ, FT_BATCH, "train"),
+            optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
+                                      total_steps=100),
+            microbatches=2, checkpoint_every=2,
+            checkpoint_dir=str(tmp / name), max_step_retries=2)
+
+    failing = {}
+
+    def hook(step):
+        if step == FT_FAIL_AT and not failing:
+            failing["at"] = step
+            trainer.ckpt.wait()
+            return True
+        return False
+
+    trainer = Trainer(run_for("ft_fail"), failure_hook=hook, device=dev)
+    trainer.train(trainer.init_state(0), FT_STEPS, log_every=0)
+    trainer.ckpt.wait()
+    clean = Trainer(run_for("ft_clean"), device=dev)
+    clean.train(clean.init_state(0), FT_STEPS, log_every=0)
+    clean.ckpt.wait()
+    got = {r["step"]: r["loss"] for r in trainer.metrics_log if "loss" in r}
+    want = {r["step"]: r["loss"] for r in clean.metrics_log if "loss" in r}
+    events = [r for r in trainer.metrics_log if r.get("event") == "restored"]
+    rel = {s: abs(got[s] - want[s]) / abs(want[s]) for s in want
+           if s in got}
+    exact = all(r == 0 for r in rel.values())
+    log(f"fault tolerance ({TRAIN_ARCH} smoke, seq {FT_SEQ}): events "
+        f"{events}; losses with the failure {got}; uninterrupted {want}; "
+        f"relative differences {rel} ("
+        + ("bit for bit" if exact else "not bit for bit: the runs differ "
+           "run to run, before the failure too where a step's rel is not "
+           "0 there") + ")")
+    if len(events) != 1 or events[0]["step"] != FT_FAIL_AT:
+        raise SystemExit(f"fault tolerance: restore events {events}")
+    if set(got) != set(want) or not max(rel.values()) <= FT_REL:
+        raise SystemExit("fault tolerance: the replayed losses differ from "
+                         "the uninterrupted run's")
+    return {"events": events, "losses": got, "uninterrupted": want,
+            "relative_differences": rel, "bit_exact": exact}
+
+
+def whole_train_check(lm, steps, adamw, SyntheticLMDataset, RunConfig,
+                      InputShape, OptimizerConfig, tree_map, tree_leaves,
+                      configs, fa, dev) -> dict:
+    """Phase 16 (d): one train step of the whole model at full width
+    (:func:`whole_model_config`: f32, a local and a global layer, the
+    window cut to 128 and the attention softcap to 2, so both bite at
+    seq 256), the same weights (drawn on the card, copied to the host)
+    and batch, on the card through the kernels and on the host through
+    their plain versions: loss, every gradient leaf and every parameter
+    after the AdamW step (``TRAIN_WHOLE_*``); and the card's AdamW alone
+    against the host's applied to the card's gradients, every parameter
+    within ``TRAIN_WHOLE_PARAM_REL`` × max |p| with no allowance."""
+    import torch
+    cfg = whole_model_config(configs, TRAIN_ARCH)
+    run = RunConfig(model=cfg, shape=InputShape("whole", LM_WHOLE_PROMPT, 1,
+                                                "train"),
+                    optimizer=OptimizerConfig(warmup_steps=1))
+    loss_fn = steps.make_loss_fn(run)
+    batch = SyntheticLMDataset(cfg, LM_WHOLE_PROMPT, 1, seed=16).batch_at(0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    with torch.no_grad():
+        card_params = lm.init(gen, cfg, dev)
+        host_params = tree_map(lambda t: t.to("cpu", copy=True),
+                               card_params)
+        host_before = tree_map(lambda t: t.to("cpu", copy=True),
+                               card_params)
+
+    def one_step(params, device):
+        params = tree_map(lambda t: t.requires_grad_(), params)
+        b = {k: torch.from_numpy(v).to(device, dtype=torch.long)
+             for k, v in batch.items()}
+        loss, _, grads = steps.value_and_grad(loss_fn, params, b)
+        opt = adamw.init_opt_state(params, run.optimizer)
+        _, _, metrics = adamw.apply_updates(params, grads, opt,
+                                            run.optimizer)
+        return float(loss), grads, params, float(metrics["lr"])
+
+    before = train_counts(fa)
+    card_loss, card_g, card_p, lr = one_step(card_params, dev)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in train_counts(fa).items()}
+    t0 = time.perf_counter()
+    host_loss, host_g, host_p, _ = one_step(host_params, torch.device("cpu"))
+    host_s = time.perf_counter() - t0
+    card_g = tree_map(lambda g: g.cpu(), card_g)
+    card_p = tree_map(lambda p: p.detach().cpu(), card_p)
+    adamw.apply_updates(host_before, card_g,
+                        adamw.init_opt_state(host_before, run.optimizer),
+                        run.optimizer)
+    loss_rel = abs(card_loss - host_loss) / abs(host_loss)
+    grad_rel, param_worst, adamw_worst, flippable, total = 0.0, 0.0, 0.0, 0, 0
+    for cg, hg, cp, hp, ap in zip(*map(tree_leaves, (
+            card_g, host_g, card_p, host_p, host_before))):
+        hp = hp.detach()
+        gmax = float(hg.abs().max())
+        grad_rel = max(grad_rel, float((cg - hg).abs().max())
+                       / max(gmax, 1e-30))
+        small = (hg.abs() < TRAIN_WHOLE_GRAD_REL * gmax) & (hg != 0)
+        flippable += int(small.sum())
+        total += hg.numel()
+        pmax = float(hp.abs().max())
+        tol = TRAIN_WHOLE_PARAM_REL * pmax + torch.where(small, 2 * lr, 0.0)
+        param_worst = max(param_worst, float(((cp - hp).abs() / tol).max()))
+        adamw_worst = max(adamw_worst, float((cp - ap).abs().max())
+                          / (TRAIN_WHOLE_PARAM_REL * pmax))
+    del card_params, card_g, card_p, host_before
+    torch.cuda.empty_cache()
+    log(f"{TRAIN_ARCH} whole model train step ({cfg.num_layers} layers, "
+        f"f32, seq {LM_WHOLE_PROMPT}): card loss {card_loss:.8g}, host "
+        f"{host_loss:.8g} (rel {loss_rel:.3g}); worst gradient leaf "
+        f"{grad_rel:.3g} × its max |g|; parameters after AdamW worst "
+        f"{param_worst:.3g}× the tolerance ({flippable} of {total} "
+        f"elements with a nonzero |g| inside the gradient tolerance); the "
+        f"card's AdamW against the host's on the card's gradients worst "
+        f"{adamw_worst:.3g}× {TRAIN_WHOLE_PARAM_REL} × max |p|; card "
+        f"launches {launched}; host {host_s:.1f} s")
+    if not loss_rel <= TRAIN_WHOLE_LOSS_REL \
+            or not grad_rel <= TRAIN_WHOLE_GRAD_REL or not param_worst <= 1 \
+            or not adamw_worst <= 1:
+        raise SystemExit(f"{TRAIN_ARCH} whole-model train step: card and "
+                         f"host differ (loss {loss_rel:.3g}, gradients "
+                         f"{grad_rel:.3g}, parameters {param_worst:.3g}×, "
+                         f"AdamW {adamw_worst:.3g}×)")
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers}
+    if launched != want:
+        raise SystemExit(f"whole-model train step launched {launched}, not "
+                         f"{want}")
+    return {"layers": cfg.num_layers, "seq": LM_WHOLE_PROMPT,
+            "loss_rel": loss_rel, "grad_rel": grad_rel,
+            "param_worst": param_worst, "adamw_worst": adamw_worst,
+            "sign_free_elements": flippable,
+            "elements": total, "card_launches": launched,
+            "host_s": host_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2114,7 +2577,13 @@ def main() -> int:
     from repro_torch.launch import serve as lm_serve
     from repro_torch.models import counting as lm_counting
     from repro_torch.models import lm
-    from repro_torch.models.param import tree_map
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.configs import OptimizerConfig, RunConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import steps
+    from repro_torch.launch.presets import make_run_config
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import Trainer
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2154,13 +2623,15 @@ def main() -> int:
 
     def counts():
         return {**{m.__name__.rsplit(".", 1)[1]: m.launches for m in single},
-                **microbench.launches}
+                **microbench.launches,
+                "flash_attention_bwd": flash_attention.backward_launches}
 
     def zero_counts():
         for m in single:
             m.launches = 0
         for name in microbench.launches:
             microbench.launches[name] = 0
+        flash_attention.backward_launches = 0
 
     # ---- 3-5. the base-model path, counted ---------------------------------
     zero_counts()
@@ -2417,6 +2888,30 @@ def main() -> int:
                              "seconds": time.perf_counter() - t0,
                              "device": smi}}), flush=True)
 
+    # ---- 16. training on the card ------------------------------------------
+    t16 = time.perf_counter()
+    backward = check_attention_backward(ops, ref, flash_attention, dev)
+    log(f"phase 16 (a) took {time.perf_counter() - t16:.1f} s")
+    t0 = time.perf_counter()
+    training = train_path(Trainer, make_run_config, InputShape,
+                          OptimizerConfig, configs, lm_counting, tree_leaves,
+                          flash_attention, zero_counts, dev, tmp)
+    log(f"phase 16 (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fault = fault_tolerance_path(Trainer, InputShape, OptimizerConfig,
+                                 RunConfig, configs, dev, tmp)
+    log(f"phase 16 (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whole_train = whole_train_check(
+        lm, steps, adamw, SyntheticLMDataset, RunConfig, InputShape,
+        OptimizerConfig, tree_map, tree_leaves, configs, flash_attention,
+        dev)
+    log(f"phase 16 (d) took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"train": {
+        "attention_backward": backward, "gemma2_9b": training,
+        "fault_tolerance": fault, "whole_model": whole_train,
+        "seconds": time.perf_counter() - t16, "device": smi}}), flush=True)
+
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
                "dg_diff": "src/repro/kernels/dg_diff.py:41",
@@ -2425,6 +2920,21 @@ def main() -> int:
                "flash_attention": "src/repro/kernels/flash_attention.py:109",
                "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:78",
                "slstm_cell": "src/repro/kernels/slstm_cell.py:77"}
+    # the backward kernel: launches from phase 16 (b), its error at the
+    # main path's layer (gemma2-9b global, bf16), timed there
+    timed = backward["timed"]
+    measured["flash_attention_bwd"] = {
+        key: timed[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+    measured["flash_attention_bwd"].update(
+        library=timed["library"], forward_lse_ms=timed["forward_lse_ms"],
+        fwd_bwd_ms=timed["fwd_bwd_ms"], pred_over_meas={})
+    launches["flash_attention_bwd"] = training["launches"][
+        "flash_attention_bwd"]
+    errs["flash_attention_bwd"] = max(
+        r["max_abs_err"] for r in backward["cases"][
+            f"{ATTN_BWD_CASES[0][0]} bfloat16"].values())
+    sources["flash_attention_bwd"] = "src/repro/models/layers.py:151"
     rows = []
     for name, meas in measured.items():
         row = {"name": name, "route": "cuda",
@@ -2433,6 +2943,8 @@ def main() -> int:
                "max_abs_err": errs[name], **meas}
         if name in lm_launches:   # phase 15, the served models
             row["launches_lm"] = lm_launches[name]
+        if name == "flash_attention":   # phase 16 (b), the training steps
+            row["launches_train"] = training["launches"][name]
         if name in base_pred:
             row["predicted_ms"]["base"] = base_pred[name]
             row["pred_over_meas"]["base"] = base_pred[name] / meas["ms"]

@@ -38,7 +38,9 @@ from repro_torch.core.counting import (
 )
 from repro_torch.kernels.dg_diff import slab_width as dg_slab_width
 from repro_torch.kernels.flash_attention import TILE_K as FLASH_TILE_K
+from repro_torch.kernels.flash_attention import BWD_TILES as FLASH_BWD_TILES
 from repro_torch.kernels.flash_attention import TILE_Q as FLASH_TILE_Q
+from repro_torch.kernels.flash_attention import bwd_steps as flash_bwd_steps
 from repro_torch.kernels.flash_attention import kv_tiles_visited
 from repro_torch.kernels.mamba2_ssd import INNER_CHUNK as SSD_TILE
 from repro_torch.kernels.mamba2_ssd import inner_chunk as ssd_inner_chunk
@@ -243,6 +245,69 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return c
 
 
+def flash_attention_bwd_cost(dout: torch.Tensor, q: torch.Tensor,
+                             k: torch.Tensor, v: torch.Tensor, causal: bool,
+                             window, softcap, scale: float, block_q: int,
+                             block_k: int) -> FeatureCounts:
+    """The gradient of :func:`flash_attention_cost`'s function, on the
+    forward's grid (B, Hq, Sq/bq, Skv/bk), every tile counted as the
+    forward's rule counts it (the reference differentiates jnp; it has
+    no backward kernel to follow).
+
+    Per program: the vjp's five products — ``q·kᵀ`` recomputed, ``dO·vᵀ``,
+    ``Pᵀ·dO``, ``dSᵀ·q``, ``dS·k``, bq·bk·(3·D + 2·Dv) madds — ``P =
+    exp(s − lse)``, ``Δ = rowsum(P∘dP)`` (bq·bk madds), ``dS = P∘(dP −
+    Δ)`` and, with a softcap, its ``tanh`` and factor ``1 − t²``; the
+    scale of dq and dk once per row.  Reads q, k, v, dO and lse, writes
+    dq, dk and dv, each block once per program that changes it, as the
+    forward.  The staging term follows the CUDA kernel's four passes
+    (csrc/flash_attention_bwd.cu): each row tile staged once (queries'
+    q and dO in Δ and dQ, keys' k and v in dK, k in dV) and each column
+    step's tiles (k and v in Δ and dQ, q and dO in dK and dV), in f32
+    also W in dQ, dK and dV."""
+    b, sq, hq, d = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    nq, nk = sq // block_q, skv // block_k
+    grid = (b, hq, nq, nk)
+    programs = math.prod(grid)
+    tile = block_q * block_k
+    c = FeatureCounts()
+    c.add("f_op_float32_madd", programs * tile * (3 * d + 2 * dv + 1))
+    c.add("f_op_float32_mul", programs * tile * 3 + b * sq * hq * d
+          + b * skv * hkv * d)
+    c.add("f_op_float32_add", programs * tile * 2)
+    c.add("f_op_float32_cmp", programs * tile)
+    c.add("f_op_float32_transc", programs * tile)
+    c.add("f_op_int32_add", programs * tile * (2 + (window is not None)))
+    if softcap is not None:
+        c.add("f_op_float32_div", programs * tile)
+        c.add("f_op_float32_transc", programs * tile)
+        c.add("f_op_float32_mul", programs * tile * 3)
+        c.add("f_op_float32_add", programs * tile)
+    qo_fetches = block_fetches(grid, (0, 1, 2))
+    kv_fetches = programs if nk > 1 else b * hkv
+    _traffic(c, "in", q.dtype, block_q * d, qo_fetches)
+    _traffic(c, "in", dout.dtype, block_q * dv, qo_fetches)
+    _traffic(c, "in", torch.float32, block_q, qo_fetches)   # lse
+    _traffic(c, "in", k.dtype, block_k * d, kv_fetches)
+    _traffic(c, "in", v.dtype, block_k * dv, kv_fetches)
+    _traffic(c, "out", q.dtype, block_q * d, qo_fetches)
+    _traffic(c, "out", k.dtype, block_k * d, kv_fetches)
+    _traffic(c, "out", v.dtype, block_k * dv, kv_fetches)
+    rows, cols = FLASH_BWD_TILES[q.dtype]
+    dq_steps, dkv_steps = flash_bwd_steps(sq, skv, causal, window, q.dtype)
+    q_rows = b * hq * -(-sq // rows) * rows
+    k_rows = b * hkv * -(-skv // rows) * rows
+    steps = b * hq * (dq_steps + 2 * dkv_steps)   # the passes W feeds
+    staged = (2 * q_rows * (d + dv) + k_rows * (2 * d + dv)
+              + (steps + b * hq * dq_steps) * cols * (d + dv))
+    if q.dtype == torch.float32:
+        staged += steps * rows * cols
+    c.add(f"f_vmem_contig_{dtype_name(q.dtype)}_store", staged)
+    c.add("f_sync_grid_programs", programs)
+    return c
+
+
 def mamba2_ssd_cost(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
                     cm: torch.Tensor, chunk: int) -> FeatureCounts:
     """Grid (B, H, S/chunk); every block — x (L, P), dt·A (L,), B and C
@@ -342,6 +407,8 @@ register_op_cost_rule("repro_torch::dg_diff", dg_diff_cost)
 register_op_cost_rule("repro_torch::stream_strided", stream_strided_cost)
 register_op_cost_rule("repro_torch::madd_throughput", madd_throughput_cost)
 register_op_cost_rule("repro_torch::flash_attention", flash_attention_cost)
+register_op_cost_rule("repro_torch::flash_attention_bwd",
+                      flash_attention_bwd_cost)
 register_op_cost_rule("repro_torch::mamba2_ssd", mamba2_ssd_cost)
 register_op_cost_rule("repro_torch::slstm_cell", slstm_cell_cost)
 register_op_cost_rule("repro_torch::mamba2_ssd_state", mamba2_ssd_state_cost)

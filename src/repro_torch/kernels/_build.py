@@ -30,7 +30,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu",
            "stream_strided.cu", "madd_throughput.cu", "flash_attention.cu",
-           "mamba2_ssd.cu", "slstm_cell.cu")
+           "flash_attention_bwd.cu", "mamba2_ssd.cu", "slstm_cell.cu")
+#: headers the sources include (part of the library's hash)
+HEADERS = ("mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -50,9 +52,16 @@ SIGNATURES: Dict[str, List] = {
     "repro_stream_strided_f32": [ctypes.POINTER(_P), _I, _P, _I, _I, _I, _I,
                                  _U, _I, _P],
     "repro_madd_throughput_f32": [_P, _P, _I, _I, _F, _F, _P],
-    # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap, causal, window
-    "repro_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    "repro_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    # q, k, v, o, lse (or 0), B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap,
+    # causal, window
+    "repro_flash_attention_f32": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    "repro_flash_attention_bf16": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    # q, k, v, dout, lse, delta (scratch), dq, dk, dv, then as the forward
+    # from B on
+    "repro_flash_attention_bwd_f32": [_P] * 9 + [_I] * 7
+    + [_F, _F, _I, _I, _P],
+    "repro_flash_attention_bwd_bf16": [_P] * 9 + [_I] * 7
+    + [_F, _F, _I, _I, _P],
     # the SSD's passes: (a) xdt, da, B, states, decay; (b) states, decay,
     # final (the state after the last chunk, or 0);
     # (c) xdt, da, B, C, states, y; then batch, S, H, P, N, chunk
@@ -83,7 +92,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:12]}.so"

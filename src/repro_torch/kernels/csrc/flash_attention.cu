@@ -73,10 +73,13 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTileK = 64;      // key/value rows per inner step (both paths)
 
 struct Params {
@@ -84,6 +87,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;      // [B, Hq, Sq] log-sum-exp of each row's scores, or null
   int sq, skv, hq, hkv, d, dv;
   float scale;
   float softcap;   // 0: none
@@ -278,6 +282,8 @@ flash_kernel(Params p, int ld) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= p.sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((size_t)b * p.hq + h) * p.sq + qpos] = m[i] + logf(denom);
     float* orow = og + (size_t)qpos * p.hq * p.dv;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -332,8 +338,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr float kMaskedL = kNegInf * kLog2e;
 constexpr float kGuardL = kNegInf / 2 * kLog2e;
 
-typedef __nv_bfloat16 bf16;
-
 struct Shape {
   int d16, dv16;     // D and Dv rounded up to 16
   int ldq, ldv;      // shared row strides (elements) of Q/K and of V
@@ -342,58 +346,6 @@ struct Shape {
   float cap_k;       // 2 · log2 e · scale / softcap
   float cap_l;       // softcap · log2 e
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
-                                              uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-// c += a · b: a the 16 × 16 row-major A fragment, (b0, b1) one 16 × 8
-// column-major B fragment
-__device__ __forceinline__ void mma16816(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Stage rows [row0, row0 + rows) of a [*, n_cols] bf16 operand (row
 // stride `stride` elements) into `dst` (row stride `ld`), zero past the
@@ -616,6 +568,9 @@ flash_mma_kernel(Params p, Shape sh) {
   for (int r = 0; r < 2; ++r) {
     const int qpos = r == 0 ? row_a : row_b;
     if (qpos >= p.sq) continue;
+    if (p.lse != nullptr && lane % 4 == 0)   // m and l in log2 units
+      p.lse[((size_t)b * p.hq + h) * p.sq + qpos] =
+          (m[r] + log2f(denom[r])) * kLn2;
     bf16* orow = og + (size_t)qpos * p.hq * p.dv;
 #pragma unroll
     for (int n = 0; n < NV; ++n) {
@@ -678,24 +633,27 @@ int check(const Params& p, int batch) {
 
 // q[B, Sq, Hq, D], k[B, Skv, Hkv, D], v[B, Skv, Hkv, Dv] → o[B, Sq, Hq, Dv],
 // all contiguous; D, Dv <= 256, Hq a multiple of Hkv.  softcap 0 means
-// none, window < 0 means none.
+// none, window < 0 means none.  lse, when not null, receives each row's
+// log-sum-exp of its (scaled, capped, masked) scores [B, Hq, Sq], which
+// the backward (flash_attention_bwd.cu) recomputes the probabilities
+// from; a row that sees no key gets about -1e30.
 extern "C" int repro_flash_attention_f32(
-    const void* q, const void* k, const void* v, void* o, int batch, int sq,
-    int skv, int hq, int hkv, int d, int dv, float scale, float softcap,
-    int causal, int window, void* stream) {
-  const Params p = {q, k, v, o, sq, skv, hq, hkv, d, dv, scale, softcap,
-                    causal, window};
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int batch, int sq, int skv, int hq, int hkv, int d, int dv, float scale,
+    float softcap, int causal, int window, void* stream) {
+  const Params p = {q, k, v, o, lse, sq, skv, hq, hkv, d, dv, scale,
+                    softcap, causal, window};
   const int c = check(p, batch);
   if (c != 0) return c < 0 ? (int)cudaSuccess : c;
   return fma_path::run(p, batch, (cudaStream_t)stream);
 }
 
 extern "C" int repro_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, int batch, int sq,
-    int skv, int hq, int hkv, int d, int dv, float scale, float softcap,
-    int causal, int window, void* stream) {
-  const Params p = {q, k, v, o, sq, skv, hq, hkv, d, dv, scale, softcap,
-                    causal, window};
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int batch, int sq, int skv, int hq, int hkv, int d, int dv, float scale,
+    float softcap, int causal, int window, void* stream) {
+  const Params p = {q, k, v, o, lse, sq, skv, hq, hkv, d, dv, scale,
+                    softcap, causal, window};
   const int c = check(p, batch);
   if (c != 0) return c < 0 ? (int)cudaSuccess : c;
   return mma_path::run(p, batch, (cudaStream_t)stream);

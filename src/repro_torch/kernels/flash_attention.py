@@ -1,9 +1,21 @@
 """Flash attention on Hopper — the counterpart of
-``repro.kernels.flash_attention`` (TPU kernel ``_flash_kernel``).
+``repro.kernels.flash_attention`` (TPU kernel ``_flash_kernel``) — and
+its gradient.
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` on CUDA
 tensors; the custom op ``repro_torch::flash_attention`` runs the plain
-version on CPU tensors and gives the counter its fake impl.  One CUDA
+version on CPU tensors and gives the counter its fake impl.
+
+The gradient: on the card :class:`FlashAttention` (an
+``autograd.Function``) runs the forward kernel with each row's
+log-sum-exp kept (``flash_attention_lse_cuda``) and its backward
+launches ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``:
+Δ = rowsum(P∘dP), then dQ, dK and dV, four passes, no atomics).  On
+the host the custom op's autograd calls the custom op
+``repro_torch::flash_attention_bwd``, whose CPU impl is the plain vjp
+(``ref.attention_bwd_ref``) and whose fake impl lets the counter price
+a training step.  The reference has no backward kernel: it
+differentiates its jnp attention.  One CUDA
 block owns a query tile of a (batch, head) and streams the keys in
 ``TILE_K``-row tiles with the softmax state in registers, visiting only
 the kv tiles its rows can see (:func:`kv_tile_range`): bf16 on the
@@ -17,10 +29,14 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
-#: launches of the CUDA kernel in this process
+#: launches of the forward CUDA kernel in this process (with or without
+#: the log-sum-exp)
 launches = 0
+#: calls of ``flash_attention_bwd_cuda`` (each launches the backward's
+#: four kernels) in this process
+backward_launches = 0
 
 #: query rows a CUDA block owns, by operand dtype, and key rows per
 #: inner step (kTileQ of each path, and kTileK, in the source)
@@ -28,22 +44,58 @@ TILE_Q = {torch.bfloat16: 128, torch.float32: 64}
 TILE_K = 64
 #: largest head dimension (D and Dv) the kernel takes
 MAX_HEAD_DIM = 256
+#: the backward's tiles by operand dtype: rows a CUDA block owns (queries
+#: in its dQ pass, keys in its dK and dV passes) and column rows per step
+#: (kTR and kTC of each path in csrc/flash_attention_bwd.cu)
+BWD_TILES = {torch.bfloat16: (64, 32), torch.float32: (32, 32)}
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
+_BWD_ENTRY = {torch.float32: "repro_flash_attention_bwd_f32",
+              torch.bfloat16: "repro_flash_attention_bwd_bf16"}
 
 
 def kv_tile_range(q_first: int, q_last: int, skv: int, causal: bool,
-                  window: Optional[int]) -> Tuple[int, int]:
+                  window: Optional[int], tile: int = TILE_K
+                  ) -> Tuple[int, int]:
     """The kv tiles ``[lo, hi)`` query rows ``[q_first, q_last]`` can see,
     as the kernel computes them: keys ``[max(0, q_first − window + 1),
     min(Skv, q_last + 1))`` — the lower end only with a window, the upper
     end only when causal (none under a causal mask with window 0) —
-    rounded out to whole ``TILE_K`` tiles."""
+    rounded out to whole ``tile``-row tiles."""
     lo = max(0, q_first - window + 1) if window is not None else 0
     hi = skv if not causal else 0 if window == 0 else min(skv, q_last + 1)
-    t_lo = lo // TILE_K
-    return (t_lo, -(-hi // TILE_K)) if lo < hi else (t_lo, t_lo)
+    t_lo = lo // tile
+    return (t_lo, -(-hi // tile)) if lo < hi else (t_lo, t_lo)
+
+
+def q_tile_range(k_first: int, k_last: int, sq: int, causal: bool,
+                 window: Optional[int], tile: int) -> Tuple[int, int]:
+    """The query tiles ``[lo, hi)`` that see a key of rows ``[k_first,
+    k_last]``, as the backward's dK and dV passes walk them: queries
+    ``[k_first if causal else 0, min(Sq, k_last + window))`` (none under
+    a causal mask with window 0), rounded out to whole tiles."""
+    lo = k_first if causal else 0
+    hi = min(sq, k_last + window) if window is not None else sq
+    if causal and window == 0:
+        hi = lo
+    t_lo = lo // tile
+    return (t_lo, -(-hi // tile)) if lo < hi else (t_lo, t_lo)
+
+
+def bwd_steps(sq: int, skv: int, causal: bool, window: Optional[int],
+              dtype: torch.dtype) -> Tuple[int, int]:
+    """Column steps of the backward for one (batch, query head): of its
+    dQ pass (key tiles its query tiles see) and of its dK pass, the same
+    as its dV pass (query tiles of this head that see each key tile)."""
+    rows, cols = BWD_TILES[dtype]
+    dq = sum(hi - lo for lo, hi in (
+        kv_tile_range(r, min(r + rows, sq) - 1, skv, causal, window, cols)
+        for r in range(0, sq, rows)))
+    dkv = sum(hi - lo for lo, hi in (
+        q_tile_range(r, min(r + rows, skv) - 1, sq, causal, window, cols)
+        for r in range(0, skv, rows)))
+    return dq, dkv
 
 
 def kv_tiles_visited(sq: int, skv: int, causal: bool, window: Optional[int],
@@ -70,13 +122,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap=softcap, scale=scale)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, window: Optional[int],
-                         softcap: Optional[float], scale: float,
-                         block_q: int, block_k: int) -> torch.Tensor:
-    """Check the operands, launch ``csrc/flash_attention.cu``, count the
-    launch."""
-    global launches
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int], softcap: Optional[float],
+           *more: torch.Tensor) -> None:
+    """Raise on operands the kernels do not take (``more``: further
+    tensors of the backward, which must match q's dtype and device and be
+    contiguous)."""
     b, sq, hq, d = q.shape
     b2, skv, hkv, d2 = k.shape
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -96,20 +147,142 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
-    if not all(t.is_contiguous() for t in (q, k, v)):
+    if any(t.dtype != q.dtype for t in more):
+        raise TypeError(f"flash_attention backward: operands of dtype "
+                        f"{[t.dtype for t in more]}, not {q.dtype}")
+    if not all(t.is_contiguous() for t in (q, k, v, *more)):
         raise ValueError("flash_attention takes contiguous operands")
-    if k.device != q.device or v.device != q.device:
+    if any(t.device != q.device for t in (k, v, *more)):
         raise ValueError("flash_attention operands must share one device")
-    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
+
+
+def _forward(q, k, v, causal, window, softcap, scale, lse: bool):
+    global launches
+    _check(q, k, v, window, softcap)
+    b, sq, hq, _ = q.shape
+    out = torch.empty((b, sq, hq, v.shape[3]), dtype=q.dtype,
+                      device=q.device)
+    lse_t = torch.empty((b, hq, sq), dtype=torch.float32,
+                        device=q.device) if lse else None
     _build.launch_on(q.device, _ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
-                     dv, scale, 0.0 if softcap is None else softcap,
+                     v.data_ptr(), out.data_ptr(),
+                     0 if lse_t is None else lse_t.data_ptr(), b, sq,
+                     k.shape[1], hq, k.shape[2], q.shape[3], v.shape[3],
+                     scale, 0.0 if softcap is None else softcap,
                      int(causal), -1 if window is None else window)
     launches += 1
-    return out
+    return out, lse_t
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: Optional[int],
+                         softcap: Optional[float], scale: float,
+                         block_q: int, block_k: int) -> torch.Tensor:
+    """Check the operands, launch ``csrc/flash_attention.cu``, count the
+    launch."""
+    return _forward(q, k, v, causal, window, softcap, scale, False)[0]
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool,
+                             window: Optional[int], softcap: Optional[float],
+                             scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_cuda` that also keeps each query row's
+    log-sum-exp of its scores, lse [B, Hq, Sq] float32 (natural log), for
+    the backward."""
+    return _forward(q, k, v, causal, window, softcap, scale, True)
+
+
+def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
+                             k: torch.Tensor, v: torch.Tensor,
+                             lse: torch.Tensor, causal: bool,
+                             window: Optional[int], softcap: Optional[float],
+                             scale: float) -> Tuple[torch.Tensor, ...]:
+    """Check the operands, launch ``csrc/flash_attention_bwd.cu`` (its Δ,
+    dQ, dK and dV passes), count the call.  ``lse`` is the forward's
+    (:func:`flash_attention_lse_cuda`).  Returns (dq, dk, dv) in the
+    operands' dtype."""
+    global backward_launches
+    _check(q, k, v, window, softcap, dout)
+    b, sq, hq, _ = q.shape
+    if dout.shape != (b, sq, hq, v.shape[3]):
+        raise ValueError(f"flash_attention backward: dout {tuple(dout.shape)}"
+                         f" for q {tuple(q.shape)}, v {tuple(v.shape)}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention backward: lse must be a "
+                         f"contiguous float32 [{b}, {hq}, {sq}] on "
+                         f"{q.device}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    _build.launch_on(q.device, _BWD_ENTRY[q.dtype], q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(),
+                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
+                     k.shape[1], hq, k.shape[2], q.shape[3], v.shape[3],
+                     scale, 0.0 if softcap is None else softcap,
+                     int(causal), -1 if window is None else window)
+    backward_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The card's differentiable attention: the forward kernel (keeping
+    the log-sum-exp), and the backward kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, block_q,
+                block_k):
+        out, lse = flash_attention_lse_cuda(q, k, v, causal, window,
+                                            softcap, scale)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.options = (causal, window, softcap, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        grads = flash_attention_bwd_cuda(dout.contiguous(), q, k, v, lse,
+                                         *ctx.options)
+        return (*grads,) + (None,) * 6
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, causal: bool, window: Optional[int],
+                        softcap: Optional[float], scale: float, block_q: int,
+                        block_k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``repro_torch::flash_attention``: (dq, dk, dv) for
+    the output gradient ``dout``, by the plain vjp."""
+    return attention_bwd_ref(dout, q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
+
+
+@flash_attention_bwd.register_fake
+def _flash_attention_bwd_fake(dout, q, k, v, causal, window, softcap, scale,
+                              block_q, block_k):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, *options = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.options = options
+
+
+def _backward(ctx, dout):
+    q, k, v = ctx.saved_tensors
+    grads = flash_attention_bwd(dout.contiguous(), q, k, v, *ctx.options)
+    return (*grads,) + (None,) * 6
 
 
 @flash_attention.register_fake
 def _flash_attention_fake(q, k, v, causal, window, softcap, scale, block_q,
                           block_k):
     return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+flash_attention.register_autograd(_backward, setup_context=_setup_context)

@@ -9,6 +9,11 @@ tensors and gives the counter its fake impl.  ``mamba2_ssd_state_cuda``
 launches the same passes with pass (b) also writing the state after the
 last chunk, which a served prefill leaves in the cache; its custom op
 ``repro_torch::mamba2_ssd_state`` runs ``ref.ssd_state_ref``.
+
+Gradients: the custom op's autograd is the plain version's vjp
+(``ref.plain_vjp``), so the host trains through it; on the card
+:class:`Mamba2SSD` runs the forward kernel and its backward raises, as
+no backward kernel exists yet (ROADMAP queue B).
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_ref, ssd_state_ref
+from repro_torch.kernels.ref import plain_vjp, ssd_ref, ssd_state_ref
 
 #: calls of ``mamba2_ssd_cuda`` that launched the kernel's passes, in
 #: this process
@@ -154,3 +159,29 @@ def _mamba2_ssd_state_fake(xdt, da, bm, cm, chunk):
     return torch.empty_like(xdt), xdt.new_empty(
         (b, h, p, bm.shape[-1]),
         dtype=torch.promote_types(xdt.dtype, torch.float32))
+
+
+class Mamba2SSD(torch.autograd.Function):
+    """The card's SSD under autograd: the forward kernel, and a backward
+    that raises until a backward kernel exists."""
+
+    @staticmethod
+    def forward(ctx, xdt, da, bm, cm, chunk):
+        return mamba2_ssd_cuda(xdt, da, bm, cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "mamba2_ssd backward kernel: ROADMAP queue B (the card trains "
+            "no Mamba-2 block yet)")
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _backward(ctx, dy):
+    return (*plain_vjp(ssd_ref, ctx.saved_tensors, dy), None)
+
+
+mamba2_ssd.register_autograd(_backward, setup_context=_setup_context)

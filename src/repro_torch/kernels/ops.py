@@ -4,9 +4,12 @@ defaults.
 
 Each wrapper clamps its blocks to the array (as the reference does) and
 checks that they tile it.  A tensor with data on the card goes straight
-to the kernel's launcher (``*_cuda``: the hand kernel, or raise); any
-other tensor meets the kernel's custom op, which runs the plain version
-on the CPU and has no CUDA kernel.  The counter
+to the kernel's launcher (``*_cuda``: the hand kernel, or raise) — under
+autograd, when an operand needs a gradient, through the kernel's
+``autograd.Function`` (attention's backward is its backward kernel; the
+SSD's and the sLSTM's raise); any other tensor meets the kernel's
+custom op, which runs the plain version on the CPU (its autograd the
+plain vjp) and has no CUDA kernel.  The counter
 (:mod:`repro_torch.core.counting`) passes fake tensors, so it meets the
 op and prices it with its cost rule instead of running it.
 """
@@ -34,6 +37,10 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda and not isinstance(t, FakeTensor)
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
            block_n: int = 256, block_k: int = 256) -> torch.Tensor:
     (m, k), (k2, n) = a.shape, b.shape
@@ -59,7 +66,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq % bq or skv % bk:
         raise ValueError(f"flash_attention: Sq={sq}, Skv={skv} do not tile "
                          f"by ({bq}, {bk})")
-    fn = _fa.flash_attention_cuda if _on_card(q) else _fa.flash_attention
+    if not _on_card(q):
+        fn = _fa.flash_attention
+    elif _needs_grad(q, k, v):
+        fn = _fa.FlashAttention.apply
+    else:
+        fn = _fa.flash_attention_cuda
     return fn(q, k, v, causal, window, softcap, scale, bq, bk)
 
 
@@ -71,7 +83,12 @@ def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"mamba2_ssd: S={s} does not tile by chunk={chunk}")
-    fn = _ssd.mamba2_ssd_cuda if _on_card(xdt) else _ssd.mamba2_ssd
+    if not _on_card(xdt):
+        fn = _ssd.mamba2_ssd
+    elif _needs_grad(xdt, da, Bm, Cm):
+        fn = _ssd.Mamba2SSD.apply
+    else:
+        fn = _ssd.mamba2_ssd_cuda
     return fn(xdt, da, Bm, Cm, chunk)
 
 
@@ -96,7 +113,12 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
     if g_in.dim() != 5 or g_in.shape[2] != 4:
         raise ValueError(f"slstm_cell: g_in must be [B, S, 4, H, dh], got "
                          f"{tuple(g_in.shape)}")
-    fn = _sc.slstm_cell_cuda if _on_card(g_in) else _sc.slstm_cell
+    if not _on_card(g_in):
+        fn = _sc.slstm_cell
+    elif _needs_grad(g_in, r_gates, b_gates):
+        fn = _sc.SLSTMCell.apply
+    else:
+        fn = _sc.slstm_cell_cuda
     return fn(g_in, r_gates, b_gates)
 
 

@@ -96,6 +96,57 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, sq, hq, dv).to(q.dtype)
 
 
+def attention_bwd_ref(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None):
+    """The vjp of :func:`attention_ref`, written out: (dq, dk, dv) for the
+    output gradient ``dout`` [B, Sq, Hq, Dv], each in its operand's dtype
+    (dk and dv summed over the G query heads of a kv head)."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dv = v.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qr = _wide(q).reshape(b, sq, hkv, g, d)
+    kw, vw = _wide(k), _wide(v)
+    do = _wide(dout).reshape(b, sq, hkv, g, dv)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, kw) * scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    p = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vw)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    if softcap is not None:
+        ds = ds * (1 - t * t)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kw) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qr) * scale
+    dvw = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dvw.to(v.dtype))
+
+
+def plain_vjp(fn, inputs: Sequence[torch.Tensor],
+              grad_out: torch.Tensor) -> tuple:
+    """The vjp of the plain version ``fn`` at ``inputs`` for the output
+    gradient ``grad_out``, by autograd through its loop (a zero gradient
+    for an input the output does not depend on)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        grads = torch.autograd.grad(fn(*leaves), leaves, grad_out,
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads))
+
+
 def ssd_state_ref(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
                   cm: torch.Tensor):
     """Sequential SSD recurrence s_t = exp(da_t)·s_{t-1} + B_t ⊗ x_t,

@@ -11,6 +11,11 @@ sequential cell on CPU tensors and gives the counter its fake impl.
 threads also storing c, n, m after the last step, which a served
 prefill leaves in the cache; its custom op
 ``repro_torch::slstm_cell_state`` runs ``ref.slstm_cell_state_ref``.
+
+Gradients: the custom op's autograd is the plain version's vjp
+(``ref.plain_vjp``), so the host trains through it; on the card
+:class:`SLSTMCell` runs the forward kernel and its backward raises, as
+no backward kernel exists yet (ROADMAP queue B).
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import slstm_cell_ref, slstm_cell_state_ref
+from repro_torch.kernels.ref import (plain_vjp, slstm_cell_ref,
+                                    slstm_cell_state_ref)
 
 _log = logging.getLogger(__name__)
 
@@ -139,3 +145,29 @@ def _slstm_cell_state_fake(g_in, r_gates, b_gates):
     b, s, _, h, dh = g_in.shape
     return g_in.new_empty((b, s, h, dh)), g_in.new_empty(
         (3, b, h, dh), dtype=torch.promote_types(g_in.dtype, torch.float32))
+
+
+class SLSTMCell(torch.autograd.Function):
+    """The card's sLSTM under autograd: the forward kernel, and a
+    backward that raises until a backward kernel exists."""
+
+    @staticmethod
+    def forward(ctx, g_in, r_gates, b_gates):
+        return slstm_cell_cuda(g_in, r_gates, b_gates)
+
+    @staticmethod
+    def backward(ctx, dh):
+        raise NotImplementedError(
+            "slstm_cell backward kernel: ROADMAP queue B (the card trains "
+            "no sLSTM block yet)")
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dh):
+    return plain_vjp(slstm_cell_ref, ctx.saved_tensors, dh)
+
+
+slstm_cell.register_autograd(_backward, setup_context=_setup_context)

@@ -9,17 +9,25 @@ One generic assembly covers all ten architectures:
   * modality frontends as stubs (precomputed embeddings, projected in)
 
 The reference scans its stacked body; the port loops over the leading
-"layers" axis of the same stacked parameters (and caches).  Serving has
-no remat; training is ROADMAP queue A item 4.  Logits are computed at
-every position before ``prefill`` keeps the last one, as the reference
-does: at vocab 256000 that is B·S·256000 activations to size a prompt by.
+"layers" axis of the same stacked parameters (and caches).  In training
+(``mode="train"`` with autograd on) each group runs under
+``torch.utils.checkpoint`` as ``remat`` says — ``full`` recomputes the
+whole group in backward, ``dots`` keeps the outputs of its matrix
+products (``aten.mm``/``addmm``, the counterpart of the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest; serving
+has no remat.  Logits are computed at every position before ``prefill``
+keeps the last one, as the reference does: at vocab 256000 that is
+B·S·256000 activations to size a prompt by.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
@@ -100,6 +108,15 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
                                dtype, device)
     sch["body"] = body
     return out
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The parameters' shapes and dtypes as ``meta`` tensors (nothing is
+    allocated)."""
+    dtype = torch_dtype(cfg.param_dtype)
+    return tree_map(
+        lambda s: torch.empty(s.shape, dtype=dtype, device="meta"),
+        model_schema(cfg), is_leaf=lambda x: isinstance(x, ParamSpec))
 
 
 def zero_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Dict:
@@ -207,6 +224,28 @@ def _apply_group(gp, x, ctx: layers.Ctx, gcache, shared_params,
     return x, (new_cache or None), aux
 
 
+REMATS = ("none", "full", "dots")
+#: the products ``dots`` keeps (matrix products without batch dims)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_call(fn, remat: str, *args):
+    """``fn(*args)`` under activation checkpointing as ``remat`` says."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # Forward / loss
 # ---------------------------------------------------------------------------
@@ -220,6 +259,7 @@ def forward(
     mode: str = "train",
     cache: Optional[Dict] = None,
     cur_index: Optional[int] = None,
+    remat: str = "full",
     attn_impl: str = "chunked_scan",
     q_chunk: int = 512,
     kv_chunk: int = 1024,
@@ -229,8 +269,11 @@ def forward(
 
     batch keys: "tokens" [B,St]; optional "frontend" [B,P,Df] (vlm prefix
     embeddings or whisper frames).  In decode mode tokens is [B,1] and
-    ``cur_index`` is the write position.
+    ``cur_index`` is the write position.  ``remat`` (none | full | dots)
+    applies to the body's groups in train mode with autograd on.
     """
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; known: {REMATS}")
     tokens = batch["tokens"]
     B, St = tokens.shape
     ak = aux_keys(cfg)
@@ -287,13 +330,23 @@ def forward(
     body_cache = cache.get("body") if cache else None
     stacker = _Stacker(body_cache, cfg.num_groups) \
         if body_cache is not None else None
+    if mode != "train" or body_cache is not None \
+            or not torch.is_grad_enabled():
+        remat = "none"
+
+    def group(x, gp):
+        x, _, a = _apply_group(gp, x, ctx, None, shared_params, cfg, ak)
+        return x, a
+
     for g in range(cfg.num_groups):
-        gc = _index(body_cache, g) if body_cache is not None else None
-        x, gc_new, a = _apply_group(_index(params["body"], g), x, ctx, gc,
-                                    shared_params, cfg, ak)
-        aux = {k: aux[k] + a[k] for k in ak}
-        if stacker is not None:
+        gp = _index(params["body"], g)
+        if body_cache is None:
+            x, a = _remat_call(group, remat, x, gp)
+        else:
+            x, gc_new, a = _apply_group(gp, x, ctx, _index(body_cache, g),
+                                        shared_params, cfg, ak)
             stacker.put(g, gc_new)
+        aux = {k: aux[k] + a[k] for k in ak}
     if stacker is not None:
         new_cache["body"] = stacker.out
 
@@ -304,10 +357,10 @@ def forward(
     return logits, aux, (new_cache or None)
 
 
-def lm_loss(params, cfg: ModelConfig, batch, *,
+def lm_loss(params, cfg: ModelConfig, batch, *, remat: str = "full",
             attn_impl: str = "chunked_scan",
             moe_impl: str = "scatter") -> Tuple[torch.Tensor, Dict]:
-    logits, aux, _ = forward(params, cfg, batch, mode="train",
+    logits, aux, _ = forward(params, cfg, batch, mode="train", remat=remat,
                              attn_impl=attn_impl, moe_impl=moe_impl)
     targets = batch["targets"]
     lf = logits.float()

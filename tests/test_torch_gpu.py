@@ -654,3 +654,128 @@ def test_daemon_serves_a_card_profile_without_timing_or_launching(cuda):
     assert stats["count_lookups"] == 8
     assert [m.launches for m in modules] == [0] * len(modules)
     assert not any(tmb.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# the attention backward kernel (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _hold_gradients(got, want, dt):
+    """f32: each of dq, dk, dv within 1e-4 × its max |g| of the float64
+    vjp; bf16: within 1e-2 of each element plus 2e-2 × its row's rms plus
+    1e-4 × max |g| (chip_smoke.py phase 16's form)."""
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        diff = (g - w).abs()
+        scale = float(w.abs().max())
+        if dt == "float32":
+            assert float(diff.max()) <= 1e-4 * scale
+        else:
+            rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+            assert bool((diff <= 1e-2 * w.abs() + 2e-2 * rms
+                         + 1e-4 * scale).all())
+
+
+def _attention_grads_on_card(q, k, v, dout, kw, block_q, block_k):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (tfa.launches, tfa.backward_launches)
+    out = tops.flash_attention(*leaves, block_q=block_q, block_k=block_k,
+                               **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (tfa.launches, tfa.backward_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    wide = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tref.attention_ref(*wide, **kw), wide,
+                               dout.double())
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", ATTN_KW)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", ATTN_SHAPES)
+def test_flash_attention_backward_kernel_on_card(cuda, dt, kw, B, S, Hq,
+                                                 Hkv, D):
+    """Under autograd ``ops.flash_attention`` on the card runs the
+    forward kernel keeping lse and, in backward, the backward kernel (one
+    launch of each); dq, dk and dv against the plain version's autograd
+    in float64, q × 8 so the softcap bites."""
+    q, k, v = _attention_inputs(cuda, dt, B, S, Hq, Hkv, D, q_scale=8.0)
+    dout = torch.from_numpy(rn(30, B, S, Hq, D)).to(cuda, DTYPES[dt])
+    got, want = _attention_grads_on_card(q, k, v, dout, kw, 64, 64)
+    _hold_gradients(got, want, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,D,Dv,kw", [
+    (512, 512, 256, 256, dict(causal=True, window=24, softcap=50.0)),
+    (512, 512, 256, 256, dict(causal=False, window=100)),
+    (256, 256, 40, 40, dict(causal=True)),
+    (256, 256, 20, 20, dict(causal=True, window=48)),
+    (128, 128, 48, 33, dict(causal=True, softcap=30.0)),
+    (160, 160, 64, 64, dict(causal=True)),
+    (96, 160, 192, 128, dict(causal=False)),
+    (96, 160, 64, 64, dict(causal=True, window=40)),
+    (130, 100, 64, 64, dict(causal=True)),
+])
+def test_flash_attention_backward_kernel_edges_on_card(cuda, dt, Sq, Skv, D,
+                                                       Dv, kw):
+    """The backward's tiles at ragged edges, padded head dims, Dk ≠ Dv,
+    Sq ≠ Skv (keys no query sees get zero dk and dv), and the window
+    without causal."""
+    tdt = DTYPES[dt]
+    B, Hq, Hkv = 1, 4, 2
+    q = torch.from_numpy(rn(50, B, Sq, Hq, D) * 8.0).to(cuda, tdt)
+    k = torch.from_numpy(rn(51, B, Skv, Hkv, D)).to(cuda, tdt)
+    v = torch.from_numpy(rn(52, B, Skv, Hkv, Dv)).to(cuda, tdt)
+    dout = torch.from_numpy(rn(53, B, Sq, Hq, Dv)).to(cuda, tdt)
+    got, want = _attention_grads_on_card(q, k, v, dout, kw, Sq, Skv)
+    _hold_gradients(got, want, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_attention_lse_is_the_rows_logsumexp(cuda, dt):
+    """The forward's lse output: each row's log-sum-exp of its scaled,
+    capped, masked scores; the output is the no-lse launch's, bit for
+    bit."""
+    kw = dict(causal=True, window=40, softcap=30.0)
+    q, k, v = _attention_inputs(cuda, dt, 2, 256, 8, 2, 64, q_scale=8.0)
+    scale = 1.0 / 8.0
+    out, lse = tfa.flash_attention_lse_cuda(q, k, v, True, 40, 30.0, scale)
+    plain_out = tfa.flash_attention_cuda(q, k, v, True, 40, 30.0, scale,
+                                         64, 64)
+    assert torch.equal(out, plain_out)
+    qd, kd = q.double(), k.double().repeat_interleave(4, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    s = 30.0 * torch.tanh(s / 30.0)
+    i = torch.arange(256, device=cuda)
+    mask = (i[:, None] >= i[None]) & (i[:, None] - i[None] < 40)
+    want = torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)
+    assert float((lse.double() - want).abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_ssd_and_slstm_card_backward_raise(cuda):
+    """On the card the SSD's and the sLSTM's forwards run their kernels
+    under autograd too, and their backward raises (no backward kernel
+    yet, ROADMAP queue B) rather than running the plain version."""
+    xdt = torch.from_numpy(rn(6, 1, 64, 2, 16)).to(cuda).requires_grad_()
+    da = torch.from_numpy(-np.abs(rn(7, 1, 64, 2)) * 0.1).to(cuda)
+    bm = torch.from_numpy(rn(8, 1, 64, 2, 8)).to(cuda)
+    cm = torch.from_numpy(rn(9, 1, 64, 2, 8)).to(cuda)
+    before = tssd.launches
+    y = tops.mamba2_ssd(xdt, da, bm, cm, chunk=32)
+    assert tssd.launches == before + 1
+    with pytest.raises(NotImplementedError, match="queue B"):
+        y.sum().backward()
+    g = torch.from_numpy(rn(10, 1, 8, 4, 2, 16) * 0.5).to(cuda)
+    r = torch.from_numpy(rn(11, 2, 16, 4, 16) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(12, 4, 2, 16) * 0.1).to(cuda).requires_grad_()
+    before = tsc.launches
+    h = tops.slstm_cell(g, r, b)
+    assert tsc.launches == before + 1
+    with pytest.raises(NotImplementedError, match="queue B"):
+        h.sum().backward()

@@ -38,17 +38,18 @@ CLASSES = (
 )
 
 
-def kernel_class(name: str) -> str:
+def kernel_class(name: str, classes=CLASSES) -> str:
     low = name.lower()
-    for label, keys in CLASSES:
+    for label, keys in classes:
         if any(k.lower() in low for k in keys):
             return label
     return "other"
 
 
-def summary(prof, wall_ms: float, top: int) -> dict:
-    """A profiled phase's device kernels by class, its busiest kernels,
-    and its idle time against ``wall_ms`` (the same phase between CUDA
+def summary(prof, wall_ms: float, top: int, classes=CLASSES) -> dict:
+    """A profiled phase's device kernels by class (``classes``: (label,
+    name fragments) pairs, checked in order), its busiest kernels, and
+    its idle time against ``wall_ms`` (the same phase between CUDA
     events, untraced)."""
     import torch
     per_kernel = defaultdict(lambda: {"calls": 0, "us": 0.0})
@@ -59,7 +60,7 @@ def summary(prof, wall_ms: float, top: int) -> dict:
             k["us"] += ev.time_range.elapsed_us()
     by_class = defaultdict(lambda: {"calls": 0, "ms": 0.0})
     for name, k in per_kernel.items():
-        c = by_class[kernel_class(name)]
+        c = by_class[kernel_class(name, classes)]
         c["calls"] += k["calls"]
         c["ms"] += k["us"] / 1e3
     busy_ms = sum(c["ms"] for c in by_class.values())
