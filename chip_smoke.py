@@ -7,9 +7,10 @@ Phases, each fatal on failure:
 
 1. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
    ``nvcc`` for sm_90a, print the seconds and the ptxas report, hold the
-   ``matmul_tiled``, ``flash_attention``, ``dg_diff``,
+   ``matmul_tiled``, ``flash_attention`` (and its backward), ``dg_diff``,
    ``stream_strided``, ``slstm_cell`` and ``mamba2_ssd`` kernels (the
-   SSD's three passes) to no register spills (``NO_SPILLS``),
+   SSD's passes) and both recurrent backward kernels to no register
+   spills (``NO_SPILLS``),
    and hold the SASS (``cuobjdump -sass``) of
    ``madd_throughput``'s chain loop to 8 FFMAs per step, so the compiler
    folded nothing;
@@ -171,6 +172,27 @@ Phases, each fatal on failure:
    at full width, f32, card against host (:func:`whole_train_check`).
    One ``{"train": ...}`` line; the ``kernels`` line gains the
    backward's row.
+17. (after phase 16, before that ``kernels`` line) training the
+   recurrent models on the card: (a) the SSD and sLSTM backward kernels
+   (``csrc/mamba2_ssd_bwd.cu``, ``csrc/slstm_cell_bwd.cu``, through
+   ``ops.mamba2_ssd`` and ``ops.slstm_cell`` under autograd) against the
+   plain versions' autograd in float64 at ``SSD_BWD_CASES`` (zamba2-7b's
+   layer, P = N of 16 and 32, chunk 32, a strong decay, B 2) and
+   ``SLSTM_BWD_CASES`` (xlstm-125m's layer, dh 256, dh 4, the n floor
+   biting), every gradient within 1e-4 × its max |g|, with plain
+   variants (the SSD without its carried state gradient or with it one
+   chunk late, the sLSTM without its recurrent dh) that must fail; then
+   both at the model's layer timed beside the forward (the sLSTM's with
+   and without its trajectory), the plain vjp and the bound
+   (:func:`check_recurrent_backward`); (b) zamba2-7b at full width (9
+   layers) and xlstm-125m as published trained 4 steps each through
+   ``Trainer.train`` (seq 4096, batch 8, bf16, remat full): per step s,
+   tokens/s, loss (falling), share of the bound, peak memory, and
+   exactly ``RECURRENT_STEP_LAUNCHES`` a step (:func:`train_path`); (c)
+   one step of each at full width, f32, the smallest depth with every
+   block kind, card against host (:func:`recurrent_whole_check`).  One
+   ``{"train_recurrent": ...}`` line; the ``kernels`` line gains the two
+   backward kernels' rows.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -191,7 +213,10 @@ before each served model of phase 15 and read after it, which fails
 unless every kernel launched exactly twice a prefill's count (warm-up
 and timed request); and set to 0 before phase 16 (b)'s steps and read
 after them, which fails unless the attention kernels launched exactly
-``TRAIN_STEP_LAUNCHES`` a step.  Without a
+``TRAIN_STEP_LAUNCHES`` a step; and set to 0 before each of phase 17
+(b)'s runs and read after it, which fails unless every model-layer
+kernel, forward and backward, launched exactly
+``RECURRENT_STEP_LAUNCHES`` a step.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -356,6 +381,47 @@ FT_REL = 1e-6
 TRAIN_WHOLE_LOSS_REL = 1e-5
 TRAIN_WHOLE_GRAD_REL = 2e-3
 TRAIN_WHOLE_PARAM_REL = 1e-5
+
+# phase 17 (a): the SSD and sLSTM backward kernels (through ops under
+# autograd) against the plain versions' autograd in float64, each
+# gradient within ATTN_BWD_F32_REL × its max |g|.  SSD (label, B, S, H,
+# P, N, chunk, decay shift: dt·A = −(shift + 0.1·|randn|)): zamba2-7b's
+# layer at train_4k's 4096, P and N of 16 and 32, a chunk of 32 (the
+# kernel's own chunk below 64), a strong decay (dt·A ≈ −5: exp(la_i −
+# la_j) underflows inside a chunk), B 2.  sLSTM (label, B, S, H, dh, n
+# floor): xlstm-125m's layer (6-block clusters, 2 batch rows a cluster),
+# dh 256 (8-block clusters), dh 4, and half the input gates 30 below the
+# rest, where n stays under its 1e-6 floor
+SSD_BWD_CASES = (("zamba2-7b", 1, 4096, 112, 64, 64, 256, 0.0),
+                 ("P = N = 16", 1, 1024, 8, 16, 16, 256, 0.0),
+                 ("P = N = 32", 1, 1024, 8, 32, 32, 128, 0.0),
+                 ("chunk 32", 1, 1024, 8, 64, 64, 32, 0.0),
+                 ("strong decay", 1, 1024, 8, 64, 64, 256, 5.0),
+                 ("B 2", 2, 1024, 8, 64, 64, 256, 0.0))
+SLSTM_BWD_CASES = (("xlstm-125m", 8, 4096, 4, 192, False),
+                   ("dh 256", 2, 512, 4, 256, False),
+                   ("dh 4", 2, 512, 2, 4, False),
+                   ("n floor", 2, 512, 2, 64, True))
+# (b): zamba2-7b at full width cut to phase 15's 9 layers (3 prefix
+# Mamba-2 blocks, one group of 6 and the shared attention, 1.137 B
+# params) and xlstm-125m as published (12 layers, 6 sLSTM blocks), each
+# at train_4k's seq 4096, global batch 8 in its preset's microbatches (8
+# and 1), bf16 params, f32 moments, remat "full", 4 AdamW steps
+RECURRENT_TRAIN = (("zamba2-7b", 9), ("xlstm-125m", None))
+RECURRENT_BATCH = 8
+RECURRENT_STEPS = 4
+# hand-kernel launches of one step: remat runs each group's forward
+# twice (the prefix blocks, outside it, once) and its backward once;
+# zamba2: 3 + 6·2 SSD forwards, 9 backwards, the shared attention 2 + 1,
+# per each of 8 microbatches; xlstm: 6·2 sLSTM forwards, 6 backwards
+RECURRENT_STEP_LAUNCHES = {
+    "zamba2-7b": {"mamba2_ssd": (3 + 6 * 2) * 8, "mamba2_ssd_bwd": 9 * 8,
+                  "flash_attention": 2 * 8, "flash_attention_bwd": 8,
+                  "slstm_cell": 0, "slstm_cell_bwd": 0},
+    "xlstm-125m": {"slstm_cell": 6 * 2, "slstm_cell_bwd": 6,
+                   "mamba2_ssd": 0, "mamba2_ssd_bwd": 0,
+                   "flash_attention": 0, "flash_attention_bwd": 0},
+}
 
 # phase 10: kernels each figure times (calibration + test), as the
 # reference's tags select them (tests/test_torch_paper_figures.py)
@@ -919,7 +985,8 @@ def ptxas_report(text: str) -> dict:
 NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
              "bwd_mma_kernel", "bwd_kernel", "delta_kernel",
              "dg_diff_kernel", "stream_kernel", "slstm_cluster_kernel",
-             "chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
+             "chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel",
+             "chunk_grad_kernel", "slstm_bwd_cluster_kernel")
 
 
 def check_no_spills(text: str) -> None:
@@ -2306,28 +2373,26 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
     return out
 
 
-def train_counts(fa) -> dict:
-    return {"flash_attention": fa.launches,
-            "flash_attention_bwd": fa.backward_launches}
-
-
 def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
-               configs, counting, tree_leaves, fa, zero_counts, dev,
-               tmp) -> dict:
-    """Phase 16 (b): gemma2-9b at full width (``TRAIN_*`` cuts) trained
-    for ``TRAIN_STEPS`` steps through ``Trainer.train`` on the card; the
-    counters set to 0 before and read after, exactly
-    ``TRAIN_STEP_LAUNCHES`` a step.  Per step: wall s, tokens/s, loss,
-    grad_norm, lr, and the step's share of its bound — the work it needs
-    (6·N·tokens + attention forward and backward,
-    ``models.counting``) and with remat's recompute (8·N·tokens + 4/3 of
-    attention), over 989 TFLOP/s.  Peak memory over the run."""
+               configs, counting, tree_leaves, counts, zero_counts, dev,
+               tmp, *, arch, layers, batch, steps, launches) -> dict:
+    """Phase 16 (b) and 17 (b): ``arch`` at full width (cut to ``layers``
+    when not None) trained for ``steps`` steps at seq ``TRAIN_SEQ`` and
+    global batch ``batch`` in its preset's microbatches through
+    ``Trainer.train`` on the card; the counters set to 0 before and read
+    after, each of ``launches``' kernels exactly its count a step.  Per
+    step: wall s, tokens/s, loss, grad_norm, lr, and the step's share of
+    its bound — the work it needs (6·N·tokens + attention forward and
+    backward, ``models.counting``) and with remat's recompute (8·N·tokens
+    + 4/3 of attention), over 989 TFLOP/s.  Peak memory over the run."""
     import torch
-    cfg = configs.get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
-    run = make_run_config(TRAIN_ARCH, "train_4k", model_config=cfg)
-    shape = InputShape("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    run = make_run_config(arch, "train_4k", model_config=cfg)
+    shape = InputShape("train_4k_cut", TRAIN_SEQ, batch, "train")
     run = run.replace(shape=shape, checkpoint_every=0,
-                      checkpoint_dir=str(tmp / "train_ckpt"),
+                      checkpoint_dir=str(tmp / f"train_ckpt_{arch}"),
                       optimizer=OptimizerConfig(learning_rate=1e-3,
                                                 warmup_steps=1,
                                                 total_steps=100))
@@ -2343,43 +2408,43 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     params = sum(p.numel() for p in tree_leaves(state.params))
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
-    state = trainer.train(state, TRAIN_STEPS, log_every=0)
+    state = trainer.train(state, steps, log_every=0)
     torch.cuda.synchronize()
-    launched = train_counts(fa)
+    launched = {name: counts()[name] for name in launches}
     peak = torch.cuda.max_memory_allocated(dev)
     rows = [r for r in trainer.metrics_log if "loss" in r]
-    tokens = TRAIN_SEQ * TRAIN_BATCH
+    tokens = TRAIN_SEQ * batch
     for r in rows:
         r["tokens_per_s"] = tokens / r["wall_s"]
         r["share_of_bound"] = bound_ms / (r["wall_s"] * 1e3)
-        log(f"{TRAIN_ARCH} train step {r['step']}: {r['wall_s']:.4g} s, "
+        log(f"{arch} train step {r['step']}: {r['wall_s']:.4g} s, "
             f"{r['tokens_per_s']:.0f} tok/s, loss {r['loss']:.5g}, "
             f"grad_norm {r['grad_norm']:.4g}, lr {r['lr']:.3g}, "
             f"{r['share_of_bound']:.1%} of its bound ({bound_ms:.4g} ms; "
             f"{remat_bound_ms:.4g} ms with remat's recompute)")
-    want = {k: v * TRAIN_STEPS for k, v in TRAIN_STEP_LAUNCHES.items()}
-    log(f"{TRAIN_ARCH} ({TRAIN_LAYERS} layers, {params / 1e9:.4g} B params, "
-        f"seq {TRAIN_SEQ}, batch {TRAIN_BATCH} in {run.microbatches} "
+    want = {k: v * steps for k, v in launches.items()}
+    log(f"{arch} ({cfg.num_layers} layers, {params / 1e9:.4g} B params, "
+        f"seq {TRAIN_SEQ}, batch {batch} in {run.microbatches} "
         f"microbatches, remat {run.remat}): init {init_s:.1f} s, peak "
         f"{peak / 2**30:.2f} GiB, launches {launched} (want {want})")
     losses = [r["loss"] for r in rows]
-    if len(rows) != TRAIN_STEPS or any(r.get("event") for r in
-                                       trainer.metrics_log):
+    if len(rows) != steps or any(r.get("event") for r in
+                                 trainer.metrics_log):
         raise SystemExit(f"training log: {trainer.metrics_log}")
     if not all(math.isfinite(x) for x in losses) \
             or not losses[-1] < losses[0]:
-        raise SystemExit(f"{TRAIN_ARCH}: losses {losses} are not finite "
-                         f"and falling")
+        raise SystemExit(f"{arch}: losses {losses} are not finite and "
+                         f"falling")
     if launched != want:
-        raise SystemExit(f"{TRAIN_ARCH}: the steps launched {launched}, "
-                         f"not {want}")
+        raise SystemExit(f"{arch}: the steps launched {launched}, not "
+                         f"{want}")
     del trainer, state
     torch.cuda.empty_cache()
-    return {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "params": params,
-            "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+    return {"arch": arch, "layers": cfg.num_layers, "params": params,
+            "seq": TRAIN_SEQ, "batch": batch,
             "microbatches": run.microbatches, "remat": run.remat,
             "moment_dtype": run.optimizer.moment_dtype, "steps": rows,
-            "launches": launched, "launches_per_step": TRAIN_STEP_LAUNCHES,
+            "launches": launched, "launches_per_step": launches,
             "peak_memory_bytes": peak, "bound_ms": bound_ms,
             "remat_bound_ms": remat_bound_ms, "init_s": init_s}
 
@@ -2442,7 +2507,7 @@ def fault_tolerance_path(Trainer, InputShape, OptimizerConfig, RunConfig,
 
 def whole_train_check(lm, steps, adamw, SyntheticLMDataset, RunConfig,
                       InputShape, OptimizerConfig, tree_map, tree_leaves,
-                      configs, fa, dev) -> dict:
+                      configs, counts, dev) -> dict:
     """Phase 16 (d): one train step of the whole model at full width
     (:func:`whole_model_config`: f32, a local and a global layer, the
     window cut to 128 and the attention softcap to 2, so both bite at
@@ -2477,10 +2542,11 @@ def whole_train_check(lm, steps, adamw, SyntheticLMDataset, RunConfig,
                                             run.optimizer)
         return float(loss), grads, params, float(metrics["lr"])
 
-    before = train_counts(fa)
+    names = ("flash_attention", "flash_attention_bwd")
+    before = counts()
     card_loss, card_g, card_p, lr = one_step(card_params, dev)
     torch.cuda.synchronize()
-    launched = {k: v - before[k] for k, v in train_counts(fa).items()}
+    launched = {k: counts()[k] - before[k] for k in names}
     t0 = time.perf_counter()
     host_loss, host_g, host_p, _ = one_step(host_params, torch.device("cpu"))
     host_s = time.perf_counter() - t0
@@ -2534,6 +2600,252 @@ def whole_train_check(lm, steps, adamw, SyntheticLMDataset, RunConfig,
             "sign_free_elements": flippable,
             "elements": total, "card_launches": launched,
             "host_s": host_s}
+
+
+def grad_excess(names, got, want) -> dict:
+    """Per gradient (named by ``names``), its max |err| against the
+    float64 ``want`` and that in units of ``ATTN_BWD_F32_REL`` × its max
+    |g| (at most 1 passes)."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        err = float((g.double() - w.double()).abs().max())
+        out[name] = {"max_abs_err": err, "worst": err / (
+            ATTN_BWD_F32_REL * float(w.double().abs().max()))}
+    return out
+
+
+def hold_gradients(tag, names, got, want, wrongs) -> dict:
+    """Fail unless every gradient of ``got`` is within the tolerance of
+    ``want``, and unless each plain variant in ``wrongs`` ((label,
+    gradients) pairs) lies outside it in at least one gradient."""
+    row = grad_excess(names, got, want)
+    log(f"{tag}: " + ", ".join(f"{n} max|err| {r['max_abs_err']:.3g} worst "
+                               f"{r['worst']:.3g}×" for n, r in row.items()))
+    bad = [n for n, r in row.items() if not r["worst"] <= 1]
+    if bad:
+        raise SystemExit(f"{tag}: {bad} outside the tolerance: {row}")
+    for label, wrong in wrongs:
+        over = max(r["worst"] for r in grad_excess(names, got,
+                                                   wrong).values())
+        if over <= 1:
+            raise SystemExit(f"{tag}: the check cannot fail: the plain "
+                             f"variant '{label}' passes it too")
+        log(f"  variant '{label}' fails the check (worst {over:.3g}× the "
+            f"tolerance)")
+    return row
+
+
+def ssd_bwd_bound_ms(B, S, H, P, N, chunk) -> tuple:
+    """The SSD backward's bound at the kernel's chunk L: per chunk the
+    five products over its L(L+1)/2 visible pairs (C·Bᵀ, dy·xᵀ over N and
+    P; Mᵀ·dy, Qᵀ·C, Q·B) and four of L·P·N (the chunk's own state
+    gradient, dy·S, x·G, B·Gᵀ) at f32 FMA, against x, dt·A, B, C, dy in
+    and dx, d(dt·A), dB, dC out, every byte once (the states the kernel
+    recomputes are not needed work).  Returns (ms, "operations" or
+    "bytes")."""
+    pairs = chunk * (chunk + 1) // 2
+    ops_n = 2 * B * H * (S // chunk) * (pairs * (2 * P + 3 * N)
+                                        + 4 * chunk * P * N)
+    nbytes = 4 * B * S * H * (3 * P + 4 * N + 2)
+    t_ops, t_bytes = ops_n / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def slstm_bwd_bound_ms(B, S, H, dh) -> tuple:
+    """The sLSTM backward kernel's bound: the transposed recurrence
+    R·dgg_t, dh·4dh multiply-adds a step, head and batch row, at f32 FMA,
+    against traj and dy in and dgg out, every byte once, and r once."""
+    ops_n = 2 * B * S * H * dh * 4 * dh
+    nbytes = 4 * (B * S * H * dh * (7 + 1 + 4) + H * dh * 4 * dh)
+    t_ops, t_bytes = ops_n / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
+    """Phase 17 (a): the SSD and sLSTM backward kernels, through
+    ``ops.mamba2_ssd`` and ``ops.slstm_cell`` under autograd (the forward
+    kernels, the sLSTM's keeping its trajectory, then the backward
+    kernels), against the plain versions' autograd in float64 on the same
+    inputs at ``SSD_BWD_CASES`` and ``SLSTM_BWD_CASES``; at the first
+    case of each (the model's layer) the plain variants must fail the
+    same check.  Then the first cases timed: the backward alone, the
+    forward (the sLSTM's with and without its trajectory), the plain
+    vjp, and the bound.  Launches here count nowhere."""
+    import torch
+    out = {"ssd": {}, "slstm": {}}
+    names = ("dxdt", "dda", "dB", "dC")
+    for label, B, S, H, P, N, chunk, shift in SSD_BWD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(17)
+        x, da, bm, cm = ssd_inputs(gen, dev, B, S, H, P, N)
+        da = da - shift
+        dy = torch.randn(B, S, H, P, generator=gen, device=dev)
+        leaves = [t.clone().requires_grad_() for t in (x, da, bm, cm)]
+        t0 = time.perf_counter()
+        got = torch.autograd.grad(ops.mamba2_ssd(*leaves, chunk=chunk),
+                                  leaves, dy)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        wide = [t.double() for t in (x, da, bm, cm, dy)]
+        want = ref.plain_vjp(ref.ssd_ref, wide[:4], wide[4])
+        wrongs = []
+        if label == SSD_BWD_CASES[0][0]:
+            inner = ssd.inner_chunk(chunk)
+            wrongs = [
+                ("no carried state gradient",
+                 variants.ssd_bwd_without_carried_gradient(*wide, chunk)),
+                ("state gradient one chunk late",
+                 variants.ssd_bwd_gradient_one_chunk_late(*wide, chunk)),
+                (f"state gradient one kernel chunk ({inner}) late",
+                 variants.ssd_bwd_gradient_one_chunk_late(*wide, inner))]
+        out["ssd"][label] = hold_gradients(
+            f"mamba2_ssd backward {label} ([{B}, {S}, {H}, {P}, {N}] chunk "
+            f"{chunk}, kernel {kernel_s:.2f} s)", names, got, want, wrongs)
+        del got, want, wide, wrongs, leaves
+        torch.cuda.empty_cache()
+    label, B, S, H, P, N, chunk, _ = SSD_BWD_CASES[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x, da, bm, cm = ssd_inputs(gen, dev, B, S, H, P, N)
+    dy = torch.randn(B, S, H, P, generator=gen, device=dev)
+    bound, bound_by = ssd_bwd_bound_ms(B, S, H, P, N, ssd.inner_chunk(chunk))
+    out["ssd_timed"] = {
+        "ms": time_ms(ssd.mamba2_ssd_bwd_cuda, x, da, bm, cm, dy, chunk),
+        "forward_ms": time_ms(ssd.mamba2_ssd_cuda, x, da, bm, cm, chunk),
+        "plain_ms": time_ms(ref.plain_vjp, ref.ssd_ref, (x, da, bm, cm), dy,
+                            iters=2, warmup=1),
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "shape": [B, S, H, P, N, chunk]}
+    t = out["ssd_timed"]
+    log(f"mamba2_ssd backward {label}: {t['ms']:.4g} ms = "
+        f"{bound / t['ms']:.1%} of its bound ({bound:.4g} ms by "
+        f"{bound_by}); forward {t['forward_ms']:.4g} ms; plain vjp "
+        f"{t['plain_ms']:.4g} ms; library: none")
+    del x, da, bm, cm, dy
+    torch.cuda.empty_cache()
+
+    names = ("dg_in", "dr", "db")
+    for label, B, S, H, dh, floor in SLSTM_BWD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(17)
+        g_in, r, b = slstm_inputs(gen, dev, B, S, H, dh)
+        if floor:
+            g_in[:, :, 0, :, :dh // 2] -= 30.0
+        dy = torch.randn(B, S, H, dh, generator=gen, device=dev)
+        leaves = [t.clone().requires_grad_() for t in (g_in, r, b)]
+        t0 = time.perf_counter()
+        got = torch.autograd.grad(ops.slstm_cell(*leaves), leaves, dy)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        wide = [t.double() for t in (g_in, r, b, dy)]
+        want = ref.plain_vjp(ref.slstm_cell_ref, wide[:3], wide[3])
+        h, traj = ref.slstm_cell_fwd_traj_ref(*wide[:3])
+        n_min = float(traj[:, :, 5].min())
+        wrongs = []
+        if label == SLSTM_BWD_CASES[0][0]:
+            wrongs = [("no recurrent dh", variants.slstm_bwd_without_recurrence(
+                traj, h, wide[1], wide[3]))]
+        if floor and not n_min < 1e-6:
+            raise SystemExit(f"slstm backward {label}: n >= {n_min:.3g}, "
+                             f"the floor does not bite")
+        out["slstm"][label] = hold_gradients(
+            f"slstm_cell backward {label} ([{B}, {S}, {H}, {dh}], min n "
+            f"{n_min:.3g}, kernel {kernel_s:.2f} s)", names, got, want,
+            wrongs)
+        del got, want, wide, wrongs, leaves, h, traj
+        torch.cuda.empty_cache()
+    label, B, S, H, dh, _ = SLSTM_BWD_CASES[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g_in, r, b = slstm_inputs(gen, dev, B, S, H, dh)
+    dy = torch.randn(B, S, H, dh, generator=gen, device=dev)
+    h, traj = sc.slstm_cell_traj_cuda(g_in, r, b)
+    bound, bound_by = slstm_bwd_bound_ms(B, S, H, dh)
+    out["slstm_timed"] = {
+        "ms": time_ms(sc.slstm_cell_dgg_cuda, traj, r, dy),
+        "param_grads_ms": time_ms(ref.slstm_param_grads, h,
+                                  sc.slstm_cell_dgg_cuda(traj, r, dy),
+                                  torch.float32),
+        "forward_ms": time_ms(sc.slstm_cell_cuda, g_in, r, b),
+        "traj_forward_ms": time_ms(sc.slstm_cell_traj_cuda, g_in, r, b),
+        "plain_ms": time_ms(ref.plain_vjp, ref.slstm_cell_ref, (g_in, r, b),
+                            dy, iters=2, warmup=1),
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "plan": sc.bwd_plans[(g_in.device, B, H, dh)],
+        "shape": [B, S, H, dh]}
+    t = out["slstm_timed"]
+    log(f"slstm_cell backward {label}: {t['ms']:.4g} ms = "
+        f"{bound / t['ms']:.1%} of its bound ({bound:.4g} ms by "
+        f"{bound_by}), plan {t['plan']}; dR and db (torch) "
+        f"{t['param_grads_ms']:.4g} ms; forward {t['forward_ms']:.4g} ms, "
+        f"with its trajectory {t['traj_forward_ms']:.4g} ms "
+        f"({t['traj_forward_ms'] / t['forward_ms'] - 1:+.1%}); plain vjp "
+        f"{t['plain_ms']:.4g} ms; library: none")
+    del g_in, r, b, dy, h, traj
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_whole_check(lm, steps, SyntheticLMDataset, RunConfig,
+                          InputShape, OptimizerConfig, tree_map, tree_leaves,
+                          configs, counts, arch, dev) -> dict:
+    """Phase 17 (c): one train step of ``arch`` at full width
+    (:func:`whole_model_config`: f32, the smallest depth with every block
+    kind), the same weights and batch on the card through the kernels and
+    on the host through the backward ops' plain algorithms: the loss
+    within ``TRAIN_WHOLE_LOSS_REL`` and every gradient leaf within
+    ``TRAIN_WHOLE_GRAD_REL`` × its max |g|; the card's backward kernels
+    launched once per recurrent block."""
+    import torch
+    cfg = whole_model_config(configs, arch)
+    run = RunConfig(model=cfg, shape=InputShape("whole", LM_WHOLE_PROMPT, 1,
+                                                "train"),
+                    optimizer=OptimizerConfig(warmup_steps=1))
+    loss_fn = steps.make_loss_fn(run)
+    batch = SyntheticLMDataset(cfg, LM_WHOLE_PROMPT, 1, seed=17).batch_at(0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    with torch.no_grad():
+        card_params = lm.init(gen, cfg, dev)
+        host_params = tree_map(lambda t: t.to("cpu", copy=True),
+                               card_params)
+
+    def one_step(params, device):
+        params = tree_map(lambda t: t.requires_grad_(), params)
+        b = {k: torch.from_numpy(v).to(device, dtype=torch.long)
+             for k, v in batch.items()}
+        loss, _, grads = steps.value_and_grad(loss_fn, params, b)
+        return float(loss), grads
+
+    before = counts()
+    card_loss, card_g = one_step(card_params, dev)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+    t0 = time.perf_counter()
+    host_loss, host_g = one_step(host_params, torch.device("cpu"))
+    host_s = time.perf_counter() - t0
+    loss_rel = abs(card_loss - host_loss) / abs(host_loss)
+    grad_rel = max(float((cg.cpu() - hg).abs().max())
+                   / max(float(hg.abs().max()), 1e-30)
+                   for cg, hg in zip(tree_leaves(card_g),
+                                     tree_leaves(host_g)))
+    del card_params, card_g
+    torch.cuda.empty_cache()
+    blocks = (*cfg.prefix_blocks, *cfg.block_pattern * cfg.num_groups)
+    want = {"mamba2_ssd_bwd": blocks.count("mamba2"),
+            "slstm_cell_bwd": blocks.count("slstm")}
+    log(f"{arch} whole model train step ({cfg.num_layers} layers, f32, seq "
+        f"{LM_WHOLE_PROMPT}): card loss {card_loss:.8g}, host "
+        f"{host_loss:.8g} (rel {loss_rel:.3g}); worst gradient leaf "
+        f"{grad_rel:.3g} × its max |g|; card launches {launched}; host "
+        f"{host_s:.1f} s")
+    if not loss_rel <= TRAIN_WHOLE_LOSS_REL \
+            or not grad_rel <= TRAIN_WHOLE_GRAD_REL:
+        raise SystemExit(f"{arch} whole-model train step: card and host "
+                         f"differ (loss {loss_rel:.3g}, gradients "
+                         f"{grad_rel:.3g})")
+    if any(launched.get(k, 0) != v for k, v in want.items() if v):
+        raise SystemExit(f"{arch} whole-model train step launched "
+                         f"{launched}, want {want}")
+    return {"layers": cfg.num_layers, "seq": LM_WHOLE_PROMPT,
+            "loss_rel": loss_rel, "grad_rel": grad_rel,
+            "card_launches": launched, "host_s": host_s}
 
 
 def main() -> int:
@@ -2621,17 +2933,21 @@ def main() -> int:
     single = (matmul_tiled, stencil5, dg_diff, flash_attention, mamba2_ssd,
               slstm_cell)
 
+    with_backward = (flash_attention, mamba2_ssd, slstm_cell)
+
     def counts():
         return {**{m.__name__.rsplit(".", 1)[1]: m.launches for m in single},
                 **microbench.launches,
-                "flash_attention_bwd": flash_attention.backward_launches}
+                **{m.__name__.rsplit(".", 1)[1] + "_bwd": m.backward_launches
+                   for m in with_backward}}
 
     def zero_counts():
         for m in single:
             m.launches = 0
+        for m in with_backward:
+            m.backward_launches = 0
         for name in microbench.launches:
             microbench.launches[name] = 0
-        flash_attention.backward_launches = 0
 
     # ---- 3-5. the base-model path, counted ---------------------------------
     zero_counts()
@@ -2895,7 +3211,9 @@ def main() -> int:
     t0 = time.perf_counter()
     training = train_path(Trainer, make_run_config, InputShape,
                           OptimizerConfig, configs, lm_counting, tree_leaves,
-                          flash_attention, zero_counts, dev, tmp)
+                          counts, zero_counts, dev, tmp, arch=TRAIN_ARCH,
+                          layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+                          steps=TRAIN_STEPS, launches=TRAIN_STEP_LAUNCHES)
     log(f"phase 16 (b) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fault = fault_tolerance_path(Trainer, InputShape, OptimizerConfig,
@@ -2904,13 +3222,35 @@ def main() -> int:
     t0 = time.perf_counter()
     whole_train = whole_train_check(
         lm, steps, adamw, SyntheticLMDataset, RunConfig, InputShape,
-        OptimizerConfig, tree_map, tree_leaves, configs, flash_attention,
-        dev)
+        OptimizerConfig, tree_map, tree_leaves, configs, counts, dev)
     log(f"phase 16 (d) took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"train": {
         "attention_backward": backward, "gemma2_9b": training,
         "fault_tolerance": fault, "whole_model": whole_train,
         "seconds": time.perf_counter() - t16, "device": smi}}), flush=True)
+
+    # ---- 17. training the recurrent models on the card ---------------------
+    t17 = time.perf_counter()
+    recurrent = check_recurrent_backward(ops, ref, variants, mamba2_ssd,
+                                         slstm_cell, dev)
+    log(f"phase 17 (a) took {time.perf_counter() - t17:.1f} s")
+    t0 = time.perf_counter()
+    trained = {arch: train_path(
+        Trainer, make_run_config, InputShape, OptimizerConfig, configs,
+        lm_counting, tree_leaves, counts, zero_counts, dev, tmp, arch=arch,
+        layers=layers, batch=RECURRENT_BATCH, steps=RECURRENT_STEPS,
+        launches=RECURRENT_STEP_LAUNCHES[arch])
+        for arch, layers in RECURRENT_TRAIN}
+    log(f"phase 17 (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wholes = {arch: recurrent_whole_check(
+        lm, steps, SyntheticLMDataset, RunConfig, InputShape,
+        OptimizerConfig, tree_map, tree_leaves, configs, counts, arch, dev)
+        for arch, _ in RECURRENT_TRAIN}
+    log(f"phase 17 (c) took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"train_recurrent": {
+        "backward": recurrent, "trained": trained, "whole_model": wholes,
+        "seconds": time.perf_counter() - t17, "device": smi}}), flush=True)
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
@@ -2935,6 +3275,25 @@ def main() -> int:
         r["max_abs_err"] for r in backward["cases"][
             f"{ATTN_BWD_CASES[0][0]} bfloat16"].values())
     sources["flash_attention_bwd"] = "src/repro/models/layers.py:151"
+    # the recurrent backward kernels: launches from phase 17 (b)'s steps,
+    # their error at the model's layer, timed there
+    for name, timed, case in (
+            ("mamba2_ssd_bwd", recurrent["ssd_timed"],
+             recurrent["ssd"][SSD_BWD_CASES[0][0]]),
+            ("slstm_cell_bwd", recurrent["slstm_timed"],
+             recurrent["slstm"][SLSTM_BWD_CASES[0][0]])):
+        measured[name] = {key: timed[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "forward_ms")}
+        measured[name].update(library="none", pred_over_meas={})
+        launches[name] = sum(t["launches"].get(name, 0)
+                             for t in trained.values())
+        errs[name] = max(r["max_abs_err"] for r in case.values())
+    measured["slstm_cell_bwd"].update(
+        traj_forward_ms=recurrent["slstm_timed"]["traj_forward_ms"],
+        param_grads_ms=recurrent["slstm_timed"]["param_grads_ms"])
+    sources["mamba2_ssd_bwd"] = "src/repro/models/ssm.py:77"
+    sources["slstm_cell_bwd"] = "src/repro/models/xlstm.py:275"
     rows = []
     for name, meas in measured.items():
         row = {"name": name, "route": "cuda",
@@ -2945,6 +3304,9 @@ def main() -> int:
             row["launches_lm"] = lm_launches[name]
         if name == "flash_attention":   # phase 16 (b), the training steps
             row["launches_train"] = training["launches"][name]
+        if name in ("mamba2_ssd", "slstm_cell", "flash_attention"):
+            row["launches_train_recurrent"] = sum(  # phase 17 (b)
+                t["launches"][name] for t in trained.values())
         if name in base_pred:
             row["predicted_ms"]["base"] = base_pred[name]
             row["pred_over_meas"]["base"] = base_pred[name] / meas["ms"]

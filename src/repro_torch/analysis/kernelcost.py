@@ -357,6 +357,51 @@ def mamba2_ssd_state_cost(xdt: torch.Tensor, da: torch.Tensor,
     return c
 
 
+def mamba2_ssd_bwd_cost(xdt: torch.Tensor, da: torch.Tensor,
+                        bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor,
+                        chunk: int) -> FeatureCounts:
+    """The gradient of :func:`mamba2_ssd_cost`'s function on the forward's
+    grid (B, H, S/chunk), the body counted per program as the forward's
+    rule counts it (the reference differentiates jnp; it has no backward
+    kernel to follow).  Per program (L = chunk): the state before the
+    chunk recomputed (``(x∘w)ᵀ·B``, L·P·N), the chunk's own state
+    gradient (``(dy∘exp(la))ᵀ·C``, L·P·N), ``C·Bᵀ`` and ``dy·xᵀ`` with the
+    decay (L·L·(N + P)), ``Mᵀ·dy``, ``Qᵀ·C``, ``Q·B`` (L·L·(P + 2N)),
+    ``dy·S``, ``x·G``, ``B·Gᵀ`` (3·L·P·N), d la's dot products (L·L + 2·L·N
+    + P·N), the two state passes, both cumsums and the combining adds.
+    Reads x, dt·A, B, C and dy, writes dx, d(dt·A), dB and dC, each block
+    once per program.  The staging term follows the CUDA passes at the
+    kernel's chunk: the forward's (a) again, (a′) as (a), and (c′) with
+    C, B, x, dy, the state and its gradient and the two SSD_TILE² product
+    tiles; the scratch of states and state gradients is HBM traffic the
+    reference does not move, left uncounted."""
+    b, s, h, p = xdt.shape
+    n = bm.shape[-1]
+    el = chunk
+    grid = (b, h, s // chunk)
+    programs = math.prod(grid)
+    c = FeatureCounts()
+    c.add("f_op_float32_madd", programs * (el * el * (2 * n + 2 * p + n)
+                                           + 5 * el * p * n + el * el
+                                           + 2 * el * n + p * n))
+    c.add("f_op_float32_mul",
+          programs * (2 * el * el + 2 * el * p + 3 * el * n + 2 * p * n))
+    c.add("f_op_float32_add",
+          programs * (4 * el + 2 * el * el + 2 * p * n + el * p + 2 * el * n))
+    c.add("f_op_float32_transc", programs * (el * el + 3 * el + 2))
+    for t, width in ((xdt, p), (da, 1), (bm, n), (cm, n), (dy, p)):
+        _traffic(c, "in", t.dtype, el * width, programs)
+    for t, width in ((xdt, p), (da, 1), (bm, n), (cm, n)):
+        _traffic(c, "out", t.dtype, el * width, programs)
+    lk = ssd_inner_chunk(chunk)
+    chunk_state = lk * (2 * p + n + 2)
+    chunk_grad = lk * (2 * p + 2 * n + 1) + 2 * n * p + 2 * SSD_TILE ** 2
+    c.add("f_vmem_contig_float32_store",
+          b * h * (s // lk) * (2 * chunk_state + chunk_grad))
+    c.add("f_sync_grid_programs", programs)
+    return c
+
+
 def slstm_cell_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
                     b_gates: torch.Tensor) -> FeatureCounts:
     """Grid (B,); g_in (S, 4, H, dh) and y (S, H, dh) blocks per batch
@@ -401,6 +446,55 @@ def slstm_cell_state_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
     return c
 
 
+def slstm_cell_traj_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
+                         b_gates: torch.Tensor) -> FeatureCounts:
+    """:func:`slstm_cell_cost` and the trajectory the backward reads: per
+    step and hidden unit the four gate pre-activations and c, n, m,
+    float32, stored by the gating threads."""
+    b, s, _, h, dh = g_in.shape
+    c = slstm_cell_cost(g_in, r_gates, b_gates)
+    _traffic(c, "out", torch.float32, s * 7 * h * dh, b)
+    return c
+
+
+def slstm_cell_bwd_cost(traj: torch.Tensor, h: torch.Tensor,
+                        r_gates: torch.Tensor,
+                        dy: torch.Tensor) -> FeatureCounts:
+    """The gradient of :func:`slstm_cell_cost`'s function on its grid
+    (B,): per program S steps (``f_sync_loop_steps``), each the
+    transposed recurrence R·dgg (H·dh·4dh madds) and per hidden unit the
+    gating's backward — ``log_sigmoid`` again (as the forward's rule
+    counts it), ip, fp, tanh, sigmoid (4 transc), the sigmoid of −f for
+    log_sigmoid's derivative (2 transc, a div), 1/max(n, 1e-6) (a div),
+    the floor's and the maximum's compares, ~18 mul and ~14 add.  Then
+    dR = Σ h_{t−1} ⊗ dgg (B·S·H·dh·4dh madds) and db = Σ dgg (B·S·4·H·dh
+    adds).  Reads traj, h, dy and r, writes dg_in, dr and db.  The
+    staging term follows the CUDA kernel: r[h] into registers once a
+    cluster, and each step every unit's recurrent sum into shared memory
+    and its four gate gradients into each block of its cluster."""
+    b, s, _, hh, dh = traj.shape
+    units = b * s * hh * dh
+    c = FeatureCounts()
+    c.add("f_op_float32_madd", 2 * b * s * hh * dh * 4 * dh)
+    c.add("f_op_float32_add", (7 + 14) * units + 4 * units)
+    c.add("f_op_float32_mul", 18 * units)
+    c.add("f_op_float32_div", 3 * units)
+    c.add("f_op_float32_cmp", 4 * units)
+    c.add("f_op_float32_transc", (2 + 4 + 2) * units)
+    _traffic(c, "in", traj.dtype, s * 7 * hh * dh, b)
+    _traffic(c, "in", h.dtype, s * hh * dh, b)
+    _traffic(c, "in", dy.dtype, s * hh * dh, b)
+    _traffic(c, "in", r_gates.dtype, r_gates.numel(), 1)
+    _traffic(c, "out", dy.dtype, s * 4 * hh * dh, b)
+    _traffic(c, "out", r_gates.dtype, r_gates.numel(), 1)
+    _traffic(c, "out", r_gates.dtype, 4 * hh * dh, 1)
+    c.add("f_vmem_contig_float32_store",
+          b * hh * 4 * dh * dh + units * (1 + 4 * slstm_cluster_blocks(dh)))
+    c.add("f_sync_loop_steps", s * b)
+    c.add("f_sync_grid_programs", b)
+    return c
+
+
 register_op_cost_rule("repro_torch::matmul_tiled", matmul_tiled_cost)
 register_op_cost_rule("repro_torch::stencil5", stencil5_cost)
 register_op_cost_rule("repro_torch::dg_diff", dg_diff_cost)
@@ -413,3 +507,6 @@ register_op_cost_rule("repro_torch::mamba2_ssd", mamba2_ssd_cost)
 register_op_cost_rule("repro_torch::slstm_cell", slstm_cell_cost)
 register_op_cost_rule("repro_torch::mamba2_ssd_state", mamba2_ssd_state_cost)
 register_op_cost_rule("repro_torch::slstm_cell_state", slstm_cell_state_cost)
+register_op_cost_rule("repro_torch::mamba2_ssd_bwd", mamba2_ssd_bwd_cost)
+register_op_cost_rule("repro_torch::slstm_cell_traj", slstm_cell_traj_cost)
+register_op_cost_rule("repro_torch::slstm_cell_bwd", slstm_cell_bwd_cost)

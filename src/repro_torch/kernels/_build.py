@@ -30,9 +30,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu",
            "stream_strided.cu", "madd_throughput.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "mamba2_ssd.cu", "slstm_cell.cu")
+           "flash_attention_bwd.cu", "mamba2_ssd.cu", "mamba2_ssd_bwd.cu",
+           "slstm_cell.cu", "slstm_cell_bwd.cu")
 #: headers the sources include (part of the library's hash)
-HEADERS = ("mma_bf16.cuh",)
+HEADERS = ("mma_bf16.cuh", "ssd_common.cuh", "slstm_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -68,11 +69,21 @@ SIGNATURES: Dict[str, List] = {
     "repro_ssd_chunk_state_f32": [_P] * 5 + [_I] * 6 + [_P],
     "repro_ssd_state_pass_f32": [_P] * 3 + [_I] * 6 + [_P],
     "repro_ssd_chunk_out_f32": [_P] * 6 + [_I] * 6 + [_P],
-    # g_in, r, b, y, state (c, n, m after the last step, or 0), batch, S,
-    # H, dh, cluster blocks, batch rows per cluster (the plan's)
-    "repro_slstm_cell_f32": [_P] * 5 + [_I] * 6 + [_P],
+    # the SSD backward's passes: (a′) dy, da, C, grads; (b′) grads, decay;
+    # (c′) xdt, da, B, C, dy, states, grads, dxdt, dda, dB, dC; then
+    # batch, S, H, P, N, chunk
+    "repro_ssd_chunk_state_grad_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "repro_ssd_state_grad_pass_f32": [_P] * 2 + [_I] * 6 + [_P],
+    "repro_ssd_chunk_grad_f32": [_P] * 11 + [_I] * 6 + [_P],
+    # g_in, r, b, y, state (c, n, m after the last step, or 0), traj (each
+    # step's gates and c, n, m, or 0), batch, S, H, dh, cluster blocks,
+    # batch rows per cluster (the plan's)
+    "repro_slstm_cell_f32": [_P] * 6 + [_I] * 6 + [_P],
+    # traj, r, dy, dgg, then as the forward from batch on
+    "repro_slstm_cell_bwd_f32": [_P] * 4 + [_I] * 6 + [_P],
     # host side, no stream: batch, H, dh, cluster blocks, out[3]
     "repro_slstm_cell_plan": [_I] * 4 + [ctypes.POINTER(_I)],
+    "repro_slstm_cell_bwd_plan": [_I] * 4 + [ctypes.POINTER(_I)],
 }
 
 

@@ -61,28 +61,15 @@
 // After the last step the gating threads store their c, n, m into
 // `state` [3, B, H, dh] when it is not null: a served prefill leaves the
 // recurrent state in the cache (h after the last step is y's last row).
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-namespace cg = cooperative_groups;
+// Under autograd they also store, each step, what the backward
+// (slstm_cell_bwd.cu) reads into `traj` [B, S, 7, H, dh] when it is not
+// null: the pre-activations (i, f, z, o) as gated and c, n, m after the
+// step.
+#include "slstm_common.cuh"
 
 namespace {
 
-constexpr int kMaxDh = 256;
-constexpr int kSlices = 16;     // threads per pair of hidden units
 constexpr int kAhead = 4;       // steps of g_in loaded ahead
-constexpr unsigned kFull = 0xffffffffu;
-
-// threads of a block: 16 per pair of the block's hidden units, in whole
-// warps, for dh up to 16·dpt over cs blocks
-constexpr int max_threads(int dpt, int cs) {
-  return (kSlices * (((kSlices * dpt + cs - 1) / cs + 1) / 2) + 31) / 32 * 32;
-}
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - __logf(1.f + __expf(-fabsf(x)));
-}
 
 // 16 threads of a unit pair hold partial sums a[v][g] of gate g of unit v
 // over their inputs; afterwards thread k holds the total of gate
@@ -104,46 +91,6 @@ __device__ __forceinline__ float reduce_gates(const float (&a)[2][4], int k) {
   return keep + __shfl_xor_sync(kFull, keep, 1);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// the address of shared-memory address `addr` in cluster block `rank`
-__device__ __forceinline__ unsigned peer_addr(unsigned addr, unsigned rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               ::"r"(bar), "r"(count) : "memory");
-}
-
-// one arrival on the barrier's phase, which then also awaits `bytes`
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n .reg .pred done;\n"
-      "WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WAIT_%=;\n}\n" ::"r"(bar), "r"(parity) : "memory");
-}
-
-// v into a cluster block's shared memory, its 4 bytes counted on that
-// block's barrier `bar` (both addresses from peer_addr)
-__device__ __forceinline__ void st_async(unsigned addr, float v,
-                                         unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
-}
-
 // DPT: inputs d per thread (a multiple of 4, 16·DPT >= dh); CS: blocks
 // of a cluster; ROWS: batch rows per cluster
 template <int DPT, int CS, int ROWS>
@@ -151,8 +98,8 @@ __global__ void __launch_bounds__(max_threads(DPT, CS), 1)
 slstm_cluster_kernel(const float* __restrict__ g_in,
                      const float* __restrict__ r,
                      const float* __restrict__ bias, float* __restrict__ y,
-                     float* __restrict__ state, int batch, int steps,
-                     int heads, int dh) {
+                     float* __restrict__ state, float* __restrict__ traj,
+                     int batch, int steps, int heads, int dh) {
   constexpr int kW = kSlices * DPT;       // h row, zero-padded past dh
   constexpr int kUnits = (kW + CS - 1) / CS;
   __shared__ __align__(16) float hbuf[2][ROWS][kW];
@@ -263,7 +210,8 @@ slstm_cluster_kernel(const float* __restrict__ g_in,
     }
     if (gating) {
       const float li = pre[row][0][gu] + gq[0][0] + bg[0];
-      const float lf = log_sigmoid(pre[row][1][gu] + gq[0][1] + bg[1]);
+      const float fr = pre[row][1][gu] + gq[0][1] + bg[1];
+      const float lf = log_sigmoid(fr);
       const float z = pre[row][2][gu] + gq[0][2] + bg[2];
       const float o = pre[row][3][gu] + gq[0][3] + bg[3];
       const float m_new = fmaxf(lf + m, li);
@@ -274,6 +222,13 @@ slstm_cluster_kernel(const float* __restrict__ g_in,
       const float h_new =
           __fdividef(c, (1.f + __expf(-o)) * fmaxf(n, 1e-6f));
       m = m_new;
+      if (traj != nullptr && row_ok) {   // for the backward: gg, c, n, m
+        float* tp = traj + ((size_t)(row0 + row) * steps + t) * 7 * gate_stride
+                    + (size_t)h * dh + my_u;
+        const float keep[7] = {li, fr, z, o, c, n, m};
+#pragma unroll
+        for (int g = 0; g < 7; ++g) tp[g * gate_stride] = keep[g];
+      }
       if (t + 1 < steps) {
         const unsigned at =
             smem_addr(&hbuf[par ^ 1][row][0]) + (unsigned)my_u * 4;
@@ -305,57 +260,6 @@ slstm_cluster_kernel(const float* __restrict__ g_in,
   cluster.sync();   // no block leaves while a peer may still write to it
 }
 
-template <int DPT, int CS, int ROWS>
-cudaLaunchConfig_t config(int batch, int heads, int threads,
-                          cudaLaunchAttribute* attr, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CS, heads, (batch + ROWS - 1) / ROWS);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = CS;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// one instance of the kernel, as a type
-template <int DPT, int CS, int ROWS>
-struct Instance {
-  static constexpr int dpt = DPT, cs = CS, rows = ROWS;
-};
-
-// f(Instance<DPT, CS, ROWS>{}) for the smallest DPT (inputs per thread)
-// with 16·DPT >= dh, and the caller's cluster size `cs` and batch rows
-// per cluster `rows`; cudaErrorInvalidValue where that instance is not
-// built (clusters of 6 for dh <= 192, of 8 above; 1 or 2 rows)
-template <int ROWS, typename F>
-cudaError_t with_rows(int dh, int cs, F&& f) {
-  if (dh < 1 || dh > kMaxDh) return cudaErrorInvalidValue;
-  if (cs == 6 && dh <= 64) return f(Instance<4, 6, ROWS>{});
-  if (cs == 6 && dh <= 128) return f(Instance<8, 6, ROWS>{});
-  if (cs == 6 && dh <= 192) return f(Instance<12, 6, ROWS>{});
-  if (cs == 8 && dh > 192) return f(Instance<16, 8, ROWS>{});
-  return cudaErrorInvalidValue;
-}
-
-template <typename F>
-cudaError_t with_instance(int dh, int cs, int rows, F&& f) {
-  if (rows == 1) return with_rows<1>(dh, cs, f);
-  if (rows == 2) return with_rows<2>(dh, cs, f);
-  return cudaErrorInvalidValue;
-}
-
-// threads of a block of the instance for dh
-template <typename I>
-int threads_for(int dh) {
-  const int units = (dh + I::cs - 1) / I::cs;
-  return (kSlices * ((units + 1) / 2) + 31) / 32 * 32;
-}
-
 }  // namespace
 
 // The launch plan for [B, ·, 4, H, dh] operands on clusters of `cs`
@@ -364,53 +268,29 @@ int threads_for(int dh) {
 // cluster: 1 if all B·H clusters can be resident at once, else 2.
 extern "C" int repro_slstm_cell_plan(int batch, int heads, int dh, int cs,
                                      int* out) {
-  if (batch < 1 || heads < 1) return (int)cudaErrorInvalidValue;
-  for (int rows = 1; rows <= 2; ++rows) {
-    int threads = 0, clusters = 0;
-    const cudaError_t err =
-        with_instance(dh, cs, rows, [&](auto inst) {
-          using I = decltype(inst);
-          threads = threads_for<I>(dh);
-          cudaLaunchAttribute attr;
-          cudaLaunchConfig_t cfg = config<I::dpt, I::cs, I::rows>(
-              batch, heads, threads, &attr, nullptr);
-          return cudaOccupancyMaxActiveClusters(
-              &clusters,
-              (void*)slstm_cluster_kernel<I::dpt, I::cs, I::rows>, &cfg);
-        });
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-    if (rows == 2 || (long long)batch * heads <= clusters) {
-      out[0] = rows;
-      out[1] = clusters;
-      out[2] = threads;
-      return (int)cudaSuccess;
-    }
-  }
-  return (int)cudaErrorInvalidValue;   // not reached
+  return cluster_plan(batch, heads, dh, cs, out, [](auto inst) {
+    using I = decltype(inst);
+    return slstm_cluster_kernel<I::dpt, I::cs, I::rows>;
+  });
 }
 
 // g_in[B, S, 4, H, dh], r_gates[H, dh, 4, dh], b_gates[4, H, dh] →
 // y[B, S, H, dh], all f32 and contiguous; dh <= 256; clusters of `cs`
 // blocks, `rows` batch rows a cluster (the plan's).  Unless `state` is
-// null, c, n, m after the last step go to state[3, B, H, dh].
+// null, c, n, m after the last step go to state[3, B, H, dh]; unless
+// `traj` is null, each step's (i, f, z, o) pre-activations and c, n, m
+// go to traj[B, S, 7, H, dh].
 extern "C" int repro_slstm_cell_f32(const void* g_in, const void* r_gates,
                                     const void* b_gates, void* y, void* state,
-                                    int batch, int steps, int heads, int dh,
-                                    int cs, int rows, void* stream) {
-  if (batch == 0 || steps == 0 || heads == 0)
-    return (int)with_instance(dh, cs, rows, [](auto) { return cudaSuccess; });
-  const cudaError_t err = with_instance(dh, cs, rows, [&](auto inst) {
-    using I = decltype(inst);
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = config<I::dpt, I::cs, I::rows>(
-        batch, heads, threads_for<I>(dh), &attr, (cudaStream_t)stream);
-    return cudaLaunchKernelEx(&cfg,
-                              slstm_cluster_kernel<I::dpt, I::cs, I::rows>,
-                              (const float*)g_in, (const float*)r_gates,
-                              (const float*)b_gates, (float*)y,
-                              (float*)state, batch, steps, heads, dh);
-  });
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                                    void* traj, int batch, int steps,
+                                    int heads, int dh, int cs, int rows,
+                                    void* stream) {
+  return cluster_launch(
+      batch, steps, heads, dh, cs, rows, (cudaStream_t)stream,
+      [](auto inst) {
+        using I = decltype(inst);
+        return slstm_cluster_kernel<I::dpt, I::cs, I::rows>;
+      },
+      (const float*)g_in, (const float*)r_gates, (const float*)b_gates,
+      (float*)y, (float*)state, (float*)traj, batch, steps, heads, dh);
 }

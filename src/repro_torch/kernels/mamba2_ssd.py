@@ -10,10 +10,14 @@ launches the same passes with pass (b) also writing the state after the
 last chunk, which a served prefill leaves in the cache; its custom op
 ``repro_torch::mamba2_ssd_state`` runs ``ref.ssd_state_ref``.
 
-Gradients: the custom op's autograd is the plain version's vjp
-(``ref.plain_vjp``), so the host trains through it; on the card
-:class:`Mamba2SSD` runs the forward kernel and its backward raises, as
-no backward kernel exists yet (ROADMAP queue B).
+Gradients: on the card :class:`Mamba2SSD` runs the forward kernel and
+its backward launches ``csrc/mamba2_ssd_bwd.cu``
+(``mamba2_ssd_bwd_cuda``: the forward's passes (a) and (b) again into
+scratch, then the backward's three passes).  On the host the custom
+op's autograd calls the custom op ``repro_torch::mamba2_ssd_bwd``,
+whose CPU impl is the same algorithm in PyTorch (``ref.ssd_bwd_ref``)
+and whose fake impl lets the counter price a training step.  The
+reference has no backward kernel: it differentiates its jnp scan.
 """
 from __future__ import annotations
 
@@ -22,11 +26,14 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import plain_vjp, ssd_ref, ssd_state_ref
+from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref, ssd_state_ref
 
 #: calls of ``mamba2_ssd_cuda`` that launched the kernel's passes, in
 #: this process
 launches = 0
+#: calls of ``mamba2_ssd_bwd_cuda`` (each launches the forward's passes
+#: (a), (b) and the backward's three) in this process
+backward_launches = 0
 
 #: the largest chunk the kernel runs at, one staged tile of rows: the
 #: SSD's result does not depend on the chunking, only its work does (each
@@ -39,6 +46,10 @@ MAX_DIM = 64
 #: the passes' C entry points, in launch order
 PASSES = ("repro_ssd_chunk_state_f32", "repro_ssd_state_pass_f32",
           "repro_ssd_chunk_out_f32")
+#: the backward's own passes' C entry points, in launch order (after the
+#: forward's first two)
+BWD_PASSES = ("repro_ssd_chunk_state_grad_f32",
+              "repro_ssd_state_grad_pass_f32", "repro_ssd_chunk_grad_f32")
 
 
 @torch.library.custom_op("repro_torch::mamba2_ssd", mutates_args=(),
@@ -66,6 +77,42 @@ def inner_chunk(chunk: int) -> int:
                 if chunk % d == 0)
 
 
+def _check(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+           cm: torch.Tensor, chunk: int, *more: torch.Tensor) -> None:
+    """Raise on operands the kernels do not take (``more``: the output
+    gradient of the backward, shaped as xdt)."""
+    b, s, h, p = xdt.shape
+    n = bm.shape[-1]
+    if any(t.dtype != torch.float32 for t in (xdt, da, bm, cm, *more)):
+        raise TypeError(f"mamba2_ssd takes float32, got "
+                        f"{[t.dtype for t in (xdt, da, bm, cm, *more)]}")
+    if da.shape != (b, s, h) or bm.shape != (b, s, h, n) \
+            or cm.shape != bm.shape or s % chunk \
+            or any(t.shape != xdt.shape for t in more):
+        raise ValueError(f"mamba2_ssd: shapes "
+                         f"{[tuple(t.shape) for t in (xdt, da, bm, cm, *more)]}"
+                         f" with chunk={chunk}")
+    if p > MAX_DIM or n > MAX_DIM or chunk > MAX_CHUNK:
+        raise ValueError(f"mamba2_ssd kernel takes P, N <= {MAX_DIM} and "
+                         f"chunk <= {MAX_CHUNK}, got P={p}, N={n}, "
+                         f"chunk={chunk}")
+    if not all(t.is_contiguous() for t in (xdt, da, bm, cm, *more)):
+        raise ValueError("mamba2_ssd takes contiguous operands")
+    if any(t.device != xdt.device for t in (da, bm, cm, *more)):
+        raise ValueError("mamba2_ssd operands must share one device")
+
+
+def _launcher(dev, dims):
+    """``launch(name, *tensors)`` → (name, a call launching C entry point
+    ``name`` on the current stream with the tensors' pointers (0 for
+    None) and ``dims``); the call holds its tensors, scratch included."""
+    def launch(name, *tensors):
+        return name, lambda: _build.launch_on(
+            dev, name, *(0 if t is None else t.data_ptr() for t in tensors),
+            *dims)
+    return launch
+
+
 def pass_calls(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
                cm: torch.Tensor, chunk: int,
                final: Optional[torch.Tensor] = None
@@ -78,42 +125,21 @@ def pass_calls(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     launch error).  Calling them in order computes the output, and with
     ``final`` (f32 [B, H, P, N]) pass (b) also writes the state after the
     last chunk there."""
+    _check(xdt, da, bm, cm, chunk)
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
-    if any(t.dtype != torch.float32 for t in (xdt, da, bm, cm)):
-        raise TypeError(f"mamba2_ssd takes float32, got {xdt.dtype}, "
-                        f"{da.dtype}, {bm.dtype}, {cm.dtype}")
-    if da.shape != (b, s, h) or bm.shape != (b, s, h, n) \
-            or cm.shape != bm.shape or s % chunk:
-        raise ValueError(f"mamba2_ssd: shapes {tuple(xdt.shape)}, "
-                         f"{tuple(da.shape)}, {tuple(bm.shape)}, "
-                         f"{tuple(cm.shape)} with chunk={chunk}")
-    if p > MAX_DIM or n > MAX_DIM or chunk > MAX_CHUNK:
-        raise ValueError(f"mamba2_ssd kernel takes P, N <= {MAX_DIM} and "
-                         f"chunk <= {MAX_CHUNK}, got P={p}, N={n}, "
-                         f"chunk={chunk}")
-    if not all(t.is_contiguous() for t in (xdt, da, bm, cm)):
-        raise ValueError("mamba2_ssd takes contiguous operands")
-    if any(t.device != xdt.device for t in (da, bm, cm)):
-        raise ValueError("mamba2_ssd operands must share one device")
     dev = xdt.device
-    inner = inner_chunk(chunk)
-    out = torch.empty_like(xdt)
-    states = torch.empty((b, s // inner, h, p, n), dtype=torch.float32,
-                         device=dev)
-    decay = torch.empty((b, s // inner, h), dtype=torch.float32, device=dev)
-    dims = (b, s, h, p, n, inner)
-
     if final is not None and (
             final.shape != (b, h, p, n) or final.dtype != torch.float32
             or not final.is_contiguous() or final.device != dev):
         raise ValueError(f"mamba2_ssd: final state must be a contiguous "
                          f"float32 [{b}, {h}, {p}, {n}] on {dev}")
-
-    def launch(name, *tensors):   # holds its tensors, scratch included
-        return name, lambda: _build.launch_on(
-            dev, name, *(0 if t is None else t.data_ptr() for t in tensors),
-            *dims)
+    inner = inner_chunk(chunk)
+    out = torch.empty_like(xdt)
+    states = torch.empty((b, s // inner, h, p, n), dtype=torch.float32,
+                         device=dev)
+    decay = torch.empty((b, s // inner, h), dtype=torch.float32, device=dev)
+    launch = _launcher(dev, (b, s, h, p, n, inner))
     calls = [launch(PASSES[0], xdt, da, bm, states, decay),
              launch(PASSES[1], states, decay, final),
              launch(PASSES[2], xdt, da, bm, cm, states, out)]
@@ -161,27 +187,77 @@ def _mamba2_ssd_state_fake(xdt, da, bm, cm, chunk):
         dtype=torch.promote_types(xdt.dtype, torch.float32))
 
 
+def mamba2_ssd_bwd_cuda(xdt: torch.Tensor, da: torch.Tensor,
+                        bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor,
+                        chunk: int) -> Tuple[torch.Tensor, ...]:
+    """Check the operands, launch the forward's passes (a) and (b) again
+    (the state before each chunk, into scratch) and the three passes of
+    ``csrc/mamba2_ssd_bwd.cu`` (each chunk's own state gradient, the
+    reverse pass along the chunks, each chunk's gradients) at the
+    kernel's chunk; count the call.  Returns (dxdt, dda, dB, dC)."""
+    global backward_launches
+    _check(xdt, da, bm, cm, chunk, dy)
+    b, s, h, p = xdt.shape
+    n = bm.shape[-1]
+    inner = inner_chunk(chunk)
+    scratch = (b, s // inner, h, p, n)
+    states = torch.empty(scratch, dtype=torch.float32, device=xdt.device)
+    grads = torch.empty(scratch, dtype=torch.float32, device=xdt.device)
+    decay = torch.empty(scratch[:3], dtype=torch.float32, device=xdt.device)
+    out = tuple(torch.empty_like(t) for t in (xdt, da, bm, cm))
+    launch = _launcher(xdt.device, (b, s, h, p, n, inner))
+    for _, call in (launch(PASSES[0], xdt, da, bm, states, decay),
+                    launch(PASSES[1], states, decay, None),
+                    launch(BWD_PASSES[0], dy, da, cm, grads),
+                    launch(BWD_PASSES[1], grads, decay),
+                    launch(BWD_PASSES[2], xdt, da, bm, cm, dy, states,
+                           grads, *out)):
+        call()
+    backward_launches += 1
+    return out
+
+
+@torch.library.custom_op("repro_torch::mamba2_ssd_bwd", mutates_args=(),
+                         device_types="cpu")
+def mamba2_ssd_bwd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor, dy: torch.Tensor, chunk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """The gradient of ``repro_torch::mamba2_ssd``: (dxdt, dda, dB, dC)
+    for the output gradient ``dy``, by the backward kernel's algorithm in
+    PyTorch."""
+    return ssd_bwd_ref(xdt, da, bm, cm, dy, chunk)
+
+
+@mamba2_ssd_bwd.register_fake
+def _mamba2_ssd_bwd_fake(xdt, da, bm, cm, dy, chunk):
+    return tuple(torch.empty_like(t) for t in (xdt, da, bm, cm))
+
+
 class Mamba2SSD(torch.autograd.Function):
-    """The card's SSD under autograd: the forward kernel, and a backward
-    that raises until a backward kernel exists."""
+    """The card's SSD under autograd: the forward kernel, and the
+    backward kernel as its backward."""
 
     @staticmethod
     def forward(ctx, xdt, da, bm, cm, chunk):
+        ctx.save_for_backward(xdt, da, bm, cm)
+        ctx.chunk = chunk
         return mamba2_ssd_cuda(xdt, da, bm, cm, chunk)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "mamba2_ssd backward kernel: ROADMAP queue B (the card trains "
-            "no Mamba-2 block yet)")
+        return (*mamba2_ssd_bwd_cuda(*ctx.saved_tensors, dy.contiguous(),
+                                     ctx.chunk), None)
 
 
 def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(*inputs[:4])
+    ctx.chunk = inputs[4]
 
 
 def _backward(ctx, dy):
-    return (*plain_vjp(ssd_ref, ctx.saved_tensors, dy), None)
+    return (*mamba2_ssd_bwd(*ctx.saved_tensors, dy.contiguous(), ctx.chunk),
+            None)
 
 
 mamba2_ssd.register_autograd(_backward, setup_context=_setup_context)

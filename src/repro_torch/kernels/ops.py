@@ -6,12 +6,14 @@ Each wrapper clamps its blocks to the array (as the reference does) and
 checks that they tile it.  A tensor with data on the card goes straight
 to the kernel's launcher (``*_cuda``: the hand kernel, or raise) — under
 autograd, when an operand needs a gradient, through the kernel's
-``autograd.Function`` (attention's backward is its backward kernel; the
-SSD's and the sLSTM's raise); any other tensor meets the kernel's
-custom op, which runs the plain version on the CPU (its autograd the
-plain vjp) and has no CUDA kernel.  The counter
+``autograd.Function``, whose backward is the kernel's backward kernel
+(attention's, the SSD's and the sLSTM's); any other tensor meets the
+kernel's custom op, which runs the plain version on the CPU and has no
+CUDA kernel — under autograd its backward is a custom op too, the
+backward kernel's algorithm in PyTorch on the CPU (the sLSTM's forward
+then keeps its trajectory, as on the card).  The counter
 (:mod:`repro_torch.core.counting`) passes fake tensors, so it meets the
-op and prices it with its cost rule instead of running it.
+ops and prices them with their cost rules instead of running them.
 """
 from __future__ import annotations
 
@@ -113,12 +115,13 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
     if g_in.dim() != 5 or g_in.shape[2] != 4:
         raise ValueError(f"slstm_cell: g_in must be [B, S, 4, H, dh], got "
                          f"{tuple(g_in.shape)}")
-    if not _on_card(g_in):
-        fn = _sc.slstm_cell
-    elif _needs_grad(g_in, r_gates, b_gates):
-        fn = _sc.SLSTMCell.apply
+    grad = _needs_grad(g_in, r_gates, b_gates)
+    if _on_card(g_in):
+        fn = _sc.SLSTMCell.apply if grad else _sc.slstm_cell_cuda
+    elif grad:
+        return _sc.slstm_cell_traj(g_in, r_gates, b_gates)[0]
     else:
-        fn = _sc.slstm_cell_cuda
+        fn = _sc.slstm_cell
     return fn(g_in, r_gates, b_gates)
 
 

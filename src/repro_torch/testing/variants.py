@@ -6,7 +6,9 @@ inputs make visible.  Each function here is the plain version with one
 point of the kernel's semantics dropped (the softcap, the window, the
 GQA head map, the last kv tile, the carried SSD state, the sLSTM
 recurrence) or with the fault its design invites (the SSD's state one
-chunk late, the sLSTM's peers' h one step stale); a check that such a
+chunk late, the sLSTM's peers' h one step stale), and likewise for the
+backward kernels (the SSD's carried state gradient dropped or one chunk
+late, the sLSTM's recurrent dh term dropped); a check that such a
 variant also passes is blind to that point.  ``chip_smoke.py`` and the
 card tests hold each variant to failing the check wherever it computes
 something different.
@@ -21,8 +23,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels.ref import (_wide, attention_ref, slstm_cell_ref,
-                                     slstm_gate, ssd_ref)
+from repro_torch.kernels.ref import (_wide, attention_ref,
+                                     slstm_cell_bwd_ref, slstm_cell_ref,
+                                     slstm_gate, ssd_bwd_ref, ssd_ref)
 from repro_torch.kernels.slstm_cell import cluster_blocks
 
 ATTN_KW = [dict(causal=True), dict(causal=False),
@@ -144,3 +147,20 @@ def slstm_peer_h_stale(g_in, r_gates, b_gates):
     but the peers' from step t − 2: a missing or early cluster
     barrier."""
     return slstm_split(g_in, r_gates, b_gates, peer_lag=1)
+
+
+# the backward kernels' plain variants (``chip_smoke.py`` phase 17 (a)):
+# the SSD's gradient without the state gradient carried between chunks,
+# or with it one chunk late; the sLSTM's without the recurrent dh term
+
+
+def ssd_bwd_without_carried_gradient(xdt, da, bm, cm, dy, chunk):
+    return ssd_bwd_ref(xdt, da, bm, cm, dy, chunk, grad_lag=None)
+
+
+def ssd_bwd_gradient_one_chunk_late(xdt, da, bm, cm, dy, chunk):
+    return ssd_bwd_ref(xdt, da, bm, cm, dy, chunk, grad_lag=1)
+
+
+def slstm_bwd_without_recurrence(traj, h, r_gates, dy):
+    return slstm_cell_bwd_ref(traj, h, r_gates, dy, recurrent=False)

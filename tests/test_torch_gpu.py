@@ -530,7 +530,7 @@ def test_slstm_cell_cluster_plans_on_card(cuda, B, S, H, dh):
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.launch_on(
                 g_in.device, "repro_slstm_cell_f32", g_in.data_ptr(), r.data_ptr(),
-                b.data_ptr(), got.data_ptr(), 0, B, S, H, dh, cs, 1)
+                b.data_ptr(), got.data_ptr(), 0, 0, B, S, H, dh, cs, 1)
 
 
 def _default_battery():
@@ -757,25 +757,118 @@ def test_flash_attention_lse_is_the_rows_logsumexp(cuda, dt):
     assert float((lse.double() - want).abs().max()) < 1e-4
 
 
+# ---------------------------------------------------------------------------
+# the recurrent backward kernels (csrc/mamba2_ssd_bwd.cu,
+# csrc/slstm_cell_bwd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _recurrent_grads_on_card(module, op, plain, args, dy, **kw):
+    """The kernel's gradients through ``ops`` under autograd (each kernel
+    launched once, forward and backward) and the plain version's autograd
+    on float64 copies."""
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (module.launches, module.backward_launches)
+    got = torch.autograd.grad(op(*leaves, **kw), leaves, dy)
+    assert (module.launches, module.backward_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    want = tref.plain_vjp(plain, [t.double() for t in args], dy.double())
+    return got, want
+
+
 @pytest.mark.gpu
-def test_ssd_and_slstm_card_backward_raise(cuda):
-    """On the card the SSD's and the sLSTM's forwards run their kernels
-    under autograd too, and their backward raises (no backward kernel
-    yet, ROADMAP queue B) rather than running the plain version."""
-    xdt = torch.from_numpy(rn(6, 1, 64, 2, 16)).to(cuda).requires_grad_()
-    da = torch.from_numpy(-np.abs(rn(7, 1, 64, 2)) * 0.1).to(cuda)
-    bm = torch.from_numpy(rn(8, 1, 64, 2, 8)).to(cuda)
-    cm = torch.from_numpy(rn(9, 1, 64, 2, 8)).to(cuda)
-    before = tssd.launches
-    y = tops.mamba2_ssd(xdt, da, bm, cm, chunk=32)
-    assert tssd.launches == before + 1
-    with pytest.raises(NotImplementedError, match="queue B"):
-        y.sum().backward()
-    g = torch.from_numpy(rn(10, 1, 8, 4, 2, 16) * 0.5).to(cuda)
-    r = torch.from_numpy(rn(11, 2, 16, 4, 16) * 0.1).to(cuda)
-    b = torch.from_numpy(rn(12, 4, 2, 16) * 0.1).to(cuda).requires_grad_()
-    before = tsc.launches
-    h = tops.slstm_cell(g, r, b)
-    assert tsc.launches == before + 1
-    with pytest.raises(NotImplementedError, match="queue B"):
+@pytest.mark.parametrize("B,S,H,P,N,chunk,shift", [
+    *(shape + (0.0,) for shape in SSD_SHAPES),
+    (1, 96, 2, 20, 12, 48, 0.0),     # P, N not multiples of 4 or 8
+    (1, 128, 3, 64, 64, 64, 5.0),    # strong decay: exp(la_i − la_j) = 0
+    (2, 160, 2, 8, 16, 160, 0.0),    # chunk 160: the kernel's chunk 40
+    (1, 64, 2, 1, 1, 16, 0.0),       # P = N = 1
+])
+def test_mamba2_ssd_backward_kernel_on_card(cuda, B, S, H, P, N, chunk,
+                                            shift):
+    """Every gradient within 1e-4 × its max |g| of the float64 vjp of the
+    plain recurrence; where S spans chunks, the plain variants without
+    the carried state gradient, or with it one chunk late, lie outside."""
+    xdt = torch.from_numpy(rn(60, B, S, H, P)).to(cuda)
+    da = torch.from_numpy(-np.abs(rn(61, B, S, H)) * 0.1 - shift).to(cuda)
+    bm = torch.from_numpy(rn(62, B, S, H, N)).to(cuda)
+    cm = torch.from_numpy(rn(63, B, S, H, N)).to(cuda)
+    dy = torch.from_numpy(rn(64, B, S, H, P)).to(cuda)
+    got, want = _recurrent_grads_on_card(
+        tssd, tops.mamba2_ssd, tref.ssd_ref, (xdt, da, bm, cm), dy,
+        chunk=chunk)
+    _hold_gradients(got, want, "float32")
+    if S > tssd.inner_chunk(chunk):
+        wide = [t.double() for t in (xdt, da, bm, cm, dy)]
+        for wrong in (variants.ssd_bwd_without_carried_gradient,
+                      variants.ssd_bwd_gradient_one_chunk_late):
+            bad = wrong(*wide, tssd.inner_chunk(chunk))
+            with pytest.raises(AssertionError):
+                _hold_gradients(got, bad, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dh,floor", [
+    *(shape + (False,) for shape in SLSTM_SHAPES),
+    (2, 16, 2, 256, False),    # 8-block clusters
+    (3, 12, 2, 4, False),      # one unit a block, four blocks idle
+    (9, 12, 2, 192, False),    # B·H over the resident clusters: 2 rows
+    (2, 20, 2, 64, True),      # the n floor bites for half the units
+])
+def test_slstm_cell_backward_kernel_on_card(cuda, B, S, H, dh, floor):
+    """Every gradient within 1e-4 × its max |g| of the float64 vjp of the
+    plain loop; the plain variant without the recurrent dh lies
+    outside."""
+    g_in = rn(65, B, S, 4, H, dh) * 0.5
+    if floor:
+        g_in[:, :, 0, :, : dh // 2] -= 30.0
+    g_in = torch.from_numpy(g_in).to(cuda)
+    r = torch.from_numpy(rn(66, H, dh, 4, dh) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(67, 4, H, dh) * 0.1).to(cuda)
+    dy = torch.from_numpy(rn(68, B, S, H, dh)).to(cuda)
+    got, want = _recurrent_grads_on_card(tsc, tops.slstm_cell,
+                                         tref.slstm_cell_ref, (g_in, r, b),
+                                         dy)
+    _hold_gradients(got, want, "float32")
+    h, traj = tref.slstm_cell_fwd_traj_ref(g_in.double(), r.double(),
+                                           b.double())
+    if floor:
+        assert float(traj[:, :, 5].min()) < 1e-6
+    bad = variants.slstm_bwd_without_recurrence(traj, h, r.double(),
+                                                dy.double())
+    with pytest.raises(AssertionError):
+        _hold_gradients(got, bad, "float32")
+
+
+@pytest.mark.gpu
+def test_trajectory_forward_is_the_plain_launch_and_the_plain_trajectory(
+        cuda):
+    """The forward with its trajectory pointer set gives the no-trajectory
+    launch's h bit for bit, and a trajectory within the f32 tolerance of
+    the plain version's in float64."""
+    g_in = torch.from_numpy(rn(69, 3, 40, 4, 2, 48) * 0.5).to(cuda)
+    r = torch.from_numpy(rn(70, 2, 48, 4, 48) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(71, 4, 2, 48) * 0.1).to(cuda)
+    h, traj = tsc.slstm_cell_traj_cuda(g_in, r, b)
+    assert torch.equal(h, tsc.slstm_cell_cuda(g_in, r, b))
+    _, want = tref.slstm_cell_fwd_traj_ref(g_in.double(), r.double(),
+                                           b.double())
+    np.testing.assert_allclose(traj.double().cpu().numpy(),
+                               want.cpu().numpy(), **TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_recurrent_backward_launch_failure_raises(cuda, monkeypatch):
+    """A launch the kernels refuse raises, from the C entry and through
+    autograd's backward: nothing falls back to the plain vjp."""
+    g_in = torch.from_numpy(rn(72, 1, 8, 4, 2, 16)).to(cuda)
+    with pytest.raises(RuntimeError, match="repro_ssd_chunk_grad_f32"):
+        _build.launch_on(g_in.device, "repro_ssd_chunk_grad_f32", *[0] * 11,
+                         1, 64, 2, 16, 16, 65)   # a chunk over 64
+    r = torch.from_numpy(rn(73, 2, 16, 4, 16) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(74, 4, 2, 16) * 0.1).to(cuda).requires_grad_()
+    monkeypatch.setitem(tsc.bwd_plans, (g_in.device, 1, 2, 16),
+                        dict(cluster_blocks=5, rows_per_cluster=1))
+    h = tops.slstm_cell(g_in, r, b)
+    with pytest.raises(RuntimeError, match="repro_slstm_cell_bwd_f32"):
         h.sum().backward()
