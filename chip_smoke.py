@@ -10,7 +10,8 @@ Phases, each fatal on failure:
    ``matmul_tiled``, ``flash_attention`` (and its backward), ``dg_diff``,
    ``stream_strided``, ``slstm_cell`` and ``mamba2_ssd`` kernels (the
    SSD's passes) and both recurrent backward kernels to no register
-   spills (``NO_SPILLS``),
+   spills (``NO_SPILLS``), fail if ptxas serialized any ``wgmma`` of the
+   attention backward's wgmma path,
    and hold the SASS (``cuobjdump -sass``) of
    ``madd_throughput``'s chain loop to 8 FFMAs per step, so the compiler
    folded nothing;
@@ -157,10 +158,14 @@ Phases, each fatal on failure:
    .cu``, through ``ops.flash_attention`` under autograd) against the
    plain version's autograd in float64 at ``ATTN_BWD_CASES`` (gemma2-9b's
    global and local layers at seq 4096, a window of 128, yi-6b's G = 8,
-   Dk 192 / Dv 128 non-causal with Sq ≠ Skv), f32 and bf16, then timed at
-   gemma2-9b's global layer beside the forward with lse, the plain vjp,
-   ``torch.compile``'d ``flex_attention`` forward + backward and its
-   bound (:func:`check_attention_backward`); (b) gemma2-9b at full width
+   Dk 192 / Dv 128 non-causal with Sq ≠ Skv, head dims 100 / 60 on the
+   bf16 mma.sync route, the rest on its wgmma route), f32 and bf16, each
+   run twice bit for bit, then timed at gemma2-9b's global layer, each
+   pass's kernel from a ``torch.profiler`` trace of full calls, beside
+   the forward with lse, the plain vjp,
+   ``torch.compile``'d ``flex_attention`` forward alone and forward +
+   backward, its bound and its TFLOP/s
+   (:func:`check_attention_backward`); (b) gemma2-9b at full width
    (8 layers, seq 4096, batch 4 in 4 microbatches, bf16, remat full)
    trained 6 steps through ``Trainer.train``: per step s, tokens/s,
    loss (falling), grad_norm, lr, share of the bound, and peak memory,
@@ -321,9 +326,11 @@ REAL_ATTN_F32_TOL = dict(TOL["bfloat16"], row_rtol=1e-2)
 # version's autograd in float64 — (label, B, Sq, Skv, Hq, Hkv, D, Dv,
 # causal, window, softcap, q scale): gemma2-9b's global and local layers
 # at train_4k's 4096 (the local window, 4096, does not bite there), the
-# same with a biting window of 128, yi-6b's G = 8 at D = 128, and
+# same with a biting window of 128, yi-6b's G = 8 at D = 128,
 # deepseek-v2's Dk 192 / Dv 128 non-causal with Sq ≠ Skv, ragged against
-# the tiles
+# the tiles, and head dims of 100 / 60, which no TMA tensor map describes
+# (rows not a multiple of 16 bytes): the bf16 backward's mma.sync route
+# (every other case takes its wgmma route; ATTN_BWD_ROUTES)
 ATTN_BWD_CASES = (
     ("gemma2-9b global", 1, 4096, 4096, 16, 8, 256, 256, True, None, 50.0,
      ATTN_Q_SCALE),
@@ -334,7 +341,16 @@ ATTN_BWD_CASES = (
     ("yi-6b G=8", 1, 4096, 4096, 32, 4, 128, 128, True, None, None, 1.0),
     ("Dk 192 / Dv 128 cross", 2, 1000, 1544, 16, 16, 192, 128, False, None,
      None, 1.0),
+    ("Dk 100 / Dv 60", 1, 1000, 1000, 8, 2, 100, 60, True, 300, 30.0,
+     ATTN_Q_SCALE),
 )
+#: the route each case's bf16 backward takes (the kernel's own count)
+ATTN_BWD_ROUTES = ("wgmma",) * 5 + ("mma_sync",)
+#: the bf16 backward's passes on its wgmma route by their kernel's name
+#: (``bwd_wg_query_kernel<MODE, NS>``: MODE 0 is Δ, 1 dQ)
+ATTN_BWD_PASS_KERNELS = (("delta", "bwd_wg_query_kernel<0"),
+                         ("dq", "bwd_wg_query_kernel<1"),
+                         ("dkv", "bwd_wg_key_kernel"))
 # f32: each of dq, dk, dv within 1e-4 × its max |g| of the float64 vjp;
 # bf16: P and dS are rounded to bf16 before their products, as the
 # forward rounds P, so each element is held within 1e-2 of itself plus
@@ -984,6 +1000,7 @@ def ptxas_report(text: str) -> dict:
 #: kernel functions held to no register spills, by name fragment
 NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
              "bwd_mma_kernel", "bwd_kernel", "delta_kernel",
+             "bwd_wg_query_kernel", "bwd_wg_key_kernel", "wgmma_tile_kernel",
              "dg_diff_kernel", "stream_kernel", "slstm_cluster_kernel",
              "chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel",
              "chunk_grad_kernel", "slstm_bwd_cluster_kernel")
@@ -1001,6 +1018,22 @@ def check_no_spills(text: str) -> None:
             f"{loads} bytes spill loads")
         if stores or loads:
             raise SystemExit(f"{fn} spills registers")
+
+
+def check_no_serialized_wgmma(text: str) -> None:
+    """Fail if ptxas serialized a ``wgmma.mma_async`` anywhere (its
+    warning names the function and the reason): a serialized warpgroup
+    product gives up the asynchronous issue the bf16 attention backward
+    is built on, without any other sign."""
+    bad = [line.strip() for line in text.splitlines()
+           if "wgmma.mma_async instructions are serialized" in line]
+    if bad:
+        raise SystemExit("ptxas serialized wgmma products:\n" +
+                         "\n".join(bad))
+    fns = sorted({m for m in ptxas_report(text) if "wgmma" in m
+                  or "bwd_wg_" in m})
+    log(f"ptxas: no serialized wgmma in the {len(fns)} functions of the "
+        f"wgmma path")
 
 
 def time_zoo_kernels(ops, ref, dev, preds_by_rung, F):
@@ -2261,23 +2294,55 @@ def attention_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, Dv, causal, window,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def attention_bwd_pass_ms(backward, reps: int = 10) -> dict:
+    """Each pass of the bf16 backward ``backward()`` launches on the
+    wgmma route: its kernel's device time in a ``torch.profiler`` trace
+    of ``reps`` calls (after one untraced), over ``reps``.  Fails unless
+    the trace holds each pass's kernel once a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            backward()
+        torch.cuda.synchronize()
+    us = {name: 0.0 for name, _ in ATTN_BWD_PASS_KERNELS}
+    calls = dict.fromkeys(us, 0)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, key in ATTN_BWD_PASS_KERNELS:
+            if key in ev.name:
+                us[name] += ev.time_range.elapsed_us()
+                calls[name] += 1
+    if any(n != reps for n in calls.values()):
+        raise SystemExit(f"attention backward: {reps} traced calls hold "
+                         f"{calls} pass kernels")
+    return {name: t / reps / 1e3 for name, t in us.items()}
+
+
 def check_attention_backward(ops, ref, fa, dev) -> dict:
     """Phase 16 (a): the attention backward kernel (through
     ``ops.flash_attention`` under autograd: the forward kernel keeping
     lse, then the backward kernel) against the plain version's autograd
     in float64 on the same inputs, for every ``ATTN_BWD_CASES`` case in
     f32 (max |err| <= ``ATTN_BWD_F32_REL`` × max |g| of each of dq, dk,
-    dv) and bf16 (:func:`attention_excess` at ``ATTN_BWD_BF16_TOL``); then
-    gemma2-9b's global layer in bf16 timed: the backward alone, the
-    forward with lse, forward + backward, the plain vjp, the
-    ``torch.compile``'d ``flex_attention`` forward + backward, and the
-    bound.  Launches here count nowhere."""
+    dv) and bf16 (:func:`attention_excess` at ``ATTN_BWD_BF16_TOL``), a
+    second run bit for bit the first, and in bf16 through the route of
+    ``ATTN_BWD_ROUTES`` (the kernel's count); then gemma2-9b's global
+    layer in bf16 timed: the backward alone and each of its passes
+    (:func:`attention_bwd_pass_ms`), the forward with lse, forward + backward, the plain vjp, the
+    ``torch.compile``'d ``flex_attention`` forward alone and forward +
+    backward (their difference the library's backward), the bound and
+    the backward's TFLOP/s on the vjp's five products.  Launches here
+    count nowhere."""
     import functools
 
     import torch
     out = {"cases": {}}
-    for label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs in \
-            ATTN_BWD_CASES:
+    for (label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs), \
+            route in zip(ATTN_BWD_CASES, ATTN_BWD_ROUTES):
         kw = dict(causal=causal, window=window, softcap=cap)
         gen = torch.Generator(device=dev).manual_seed(16)
         base = (torch.randn(B, Sq, Hq, D, generator=gen, device=dev) * qs,
@@ -2287,11 +2352,18 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, dout = (t.to(dtype) for t in base)
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            routes = fa.bwd_routes()
             t0 = time.perf_counter()
             o = ops.flash_attention(*leaves, block_q=Sq, block_k=Skv, **kw)
             got = torch.autograd.grad(o, leaves, dout)
             torch.cuda.synchronize()
             kernel_s = time.perf_counter() - t0
+            taken = {r: n - routes[r] for r, n in fa.bwd_routes().items()}
+            again = torch.autograd.grad(
+                ops.flash_attention(*leaves, block_q=Sq, block_k=Skv, **kw),
+                leaves, dout)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
             wide = [t.double().requires_grad_() for t in (q, k, v)]
             want = torch.autograd.grad(
                 ref.attention_ref(*wide, **kw), wide, dout.double())
@@ -2308,14 +2380,23 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
             torch.cuda.empty_cache()
             tag = f"{label} {str(dtype).split('.')[1]}"
             log(f"attention backward {tag} ([{B}, {Sq}/{Skv}, {Hq}/{Hkv}, "
-                f"{D}/{Dv}] {kw}, kernel {kernel_s:.2f} s): " + ", ".join(
+                f"{D}/{Dv}] {kw}, kernel {kernel_s:.2f} s, routes {taken}, "
+                f"second run bit for bit: {same}): " + ", ".join(
                     f"{n} max|err| {r['max_abs_err']:.3g} worst "
                     f"{r['worst']:.3g}×" for n, r in row.items()))
             bad = [n for n, r in row.items() if not r["worst"] <= 1]
             if bad:
                 raise SystemExit(f"attention backward {tag}: {bad} outside "
                                  f"the tolerance: {row}")
-            out["cases"][tag] = row
+            if not same:
+                raise SystemExit(f"attention backward {tag}: two runs on "
+                                 f"the same inputs differ")
+            want_routes = {r: int(dtype == torch.bfloat16 and r == route)
+                           for r in taken}
+            if taken != want_routes:
+                raise SystemExit(f"attention backward {tag}: routes "
+                                 f"{taken}, want {want_routes}")
+            out["cases"][tag] = dict(row, bitwise=same, routes=taken)
 
     # the main path's layer, timed
     label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs = \
@@ -2332,6 +2413,8 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
         return fa.flash_attention_bwd_cuda(dout, q, k, v, lse, causal,
                                            window, cap, scale)
 
+    passes = attention_bwd_pass_ms(backward)
+
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
     def ours():
@@ -2345,12 +2428,19 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
     def library():
         return torch.autograd.grad(flex(*lib_leaves), lib_leaves, dout)
 
+    def library_forward():
+        with torch.no_grad():
+            return flex(q, k, v)
+
     bound, bound_by = attention_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, Dv,
                                              causal, window, torch.bfloat16)
+    five = (2 * B * Hq * visible_pairs(Sq, Skv, causal, window)
+            * (3 * D + 2 * Dv))
     t0 = time.perf_counter()
     library()   # compiles
+    library_forward()
     compile_s = time.perf_counter() - t0
-    timed = {"ms": time_ms(backward),
+    timed = {"ms": time_ms(backward), "passes_ms": passes,
              "forward_lse_ms": time_ms(fa.flash_attention_lse_cuda, q, k, v,
                                        causal, window, cap, scale),
              "fwd_bwd_ms": time_ms(ours),
@@ -2358,15 +2448,23 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
                                                    **kw), dout, q, k, v,
                                  iters=3),
              "library_ms": time_ms(library),
+             "library_fwd_ms": time_ms(library_forward),
              "bound_ms": bound, "bound_by": bound_by,
              "library": "torch.compile(flex_attention) forward + backward",
              "shape": [B, Sq, Hq, Hkv, D], "options": kw}
+    timed["library_bwd_ms"] = timed["library_ms"] - timed["library_fwd_ms"]
+    timed["tflops"] = five / (timed["ms"] * 1e-3) / 1e12
     log(f"attention backward {label} bf16: {timed['ms']:.4g} ms = "
         f"{bound / timed['ms']:.1%} of its bound ({bound:.4g} ms by "
-        f"{bound_by}); forward with lse {timed['forward_lse_ms']:.4g} ms, "
+        f"{bound_by}), {timed['tflops']:.4g} TFLOP/s on the five products' "
+        f"{five / 1e9:.4g} GFLOP; passes " + ", ".join(
+            f"{n} {t:.4g} ms" for n, t in passes.items()) +
+        f"; forward with lse {timed['forward_lse_ms']:.4g} ms, "
         f"forward + backward {timed['fwd_bwd_ms']:.4g} ms against "
-        f"flex_attention's {timed['library_ms']:.4g} ms (compiled in "
-        f"{compile_s:.1f} s); plain vjp {timed['plain_ms']:.4g} ms")
+        f"flex_attention's {timed['library_ms']:.4g} ms (its forward "
+        f"{timed['library_fwd_ms']:.4g}, so its backward "
+        f"{timed['library_bwd_ms']:.4g} ms; compiled in {compile_s:.1f} "
+        f"s); plain vjp {timed['plain_ms']:.4g} ms")
     out["timed"] = timed
     del flex, lib_leaves, leaves, o, lse
     torch.cuda.empty_cache()
@@ -2914,9 +3012,10 @@ def main() -> int:
         raise SystemExit(f"no ptxas report beside {lib.name}")
     for line in ptxas.read_text().splitlines():
         if any(w in line for w in ("registers", "spill", "==",
-                                   "entry function")):
+                                   "entry function", "wgmma")):
             log(f"ptxas {line.strip()}")
     check_no_spills(ptxas.read_text())
+    check_no_serialized_wgmma(ptxas.read_text())
     check_madd_sass(sass_counts(lib))
 
     # ---- 2. each kernel against its plain version ---------------------------
@@ -3267,13 +3366,14 @@ def main() -> int:
         key: timed[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
     measured["flash_attention_bwd"].update(
-        library=timed["library"], forward_lse_ms=timed["forward_lse_ms"],
-        fwd_bwd_ms=timed["fwd_bwd_ms"], pred_over_meas={})
+        {key: timed[key] for key in (
+            "library", "forward_lse_ms", "fwd_bwd_ms", "library_fwd_ms",
+            "library_bwd_ms", "passes_ms", "tflops")}, pred_over_meas={})
     launches["flash_attention_bwd"] = training["launches"][
         "flash_attention_bwd"]
+    main_case = backward["cases"][f"{ATTN_BWD_CASES[0][0]} bfloat16"]
     errs["flash_attention_bwd"] = max(
-        r["max_abs_err"] for r in backward["cases"][
-            f"{ATTN_BWD_CASES[0][0]} bfloat16"].values())
+        main_case[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
     sources["flash_attention_bwd"] = "src/repro/models/layers.py:151"
     # the recurrent backward kernels: launches from phase 17 (b)'s steps,
     # their error at the model's layer, timed there

@@ -40,6 +40,7 @@ from repro_torch.kernels.dg_diff import slab_width as dg_slab_width
 from repro_torch.kernels.flash_attention import TILE_K as FLASH_TILE_K
 from repro_torch.kernels.flash_attention import BWD_TILES as FLASH_BWD_TILES
 from repro_torch.kernels.flash_attention import TILE_Q as FLASH_TILE_Q
+from repro_torch.kernels.flash_attention import bwd_route as flash_bwd_route
 from repro_torch.kernels.flash_attention import bwd_steps as flash_bwd_steps
 from repro_torch.kernels.flash_attention import kv_tiles_visited
 from repro_torch.kernels.mamba2_ssd import INNER_CHUNK as SSD_TILE
@@ -260,11 +261,17 @@ def flash_attention_bwd_cost(dout: torch.Tensor, q: torch.Tensor,
     Δ)`` and, with a softcap, its ``tanh`` and factor ``1 − t²``; the
     scale of dq and dk once per row.  Reads q, k, v, dO and lse, writes
     dq, dk and dv, each block once per program that changes it, as the
-    forward.  The staging term follows the CUDA kernel's four passes
-    (csrc/flash_attention_bwd.cu): each row tile staged once (queries'
-    q and dO in Δ and dQ, keys' k and v in dK, k in dV) and each column
-    step's tiles (k and v in Δ and dQ, q and dO in dK and dV), in f32
-    also W in dQ, dK and dV."""
+    forward.  The staging term follows the CUDA kernel's passes on its
+    route (csrc/flash_attention_bwd.cu, ``flash_attention.bwd_route``,
+    which takes the operands as aligned):
+    each pass stages its row tile once (queries' q and dO in Δ and dQ,
+    keys' k and v in dK or the fused dK+dV, k alone in dV) and each
+    column step's tiles (k and v in Δ and dQ, q and dO in dK, dK+dV and
+    dV); the bf16 wgmma route runs Δ, dQ and dK+dV with 64-row column
+    steps, its mma.sync fallback and f32 run Δ, dQ, dK and dV apart, and
+    f32 also stages W in dQ, dK and dV.  The madds stay the vjp's five
+    products whatever the route: the counter prices the function, the
+    staging term the design."""
     b, sq, hq, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     nq, nk = sq // block_q, skv // block_k
@@ -294,15 +301,18 @@ def flash_attention_bwd_cost(dout: torch.Tensor, q: torch.Tensor,
     _traffic(c, "out", q.dtype, block_q * d, qo_fetches)
     _traffic(c, "out", k.dtype, block_k * d, kv_fetches)
     _traffic(c, "out", v.dtype, block_k * dv, kv_fetches)
-    rows, cols = FLASH_BWD_TILES[q.dtype]
-    dq_steps, dkv_steps = flash_bwd_steps(sq, skv, causal, window, q.dtype)
+    route = flash_bwd_route(q.dtype, d, dv)
+    rows, cols, fused = FLASH_BWD_TILES[route]
+    dq_steps, dkv_steps = flash_bwd_steps(sq, skv, causal, window, route)
     q_rows = b * hq * -(-sq // rows) * rows
     k_rows = b * hkv * -(-skv // rows) * rows
-    steps = b * hq * (dq_steps + 2 * dkv_steps)   # the passes W feeds
-    staged = (2 * q_rows * (d + dv) + k_rows * (2 * d + dv)
-              + (steps + b * hq * dq_steps) * cols * (d + dv))
-    if q.dtype == torch.float32:
-        staged += steps * rows * cols
+    dkv_passes = 1 if fused else 2
+    staged = (2 * q_rows * (d + dv)
+              + k_rows * (d + dv + (0 if fused else d))
+              + b * hq * (2 * dq_steps + dkv_passes * dkv_steps) * cols
+              * (d + dv))
+    if q.dtype == torch.float32:   # W, in the passes it feeds
+        staged += b * hq * (dq_steps + 2 * dkv_steps) * rows * cols
     c.add(f"f_vmem_contig_{dtype_name(q.dtype)}_store", staged)
     c.add("f_sync_grid_programs", programs)
     return c

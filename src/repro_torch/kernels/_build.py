@@ -33,7 +33,8 @@ SOURCES = ("matmul_tiled.cu", "stencil5.cu", "dg_diff.cu",
            "flash_attention_bwd.cu", "mamba2_ssd.cu", "mamba2_ssd_bwd.cu",
            "slstm_cell.cu", "slstm_cell_bwd.cu")
 #: headers the sources include (part of the library's hash)
-HEADERS = ("mma_bf16.cuh", "ssd_common.cuh", "slstm_common.cuh")
+HEADERS = ("mma_bf16.cuh", "wgmma_sm90.cuh", "ssd_common.cuh",
+           "slstm_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -63,6 +64,10 @@ SIGNATURES: Dict[str, List] = {
     + [_F, _F, _I, _I, _P],
     "repro_flash_attention_bwd_bf16": [_P] * 9 + [_I] * 7
     + [_F, _F, _I, _I, _P],
+    # host side, no stream: out[2], the bf16 backward's calls by route
+    "repro_flash_attention_bwd_routes": [ctypes.POINTER(ctypes.c_longlong)],
+    # the wgmma descriptor check: a, b, c, n, b read MN-major
+    "repro_wgmma_tile_bf16": [_P, _P, _P, _I, _I, _P],
     # the SSD's passes: (a) xdt, da, B, states, decay; (b) states, decay,
     # final (the state after the last chunk, or 0);
     # (c) xdt, da, B, C, states, y; then batch, S, H, P, N, chunk

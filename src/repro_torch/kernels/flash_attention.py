@@ -10,7 +10,10 @@ The gradient: on the card :class:`FlashAttention` (an
 ``autograd.Function``) runs the forward kernel with each row's
 log-sum-exp kept (``flash_attention_lse_cuda``) and its backward
 launches ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``:
-Δ = rowsum(P∘dP), then dQ, dK and dV, four passes, no atomics).  On
+Δ = rowsum(P∘dP), then dQ, then dK and dV, no atomics; in bf16 three
+passes of warpgroup ``wgmma`` products on TMA-loaded tiles where the
+operands allow it (:func:`bwd_route`), else four ``mma.sync``
+passes; in f32 four FMA passes).  On
 the host the custom op's autograd calls the custom op
 ``repro_torch::flash_attention_bwd``, whose CPU impl is the plain vjp
 (``ref.attention_bwd_ref``) and whose fake impl lets the counter price
@@ -44,10 +47,13 @@ TILE_Q = {torch.bfloat16: 128, torch.float32: 64}
 TILE_K = 64
 #: largest head dimension (D and Dv) the kernel takes
 MAX_HEAD_DIM = 256
-#: the backward's tiles by operand dtype: rows a CUDA block owns (queries
-#: in its dQ pass, keys in its dK and dV passes) and column rows per step
-#: (kTR and kTC of each path in csrc/flash_attention_bwd.cu)
-BWD_TILES = {torch.bfloat16: (64, 32), torch.float32: (32, 32)}
+#: the backward's routes (csrc/flash_attention_bwd.cu): rows a CUDA block
+#: owns (queries in its Δ and dQ passes, keys in its dK and dV passes),
+#: column rows per step, and whether dK and dV are one pass — the bf16
+#: wgmma path (``wg_path``), its mma.sync fallback (``mma_path``) and the
+#: f32 FMA path (``fma_path``)
+BWD_TILES = {"wgmma": (64, 64, True), "mma_sync": (64, 32, False),
+             "fma": (32, 32, False)}
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
@@ -83,12 +89,39 @@ def q_tile_range(k_first: int, k_last: int, sq: int, causal: bool,
     return (t_lo, -(-hi // tile)) if lo < hi else (t_lo, t_lo)
 
 
+def bwd_route(dtype: torch.dtype, d: int, dv: int,
+              aligned: bool = True) -> str:
+    """The backward's route for operands of ``dtype`` and head dims ``d``,
+    ``dv``: bf16 takes the wgmma path where a TMA tensor map can describe
+    the operands (D and Dv multiples of 8, and q, k, v and dout all
+    16-byte aligned: ``aligned``), else the mma.sync fallback; f32 the FMA
+    path.  The kernel decides the same from the operands' addresses
+    (``wg_path::takes``).  The cost rule has shapes only and prices
+    operands as PyTorch allocates them, aligned: a view that starts off a
+    16-byte boundary runs the mma.sync passes but is priced as the
+    wgmma route's staging."""
+    if dtype == torch.float32:
+        return "fma"
+    ok = aligned and d % 8 == 0 and dv % 8 == 0
+    return "wgmma" if ok else "mma_sync"
+
+
+def bwd_routes() -> dict:
+    """Calls of the bf16 backward kernel by route since the library
+    loaded (counted in the kernel's own dispatch)."""
+    import ctypes
+    out = (ctypes.c_longlong * 2)()
+    _build.library().repro_flash_attention_bwd_routes(out)
+    return {"wgmma": out[0], "mma_sync": out[1]}
+
+
 def bwd_steps(sq: int, skv: int, causal: bool, window: Optional[int],
-              dtype: torch.dtype) -> Tuple[int, int]:
-    """Column steps of the backward for one (batch, query head): of its
-    dQ pass (key tiles its query tiles see) and of its dK pass, the same
-    as its dV pass (query tiles of this head that see each key tile)."""
-    rows, cols = BWD_TILES[dtype]
+              route: str) -> Tuple[int, int]:
+    """Column steps of the backward for one (batch, query head) on
+    ``route``: of its dQ pass (key tiles its query tiles see, the same as
+    its Δ pass) and of its dK pass (query tiles of this head that see
+    each key tile, the same as its dV pass, or the fused dK+dV pass)."""
+    rows, cols, _ = BWD_TILES[route]
     dq = sum(hi - lo for lo, hi in (
         kv_tile_range(r, min(r + rows, sq) - 1, skv, causal, window, cols)
         for r in range(0, sq, rows)))
@@ -200,7 +233,7 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
                              window: Optional[int], softcap: Optional[float],
                              scale: float) -> Tuple[torch.Tensor, ...]:
     """Check the operands, launch ``csrc/flash_attention_bwd.cu`` (its Δ,
-    dQ, dK and dV passes), count the call.  ``lse`` is the forward's
+    dQ and dK/dV passes), count the call.  ``lse`` is the forward's
     (:func:`flash_attention_lse_cuda`).  Returns (dq, dk, dv) in the
     operands' dtype."""
     global backward_launches
@@ -225,6 +258,33 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
                      int(causal), -1 if window is None else window)
     backward_launches += 1
     return dq, dk, dv
+
+
+def wgmma_tile_product(a: torch.Tensor, b: torch.Tensor,
+                       mn_major: bool) -> torch.Tensor:
+    """The backward's ``wgmma`` descriptor and swizzle check: ``a`` [64,
+    256] times ``b`` — ``b`` [64, 256] transposed, read K-major with ``a``
+    from shared memory (the score products' form), or ``b`` [256, N], N a
+    multiple of 64 up to 256, read MN-major with ``a`` from registers (the
+    sums' form) — as an f32 [64, N] from one warpgroup on the card; the
+    plain product in f32 on the host."""
+    want = (64, 256)
+    if a.shape != want or a.dtype != torch.bfloat16 or b.dtype != a.dtype \
+            or (b.shape != want if not mn_major else
+                b.shape[0] != 256 or b.shape[1] not in (64, 128, 192, 256)):
+        raise ValueError(f"wgmma_tile_product: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} ({a.dtype}, {b.dtype})")
+    if a.device.type == "cpu":
+        return a.float() @ (b.float() if mn_major else b.float().T)
+    a, b = a.contiguous(), b.contiguous()
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("wgmma_tile_product: TMA takes 16-byte aligned "
+                         "operands")
+    n = b.shape[1] if mn_major else b.shape[0]
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    _build.launch_on(a.device, "repro_wgmma_tile_bf16", a.data_ptr(),
+                     b.data_ptr(), c.data_ptr(), n, int(mn_major))
+    return c
 
 
 class FlashAttention(torch.autograd.Function):

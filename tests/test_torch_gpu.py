@@ -736,6 +736,77 @@ def test_flash_attention_backward_kernel_edges_on_card(cuda, dt, Sq, Skv, D,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mn_major,n", [(False, 64), (True, 64), (True, 128),
+                                        (True, 192), (True, 256)])
+def test_wgmma_descriptors_and_swizzle_on_card(cuda, mn_major, n):
+    """The bf16 backward's wgmma operand layouts alone: a 64 × N × 256
+    product of TMA-loaded 128-byte-swizzled tiles, B read K-major with A
+    from shared memory (the score products) or MN-major with A from
+    registers (the sums), against ``torch.matmul`` in f32.  A wrong
+    descriptor gives wrong numbers, not a fault; products of bf16 values
+    are exact in f32, so only the summation order differs."""
+    a = torch.from_numpy(rn(60, 64, 256)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rn(61, *((256, n) if mn_major else (n, 256)))).to(
+        cuda, torch.bfloat16)
+    got = tfa.wgmma_tile_product(a, b, mn_major)
+    want = a.float() @ (b.float() if mn_major else b.float().T)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv,offset", [
+    (256, 256, 0), (112, 112, 0), (192, 128, 0), (40, 40, 0), (48, 33, 0),
+    (20, 20, 0), (64, 64, 1)])
+def test_flash_attention_backward_route_on_card(cuda, D, Dv, offset):
+    """The bf16 backward takes the wgmma route exactly where
+    ``bwd_route`` says and every operand is 16-byte aligned (``offset``
+    1 shifts q, k, v and dout by one element), else the mma.sync route,
+    and both give the plain version's gradients."""
+    B, S, Hq, Hkv = 1, 160, 4, 2
+
+    def on_card(seed, *shape, factor=1.0):
+        flat = torch.from_numpy(rn(seed, int(np.prod(shape)) + offset)
+                                * factor)
+        return flat.to(cuda, torch.bfloat16)[offset:].view(*shape)
+
+    q = on_card(70, B, S, Hq, D, factor=8.0)
+    k, v = on_card(71, B, S, Hkv, D), on_card(72, B, S, Hkv, Dv)
+    dout = on_card(73, B, S, Hq, Dv)
+    assert (q.data_ptr() % 16 != 0) == bool(offset)
+    kw = dict(causal=True, window=48, softcap=30.0)
+    scale = D ** -0.5
+    _, lse = tfa.flash_attention_lse_cuda(q.clone(), k.clone(), v.clone(),
+                                          True, 48, 30.0, scale)
+    before = tfa.bwd_routes()
+    got = tfa.flash_attention_bwd_cuda(dout, q, k, v, lse, True, 48, 30.0,
+                                       scale)
+    taken = {r: n - before[r] for r, n in tfa.bwd_routes().items()}
+    route = tfa.bwd_route(torch.bfloat16, D, Dv, aligned=not offset)
+    assert taken == {r: int(r == route) for r in taken}
+    wide = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tref.attention_ref(*wide, scale=scale, **kw),
+                               wide, dout.double())
+    _hold_gradients(got, want, "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,D", [("float32", 128), ("bfloat16", 128),
+                                  ("bfloat16", 192), ("bfloat16", 256)])
+def test_flash_attention_backward_is_bit_for_bit_repeatable(cuda, dt, D):
+    """No atomics: backward runs on the same inputs agree bit for bit
+    (in bf16 at each of the wgmma route's ring depths: four stages at D
+    128, two for Δ and dQ and three for dK+dV at 192, two at 256)."""
+    q, k, v = _attention_inputs(cuda, dt, 2, 320, 8, 2, D, q_scale=8.0)
+    dout = torch.from_numpy(rn(74, 2, 320, 8, D)).to(cuda, DTYPES[dt])
+    args = (True, 100, 50.0, D ** -0.5)
+    _, lse = tfa.flash_attention_lse_cuda(q, k, v, *args)
+    first = tfa.flash_attention_bwd_cuda(dout, q, k, v, lse, *args)
+    for _ in range(3):
+        again = tfa.flash_attention_bwd_cuda(dout, q, k, v, lse, *args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_attention_lse_is_the_rows_logsumexp(cuda, dt):
     """The forward's lse output: each row's log-sum-exp of its scaled,

@@ -356,6 +356,73 @@ def test_flash_attention_staging_term_counts_visited_tiles(
     assert c[f"f_vmem_contig_{other}_store"] == 0
 
 
+def _tile_pairs_with_unmasked(rows_n, cols_n, keep, tile_r, tile_c):
+    """(row tile, column tile) pairs of a [rows_n, cols_n] mask ``keep``
+    that hold at least one unmasked pair, by brute force."""
+    nr, nc = -(-rows_n // tile_r), -(-cols_n // tile_c)
+    padded = np.zeros((nr * tile_r, nc * tile_c), bool)
+    padded[:rows_n, :cols_n] = keep
+    return int(padded.reshape(nr, tile_r, nc, tile_c).any(axis=(1, 3)).sum())
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,Dv,kw", [
+    (2, 256, 256, 8, 2, 64, 64, dict(causal=True)),
+    (1, 512, 512, 4, 2, 256, 256, dict(causal=True, window=160)),
+    (1, 256, 256, 4, 4, 128, 128, dict(causal=False)),
+    (1, 256, 256, 4, 2, 64, 64, dict(causal=False, window=40)),
+    (1, 160, 96, 4, 2, 48, 32, dict(causal=True, window=40)),
+    (1, 96, 160, 8, 1, 192, 128, dict(causal=True)),
+    (1, 130, 100, 4, 2, 64, 64, dict(causal=True, softcap=50.0)),
+    (1, 192, 192, 4, 2, 64, 64, dict(causal=True, window=0)),
+    (1, 160, 160, 4, 2, 48, 33, dict(causal=True, window=40)),
+    (1, 8192, 8192, 16, 8, 256, 256,
+     dict(causal=True, window=4096, softcap=50.0)),
+])
+def test_flash_attention_bwd_staging_term_counts_visited_tiles(
+        dt, B, Sq, Skv, Hq, Hkv, D, Dv, kw):
+    """The backward's ``f_vmem_*`` term follows the CUDA kernel's route:
+    each pass stages its row tile once and, per column tile its rows can
+    see (counted here by brute force over the mask, both ways round), the
+    column tiles — bf16 with D and Dv multiples of 8 in three passes (Δ,
+    dQ, fused dK+dV) of 64-row tiles, other bf16 head dims in four (dK
+    and dV apart, the dV pass staging k alone) with 32-row column steps,
+    f32 in four of 32-row tiles plus W in the dQ, dK and dV passes."""
+    tdt = DTYPES[dt][1]
+    if dt == "float32":
+        rows, cols, fused = 32, 32, False
+    elif D % 8 == 0 and Dv % 8 == 0:
+        rows, cols, fused = 64, 64, True
+    else:
+        rows, cols, fused = 64, 32, False
+    assert tfa.bwd_route(tdt, D, Dv) == (
+        "fma" if dt == "float32" else "wgmma" if fused else "mma_sync")
+    meta = functools.partial(torch.empty, dtype=tdt, device="meta")
+    options = dict(dict(window=None, softcap=None), **kw)
+    c = count_fn(functools.partial(tfa.flash_attention_bwd, scale=0.125,
+                                   block_q=32, block_k=32, **options),
+                 meta(B, Sq, Hq, Dv), meta(B, Sq, Hq, D),
+                 meta(B, Skv, Hkv, D), meta(B, Skv, Hkv, Dv))
+    qpos, kpos = np.arange(Sq)[:, None], np.arange(Skv)[None, :]
+    keep = np.ones((Sq, Skv), bool)
+    if kw["causal"]:
+        keep &= qpos >= kpos
+    if kw.get("window") is not None:
+        keep &= qpos - kpos < kw["window"]
+    dq_steps = _tile_pairs_with_unmasked(Sq, Skv, keep, rows, cols)
+    dkv_steps = _tile_pairs_with_unmasked(Skv, Sq, keep.T, rows, cols)
+    q_rows = B * Hq * -(-Sq // rows) * rows
+    k_rows = B * Hkv * -(-Skv // rows) * rows
+    want = (2 * q_rows * (D + Dv) + k_rows * (D + Dv + (0 if fused else D))
+            + B * Hq * (2 * dq_steps + (1 if fused else 2) * dkv_steps)
+            * cols * (D + Dv))
+    if dt == "float32":
+        want += B * Hq * (dq_steps + 2 * dkv_steps) * rows * cols
+    assert c[f"f_vmem_contig_{dt}_store"] == want
+    other = "bfloat16" if dt == "float32" else "float32"
+    assert c[f"f_vmem_contig_{other}_store"] == 0
+
+
 def _attn_program(q, k, v, m_prev, l_prev, acc, iq, ik, *, scale, causal,
                   window, softcap, bq, bk):
     """``_flash_kernel``'s per-program body with its refs as arrays."""

@@ -16,7 +16,8 @@ Every device kernel's time is put in a class: the sLSTM's forward and
 backward kernels, the SSD's (the backward's own passes; the forward's
 passes it runs again to recompute the chunk states count as forward),
 the attention forward kernel (``flash_mma_kernel``) and its backward
-(``bwd_mma_kernel``), the GEMMs of ``torch.matmul``, and the rest (f32
+(``bwd_wg_query_kernel`` and ``bwd_wg_key_kernel``; ``bwd_mma_kernel`` on
+the fallback route), the GEMMs of ``torch.matmul``, and the rest (f32
 norms, softcaps, the conv, the chunked mLSTM, the embedding gradient,
 AdamW's slices, copies).  The
 step's time less its kernels' sum is the device's idle time.  Prints one
@@ -44,7 +45,8 @@ CLASSES = (
                       "state_pass_kernel<true>")),
     ("ssd_forward", ("chunk_out_kernel", "chunk_state_kernel",
                      "state_pass_kernel")),
-    ("attention_backward", ("bwd_mma_kernel", "bwd_kernel")),
+    ("attention_backward", ("bwd_wg_query_kernel", "bwd_wg_key_kernel",
+                            "bwd_mma_kernel", "bwd_kernel")),
     ("attention_forward", ("flash_mma_kernel", "flash_kernel")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "ampere_",
               "splitK")),
