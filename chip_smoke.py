@@ -182,18 +182,25 @@ Phases, each fatal on failure:
    (``csrc/mamba2_ssd_bwd.cu``, ``csrc/slstm_cell_bwd.cu``, through
    ``ops.mamba2_ssd`` and ``ops.slstm_cell`` under autograd) against the
    plain versions' autograd in float64 at ``SSD_BWD_CASES`` (zamba2-7b's
-   layer, P = N of 16 and 32, chunk 32, a strong decay, B 2) and
+   layer, P = N of 16 and 32, chunk 32, a strong decay, B 2, P 20 / N 12
+   at chunk 48; each on its ``SSD_BWD_ROUTES`` route, zamba2-7b's twice
+   bit for bit) and
    ``SLSTM_BWD_CASES`` (xlstm-125m's layer, dh 256, dh 4, the n floor
    biting), every gradient within 1e-4 × its max |g|, with plain
    variants (the SSD without its carried state gradient or with it one
    chunk late, the sLSTM without its recurrent dh) that must fail; then
    both at the model's layer timed beside the forward (the sLSTM's with
-   and without its trajectory), the plain vjp and the bound
-   (:func:`check_recurrent_backward`); (b) zamba2-7b at full width (9
+   and without its trajectory), the plain vjp and the bound, the SSD's
+   two chained-scan passes each from a profiler trace
+   (:func:`ssd_bwd_pass_ms`) beside its design's floors
+   (:func:`ssd_bwd_floors_ms`) (:func:`check_recurrent_backward`); (b)
+   zamba2-7b at full width (9
    layers) and xlstm-125m as published trained 4 steps each through
    ``Trainer.train`` (seq 4096, batch 8, bf16, remat full): per step s,
    tokens/s, loss (falling), share of the bound, peak memory, and
-   exactly ``RECURRENT_STEP_LAUNCHES`` a step (:func:`train_path`); (c)
+   exactly ``RECURRENT_STEP_LAUNCHES`` a step, the SSD backward's
+   calls each on its ``RECURRENT_STEP_SSD_ROUTES`` route
+   (:func:`train_path`); (c)
    one step of each at full width, f32, the smallest depth with every
    block kind, card against host (:func:`recurrent_whole_check`).  One
    ``{"train_recurrent": ...}`` line; the ``kernels`` line gains the two
@@ -413,7 +420,16 @@ SSD_BWD_CASES = (("zamba2-7b", 1, 4096, 112, 64, 64, 256, 0.0),
                  ("P = N = 32", 1, 1024, 8, 32, 32, 128, 0.0),
                  ("chunk 32", 1, 1024, 8, 64, 64, 32, 0.0),
                  ("strong decay", 1, 1024, 8, 64, 64, 256, 5.0),
-                 ("B 2", 2, 1024, 8, 64, 64, 256, 0.0))
+                 ("B 2", 2, 1024, 8, 64, 64, 256, 0.0),
+                 ("P 20 / N 12, chunk 48", 1, 960, 8, 20, 12, 48, 0.0))
+# each case's SSD backward route (``mamba2_ssd.bwd_route``): the chained
+# scans where the kernel's chunk is 64 and P, N are multiples of 8, else
+# the five passes
+SSD_BWD_ROUTES = ("chain", "chain", "chain", "passes", "chain", "chain",
+                  "passes")
+# the chained-scan route's kernels, by pass, as a profiler names them
+SSD_BWD_PASS_KERNELS = (("F", "ssd_chain_state_kernel"),
+                        ("R", "ssd_chain_grad_kernel"))
 SLSTM_BWD_CASES = (("xlstm-125m", 8, 4096, 4, 192, False),
                    ("dh 256", 2, 512, 4, 256, False),
                    ("dh 4", 2, 512, 2, 4, False),
@@ -437,6 +453,12 @@ RECURRENT_STEP_LAUNCHES = {
     "xlstm-125m": {"slstm_cell": 6 * 2, "slstm_cell_bwd": 6,
                    "mamba2_ssd": 0, "mamba2_ssd_bwd": 0,
                    "flash_attention": 0, "flash_attention_bwd": 0},
+}
+# and the routes the SSD backward's calls take a step: zamba2-7b's layer
+# (chunk 256 → 64, P = N = 64) only the chained scans
+RECURRENT_STEP_SSD_ROUTES = {
+    "zamba2-7b": {"chain": 9 * 8, "passes": 0},
+    "xlstm-125m": {"chain": 0, "passes": 0},
 }
 
 # phase 10: kernels each figure times (calibration + test), as the
@@ -1003,7 +1025,9 @@ NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
              "bwd_wg_query_kernel", "bwd_wg_key_kernel", "wgmma_tile_kernel",
              "dg_diff_kernel", "stream_kernel", "slstm_cluster_kernel",
              "chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel",
-             "chunk_grad_kernel", "slstm_bwd_cluster_kernel")
+             "chunk_grad_kernel", "slstm_bwd_cluster_kernel",
+             "ssd_chain_state_kernel", "ssd_chain_grad_kernel",
+             "wgmma_tf32_tile_kernel")
 
 
 def check_no_spills(text: str) -> None:
@@ -1031,7 +1055,7 @@ def check_no_serialized_wgmma(text: str) -> None:
         raise SystemExit("ptxas serialized wgmma products:\n" +
                          "\n".join(bad))
     fns = sorted({m for m in ptxas_report(text) if "wgmma" in m
-                  or "bwd_wg_" in m})
+                  or "bwd_wg_" in m or "ssd_chain_" in m})
     log(f"ptxas: no serialized wgmma in the {len(fns)} functions of the "
         f"wgmma path")
 
@@ -2294,32 +2318,67 @@ def attention_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, Dv, causal, window,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bwd_pass_ms(backward, reps: int = 10) -> dict:
-    """Each pass of the bf16 backward ``backward()`` launches on the
-    wgmma route: its kernel's device time in a ``torch.profiler`` trace
-    of ``reps`` calls (after one untraced), over ``reps``.  Fails unless
-    the trace holds each pass's kernel once a call."""
+#: seconds a pass trace (:func:`pass_ms`) keeps clear of other device
+#: work on each side of its calls, so that every kernel it holds under a
+#: pass's name is a launch of those calls
+TRACE_MARGIN_S = 0.25
+
+
+def pass_ms(call, kernels, what: str, launched, reps: int = 10) -> dict:
+    """Each pass ``call()`` launches: its kernel's device milliseconds a
+    launch (``kernels``: (pass, name fragment) pairs), from a
+    ``torch.profiler`` trace of ``reps`` calls (after one untraced),
+    ``TRACE_MARGIN_S`` clear of other device work on both sides.  The
+    launches are counted by the wrapper, not by the trace:
+    ``launched()`` rises by one for each call, which launches every pass
+    once; a trace in a process that has run many phases has held only
+    some of them (6 of 10 for each pass of the SSD backward in phase 17
+    (a), with the margins).  Fails unless ``launched()`` rose by exactly
+    ``reps`` and the trace holds each pass at least once and at most
+    ``reps`` times; logs how many it held."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    backward()
+    call()
     torch.cuda.synchronize()
+    time.sleep(TRACE_MARGIN_S)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        before = launched()
         for _ in range(reps):
-            backward()
+            call()
+        rose = launched() - before
         torch.cuda.synchronize()
-    us = {name: 0.0 for name, _ in ATTN_BWD_PASS_KERNELS}
-    calls = dict.fromkeys(us, 0)
+        time.sleep(TRACE_MARGIN_S)
+    found = {name: [] for name, _ in kernels}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for name, key in ATTN_BWD_PASS_KERNELS:
+        for name, key in kernels:
             if key in ev.name:
-                us[name] += ev.time_range.elapsed_us()
-                calls[name] += 1
-    if any(n != reps for n in calls.values()):
-        raise SystemExit(f"attention backward: {reps} traced calls hold "
-                         f"{calls} pass kernels")
-    return {name: t / reps / 1e3 for name, t in us.items()}
+                found[name].append(ev.time_range.elapsed_us())
+    held = {name: len(f) for name, f in found.items()}
+    if rose != reps or any(not 1 <= n <= reps for n in held.values()):
+        raise SystemExit(f"{what}: {reps} traced calls counted {rose} "
+                         f"launches and the trace holds {held} pass "
+                         f"kernels")
+    log(f"{what}: {reps} calls launched, the trace holds {held} of their "
+        f"pass kernels")
+    return {name: sum(f) / len(f) / 1e3 for name, f in found.items()}
+
+
+def attention_bwd_pass_ms(backward, fa, reps: int = 10) -> dict:
+    """Each pass of the bf16 backward ``backward()`` launches on the
+    wgmma route, from a profiler trace (:func:`pass_ms`)."""
+    return pass_ms(backward, ATTN_BWD_PASS_KERNELS, "attention backward",
+                   lambda: fa.bwd_routes()["wgmma"], reps)
+
+
+def ssd_bwd_pass_ms(backward, ssd, reps: int = 10) -> dict:
+    """The chained-scan route's two passes (F, the states; R, the state
+    gradients and each chunk's gradients) of the SSD backward
+    ``backward()``, from a profiler trace (:func:`pass_ms`)."""
+    return pass_ms(backward, SSD_BWD_PASS_KERNELS, "SSD backward",
+                   lambda: ssd.bwd_route_launches["chain"], reps)
 
 
 def check_attention_backward(ops, ref, fa, dev) -> dict:
@@ -2413,7 +2472,7 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
         return fa.flash_attention_bwd_cuda(dout, q, k, v, lse, causal,
                                            window, cap, scale)
 
-    passes = attention_bwd_pass_ms(backward)
+    passes = attention_bwd_pass_ms(backward, fa)
 
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
@@ -2473,12 +2532,15 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
 
 def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
                configs, counting, tree_leaves, counts, zero_counts, dev,
-               tmp, *, arch, layers, batch, steps, launches) -> dict:
+               tmp, *, arch, layers, batch, steps, launches,
+               routes=None) -> dict:
     """Phase 16 (b) and 17 (b): ``arch`` at full width (cut to ``layers``
     when not None) trained for ``steps`` steps at seq ``TRAIN_SEQ`` and
     global batch ``batch`` in its preset's microbatches through
     ``Trainer.train`` on the card; the counters set to 0 before and read
-    after, each of ``launches``' kernels exactly its count a step.  Per
+    after, each of ``launches``' kernels exactly its count a step, and
+    where ``routes`` (a read of route counts, their counts a step) is
+    given, each route exactly its count a step.  Per
     step: wall s, tokens/s, loss, grad_norm, lr, and the step's share of
     its bound — the work it needs (6·N·tokens + attention forward and
     backward, ``models.counting``) and with remat's recompute (8·N·tokens
@@ -2506,9 +2568,14 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     params = sum(p.numel() for p in tree_leaves(state.params))
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
+    routes_before = routes[0]() if routes else {}
     state = trainer.train(state, steps, log_every=0)
     torch.cuda.synchronize()
     launched = {name: counts()[name] for name in launches}
+    taken = ({r: n - routes_before[r] for r, n in routes[0]().items()}
+             if routes else {})
+    want_routes = ({r: n * steps for r, n in routes[1].items()}
+                   if routes else {})
     peak = torch.cuda.max_memory_allocated(dev)
     rows = [r for r in trainer.metrics_log if "loss" in r]
     tokens = TRAIN_SEQ * batch
@@ -2524,7 +2591,8 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     log(f"{arch} ({cfg.num_layers} layers, {params / 1e9:.4g} B params, "
         f"seq {TRAIN_SEQ}, batch {batch} in {run.microbatches} "
         f"microbatches, remat {run.remat}): init {init_s:.1f} s, peak "
-        f"{peak / 2**30:.2f} GiB, launches {launched} (want {want})")
+        f"{peak / 2**30:.2f} GiB, launches {launched} (want {want})"
+        + (f", routes {taken} (want {want_routes})" if routes else ""))
     losses = [r["loss"] for r in rows]
     if len(rows) != steps or any(r.get("event") for r in
                                  trainer.metrics_log):
@@ -2536,6 +2604,9 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     if launched != want:
         raise SystemExit(f"{arch}: the steps launched {launched}, not "
                          f"{want}")
+    if taken != want_routes:
+        raise SystemExit(f"{arch}: the steps took the routes {taken}, not "
+                         f"{want_routes}")
     del trainer, state
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.num_layers, "params": params,
@@ -2543,6 +2614,7 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
             "microbatches": run.microbatches, "remat": run.remat,
             "moment_dtype": run.optimizer.moment_dtype, "steps": rows,
             "launches": launched, "launches_per_step": launches,
+            "routes": taken,
             "peak_memory_bytes": peak, "bound_ms": bound_ms,
             "remat_bound_ms": remat_bound_ms, "init_s": init_s}
 
@@ -2733,20 +2805,48 @@ def hold_gradients(tag, names, got, want, wrongs) -> dict:
     return row
 
 
+def ssd_bwd_ops(B, S, H, P, N, chunk) -> int:
+    """The SSD backward's needed operations at the kernel's chunk L: per
+    chunk the five products over its L(L+1)/2 visible pairs (C·Bᵀ, dy·xᵀ
+    over N and P; Mᵀ·dy, Qᵀ·C, Q·B) and four of L·P·N (the chunk's own
+    state gradient, dy·S, x·G, B·Gᵀ)."""
+    pairs = chunk * (chunk + 1) // 2
+    return 2 * B * H * (S // chunk) * (pairs * (2 * P + 3 * N)
+                                       + 4 * chunk * P * N)
+
+
 def ssd_bwd_bound_ms(B, S, H, P, N, chunk) -> tuple:
-    """The SSD backward's bound at the kernel's chunk L: per chunk the
-    five products over its L(L+1)/2 visible pairs (C·Bᵀ, dy·xᵀ over N and
-    P; Mᵀ·dy, Qᵀ·C, Q·B) and four of L·P·N (the chunk's own state
-    gradient, dy·S, x·G, B·Gᵀ) at f32 FMA, against x, dt·A, B, C, dy in
-    and dx, d(dt·A), dB, dC out, every byte once (the states the kernel
+    """The SSD backward's bound at the kernel's chunk L: its needed
+    operations (:func:`ssd_bwd_ops`) at the rate of f32 products on the
+    tensor cores — three TF32 products each (the error compensation both
+    routes use), TF32 peak / 3 — against x, dt·A, B, C, dy in and dx,
+    d(dt·A), dB, dC out, every byte once (the states the kernel
     recomputes are not needed work).  Returns (ms, "operations" or
     "bytes")."""
-    pairs = chunk * (chunk + 1) // 2
-    ops_n = 2 * B * H * (S // chunk) * (pairs * (2 * P + 3 * N)
-                                        + 4 * chunk * P * N)
-    nbytes = 4 * B * S * H * (3 * P + 4 * N + 2)
-    t_ops, t_bytes = ops_n / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 3 * ssd_bwd_ops(B, S, H, P, N, chunk) / PEAK_TF32_FLOPS * 1e3
+    t_bytes = 4 * B * S * H * (3 * P + 4 * N + 2) / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ssd_bwd_floors_ms(B, S, H, P, N, chunk) -> dict:
+    """The chained-scan route's own floors at the kernel's chunk L:
+    bytes, what its two passes move once — pass F reads x, dt·A and B and
+    writes the state before each chunk, pass R reads x, dt·A, B, C, dy
+    and the states and writes dx, d(dt·A), dB and dC — over 3.35 TB/s;
+    products, the needed operations as three TF32 products each over the
+    495 TFLOP/s of TF32; and, for comparison, the same operations at
+    the f32 FMA peak."""
+    nc = S // chunk
+    state = 4 * B * nc * H * P * N
+    tok = 4 * B * S * H
+    nbytes = (tok * (P + N + 1) + state          # pass F
+              + tok * (2 * P + 2 * N + 1) + state  # pass R reads
+              + tok * (P + 2 * N + 1))             # and writes
+    ops_n = ssd_bwd_ops(B, S, H, P, N, chunk)
+    return {"bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+            "products_ms": 3 * ops_n / PEAK_TF32_FLOPS * 1e3,
+            "f32_fma_ms": ops_n / PEAK_F32_FLOPS * 1e3,
+            "bytes": nbytes, "tf32_ops": 3 * ops_n}
 
 
 def slstm_bwd_bound_ms(B, S, H, dh) -> tuple:
@@ -2766,23 +2866,43 @@ def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
     kernels), against the plain versions' autograd in float64 on the same
     inputs at ``SSD_BWD_CASES`` and ``SLSTM_BWD_CASES``; at the first
     case of each (the model's layer) the plain variants must fail the
-    same check.  Then the first cases timed: the backward alone, the
-    forward (the sLSTM's with and without its trajectory), the plain
-    vjp, and the bound.  Launches here count nowhere."""
+    same check; every SSD case must take its ``SSD_BWD_ROUTES``
+    route (as ``bwd_route`` says), the first twice bit for bit.  Then
+    the first cases timed: the backward alone (the SSD's also by pass),
+    the forward (the sLSTM's with and without its trajectory), the plain
+    vjp, and the bound (the SSD's also its route's floors).  Launches
+    here count nowhere."""
     import torch
-    out = {"ssd": {}, "slstm": {}}
+    out = {"ssd": {}, "slstm": {}, "ssd_routes": {}}
     names = ("dxdt", "dda", "dB", "dC")
-    for label, B, S, H, P, N, chunk, shift in SSD_BWD_CASES:
+    for k, (label, B, S, H, P, N, chunk, shift) in enumerate(SSD_BWD_CASES):
         gen = torch.Generator(device=dev).manual_seed(17)
         x, da, bm, cm = ssd_inputs(gen, dev, B, S, H, P, N)
         da = da - shift
         dy = torch.randn(B, S, H, P, generator=gen, device=dev)
         leaves = [t.clone().requires_grad_() for t in (x, da, bm, cm)]
+        before = dict(ssd.bwd_route_launches)
         t0 = time.perf_counter()
         got = torch.autograd.grad(ops.mamba2_ssd(*leaves, chunk=chunk),
                                   leaves, dy)
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
+        taken = [r for r, n in ssd.bwd_route_launches.items()
+                 if n != before[r]]
+        want_route = SSD_BWD_ROUTES[k]
+        if taken != [want_route] or ssd.bwd_route(P, N, chunk) != want_route:
+            raise SystemExit(f"mamba2_ssd backward {label}: took {taken}, "
+                             f"bwd_route says {ssd.bwd_route(P, N, chunk)}"
+                             f", want {want_route}")
+        out["ssd_routes"][label] = want_route
+        if k == 0:   # no atomics in the sums: a second run, bit for bit
+            again = torch.autograd.grad(
+                ops.mamba2_ssd(*leaves, chunk=chunk), leaves, dy)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise SystemExit(f"mamba2_ssd backward {label}: a second "
+                                 f"run differs")
+            out["ssd_bit_for_bit"] = True
+            del again
         wide = [t.double() for t in (x, da, bm, cm, dy)]
         want = ref.plain_vjp(ref.ssd_ref, wide[:4], wide[4])
         wrongs = []
@@ -2797,26 +2917,39 @@ def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
                  variants.ssd_bwd_gradient_one_chunk_late(*wide, inner))]
         out["ssd"][label] = hold_gradients(
             f"mamba2_ssd backward {label} ([{B}, {S}, {H}, {P}, {N}] chunk "
-            f"{chunk}, kernel {kernel_s:.2f} s)", names, got, want, wrongs)
+            f"{chunk}, route {want_route}"
+            f"{', second run bit for bit' if k == 0 else ''}, kernel "
+            f"{kernel_s:.2f} s)", names, got, want, wrongs)
         del got, want, wide, wrongs, leaves
         torch.cuda.empty_cache()
     label, B, S, H, P, N, chunk, _ = SSD_BWD_CASES[0]
     gen = torch.Generator(device=dev).manual_seed(17)
     x, da, bm, cm = ssd_inputs(gen, dev, B, S, H, P, N)
     dy = torch.randn(B, S, H, P, generator=gen, device=dev)
-    bound, bound_by = ssd_bwd_bound_ms(B, S, H, P, N, ssd.inner_chunk(chunk))
+    inner = ssd.inner_chunk(chunk)
+    bound, bound_by = ssd_bwd_bound_ms(B, S, H, P, N, inner)
     out["ssd_timed"] = {
         "ms": time_ms(ssd.mamba2_ssd_bwd_cuda, x, da, bm, cm, dy, chunk),
+        "pass_ms": ssd_bwd_pass_ms(lambda: ssd.mamba2_ssd_bwd_cuda(
+            x, da, bm, cm, dy, chunk), ssd),
         "forward_ms": time_ms(ssd.mamba2_ssd_cuda, x, da, bm, cm, chunk),
         "plain_ms": time_ms(ref.plain_vjp, ref.ssd_ref, (x, da, bm, cm), dy,
                             iters=2, warmup=1),
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "route": SSD_BWD_ROUTES[0],
+        "floors": ssd_bwd_floors_ms(B, S, H, P, N, inner),
         "shape": [B, S, H, P, N, chunk]}
     t = out["ssd_timed"]
+    fl = t["floors"]
     log(f"mamba2_ssd backward {label}: {t['ms']:.4g} ms = "
         f"{bound / t['ms']:.1%} of its bound ({bound:.4g} ms by "
-        f"{bound_by}); forward {t['forward_ms']:.4g} ms; plain vjp "
-        f"{t['plain_ms']:.4g} ms; library: none")
+        f"{bound_by}); route {t['route']}, passes "
+        + ", ".join(f"{k} {v:.4g}" for k, v in t["pass_ms"].items())
+        + f" ms (profiler); its floors: bytes {fl['bytes_ms']:.4g} ms "
+        f"({fl['bytes'] / 1e9:.3g} GB), TF32 products "
+        f"{fl['products_ms']:.4g} ms (at f32 FMA {fl['f32_fma_ms']:.4g} "
+        f"ms); forward {t['forward_ms']:.4g} ms; "
+        f"plain vjp {t['plain_ms']:.4g} ms; library: none")
     del x, da, bm, cm, dy
     torch.cuda.empty_cache()
 
@@ -3338,7 +3471,9 @@ def main() -> int:
         Trainer, make_run_config, InputShape, OptimizerConfig, configs,
         lm_counting, tree_leaves, counts, zero_counts, dev, tmp, arch=arch,
         layers=layers, batch=RECURRENT_BATCH, steps=RECURRENT_STEPS,
-        launches=RECURRENT_STEP_LAUNCHES[arch])
+        launches=RECURRENT_STEP_LAUNCHES[arch],
+        routes=(lambda: dict(mamba2_ssd.bwd_route_launches),
+                RECURRENT_STEP_SSD_ROUTES[arch]))
         for arch, layers in RECURRENT_TRAIN}
     log(f"phase 17 (b) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3389,6 +3524,10 @@ def main() -> int:
         launches[name] = sum(t["launches"].get(name, 0)
                              for t in trained.values())
         errs[name] = max(r["max_abs_err"] for r in case.values())
+    measured["mamba2_ssd_bwd"].update(
+        {key: recurrent["ssd_timed"][key]
+         for key in ("route", "pass_ms", "floors")},
+        routes=recurrent["ssd_routes"])
     measured["slstm_cell_bwd"].update(
         traj_forward_ms=recurrent["slstm_timed"]["traj_forward_ms"],
         param_grads_ms=recurrent["slstm_timed"]["param_grads_ms"])

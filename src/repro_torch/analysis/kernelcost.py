@@ -44,6 +44,7 @@ from repro_torch.kernels.flash_attention import bwd_route as flash_bwd_route
 from repro_torch.kernels.flash_attention import bwd_steps as flash_bwd_steps
 from repro_torch.kernels.flash_attention import kv_tiles_visited
 from repro_torch.kernels.mamba2_ssd import INNER_CHUNK as SSD_TILE
+from repro_torch.kernels.mamba2_ssd import bwd_route as ssd_bwd_route
 from repro_torch.kernels.mamba2_ssd import inner_chunk as ssd_inner_chunk
 from repro_torch.kernels.matmul_tiled import STAGE_K as MATMUL_STAGE_K
 from repro_torch.kernels.matmul_tiled import TILE as MATMUL_TILE
@@ -380,11 +381,18 @@ def mamba2_ssd_bwd_cost(xdt: torch.Tensor, da: torch.Tensor,
     ``dy·S``, ``x·G``, ``B·Gᵀ`` (3·L·P·N), d la's dot products (L·L + 2·L·N
     + P·N), the two state passes, both cumsums and the combining adds.
     Reads x, dt·A, B, C and dy, writes dx, d(dt·A), dB and dC, each block
-    once per program.  The staging term follows the CUDA passes at the
-    kernel's chunk: the forward's (a) again, (a′) as (a), and (c′) with
-    C, B, x, dy, the state and its gradient and the two SSD_TILE² product
-    tiles; the scratch of states and state gradients is HBM traffic the
-    reference does not move, left uncounted."""
+    once per program.  The staging term follows the CUDA route at the
+    kernel's chunk (``mamba2_ssd.bwd_route``, operands taken as aligned):
+    the five passes stage the forward's (a) again, (a′) as (a), and (c′)
+    with C, B, x, dy, the state and its gradient and the two SSD_TILE²
+    product tiles; the two chained-scan passes stage, per chunk, pass F's
+    x and B, Bᵀ's TF32 hi and lo, the chunk's own state and la, w, and
+    pass R's C, dy, B, x and
+    the state, the hi (in place) and lo of those four, G_{c+1} and the
+    chunk's own gradient, the written operand's hi and lo four times and
+    la, e, w.  The scratch — the five passes' states, state gradients and
+    decays, the chained scans' states and two-slot ring of G — is HBM
+    (or L2) traffic the reference does not move, left uncounted."""
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
     el = chunk
@@ -404,12 +412,23 @@ def mamba2_ssd_bwd_cost(xdt: torch.Tensor, da: torch.Tensor,
     for t, width in ((xdt, p), (da, 1), (bm, n), (cm, n)):
         _traffic(c, "out", t.dtype, el * width, programs)
     lk = ssd_inner_chunk(chunk)
-    chunk_state = lk * (2 * p + n + 2)
-    chunk_grad = lk * (2 * p + 2 * n + 1) + 2 * n * p + 2 * SSD_TILE ** 2
     c.add("f_vmem_contig_float32_store",
-          b * h * (s // lk) * (2 * chunk_state + chunk_grad))
+          b * h * (s // lk) * ssd_bwd_staging(p, n, chunk))
     c.add("f_sync_grid_programs", programs)
     return c
+
+
+def ssd_bwd_staging(p: int, n: int, chunk: int) -> int:
+    """Floats the SSD backward's CUDA route stages in shared memory per
+    chunk of the kernel's (see :func:`mamba2_ssd_bwd_cost`)."""
+    lk, tile = ssd_inner_chunk(chunk), SSD_TILE ** 2
+    if ssd_bwd_route(p, n, chunk) == "chain":
+        state = lk * (p + n + 2) + 3 * tile
+        grad = 3 * lk * (2 * p + 2 * n) + p * n + 10 * tile + 3 * lk
+        return state + grad
+    chunk_state = lk * (2 * p + n + 2)
+    chunk_grad = lk * (2 * p + 2 * n + 1) + 2 * n * p + 2 * tile
+    return 2 * chunk_state + chunk_grad
 
 
 def slstm_cell_cost(g_in: torch.Tensor, r_gates: torch.Tensor,

@@ -19,8 +19,10 @@ All ten of the reference's generators are here, in its order.  A
 reference ``fori_loop``/``scan`` is a :func:`counted_loop` (or, for a
 short loop over data, a :func:`counted_range`): one XLA loop there, one
 or two kernel launches a step here, which a captured graph replays as
-one node each.  ``FamilySpec`` (symbolic count families) is not ported
-yet (ROADMAP queue A).
+one node each.  ``FamilySpec`` (symbolic count families, the
+declaration at :class:`FamilySpec`) and ``KernelFamily`` (one concrete
+family riding on a measurement kernel, :class:`KernelFamily`) are
+ported.
 """
 from __future__ import annotations
 

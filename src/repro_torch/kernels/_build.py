@@ -80,6 +80,12 @@ SIGNATURES: Dict[str, List] = {
     "repro_ssd_chunk_state_grad_f32": [_P] * 4 + [_I] * 6 + [_P],
     "repro_ssd_state_grad_pass_f32": [_P] * 2 + [_I] * 6 + [_P],
     "repro_ssd_chunk_grad_f32": [_P] * 11 + [_I] * 6 + [_P],
+    # the SSD backward's chained-scan route: xdt, da, B, C, dy, states,
+    # gring, sync (scratch), dxdt, dda, dB, dC; then batch, S, H, P, N,
+    # chunk
+    "repro_ssd_bwd_chain_f32": [_P] * 12 + [_I] * 6 + [_P],
+    # the TF32 wgmma descriptor check: a, b, c, a_trans, split
+    "repro_wgmma_tile_tf32": [_P, _P, _P, _I, _I, _P],
     # g_in, r, b, y, state (c, n, m after the last step, or 0), traj (each
     # step's gates and c, n, m, or 0), batch, S, H, dh, cluster blocks,
     # batch rows per cluster (the plan's)

@@ -1330,28 +1330,6 @@ bwd_wg_key_kernel(const __grid_constant__ CUtensorMap mq,
 
 // --- host side --------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no
-// link against libcuda); 0 where the driver has none
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
 // The tensor map of a contiguous bf16 [batch, rows, heads, width] operand:
 // a box of 64 columns (one 128-byte swizzled slab) × 64 rows of one head,
 // zero filled outside the tensor

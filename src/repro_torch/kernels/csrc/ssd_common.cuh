@@ -6,6 +6,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "mma_bf16.cuh"   // smem_addr
+
 namespace {
 
 constexpr int kThreads = 256;   // 16 × 16 (pass (a)), or 8 warps
@@ -16,10 +18,6 @@ constexpr int kMaxDim = 64;     // P, N <= 64
 // operand (t rows by g columns), takes 72
 constexpr int kLd = 68;
 constexpr int kLdX = 72;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool ok) {

@@ -1,32 +1,37 @@
 // PTX helpers for Hopper's asynchronous tensor-core path (sm_90a), used by
-// the bf16 path of flash_attention_bwd.cu: mbarriers, TMA tile loads
-// (cp.async.bulk.tensor) completing on an mbarrier, named barriers, the
-// shared-memory matrix descriptor of a 128-byte-swizzled tile, and
-// warpgroup wgmma.mma_async products with f32 accumulators.
+// the bf16 path of flash_attention_bwd.cu and the chained-scan route of
+// mamba2_ssd_bwd.cu: mbarriers, TMA tile loads (cp.async.bulk.tensor)
+// completing on an mbarrier, named barriers, the shared-memory matrix
+// descriptor of a 128-byte-swizzled tile, warpgroup wgmma.mma_async
+// products with f32 accumulators (bf16 and TF32 operands), and on the host
+// cuTensorMapEncodeTiled.
 //
 // The tile layout every helper assumes is the one a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B and a 64 × 64 bf16 box writes: a 64-row
-// tile of a [rows, width] operand is stored as width / 64 "slabs", each
-// 64 rows × 128 bytes (kSlabBytes), the 16-byte chunks of row r XOR-ed
-// by r % 8; every slab starts on a 1024-byte boundary.  Seen by wgmma:
+// CU_TENSOR_MAP_SWIZZLE_128B and a box 128 bytes wide writes: a 64-row
+// tile of a [rows, width] operand is stored as "slabs" of 64 rows × 128
+// bytes (kSlabBytes: 64 bf16 or 32 f32 columns a slab), the 16-byte chunks
+// of row r XOR-ed by r % 8; every slab starts on a 1024-byte boundary.
+// Seen by wgmma:
 //  * K-major (the reduction runs along the row, as Q·Kᵀ reads Q and K):
-//    8-row groups 1024 bytes apart (SBO), the k16 step kk of a slab at
-//    +32·kk bytes (the hardware applies the XOR to the address it forms);
-//  * MN-major (the reduction runs down the rows, as dS·K reads K): 64
-//    output columns per slab, slabs kSlabBytes apart (LBO), 8-row groups
-//    of the reduction 1024 bytes apart (SBO), the k16 step kk at
-//    +2048·kk bytes.
+//    8-row groups 1024 bytes apart (SBO), the k-step kk of a slab at
+//    +32·kk bytes (k16 in bf16, k8 in TF32: 32 bytes either way; the
+//    hardware applies the XOR to the address it forms);
+//  * MN-major (the reduction runs down the rows, as dS·K reads K; bf16
+//    only — wgmma transposes no 32-bit operand): 64 output columns per
+//    slab, slabs kSlabBytes apart (LBO), 8-row groups of the reduction
+//    1024 bytes apart (SBO), the k16 step kk at +2048·kk bytes.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kSlabBytes = 64 * 128;   // 64 rows of 64 bf16
+constexpr int kSlabBytes = 64 * 128;   // 64 rows of 128 bytes
 
 // --- mbarriers (by shared-memory address) ---------------------------------
 __device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
@@ -378,6 +383,110 @@ __device__ __forceinline__ void pack_weights(const float (&c)[32],
                                              uint32_t (&w)[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) w[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
+}
+
+// --- TF32 ------------------------------------------------------------------
+// An f32 tile of 64 rows × 64 columns under the 128-byte swizzle is two
+// slabs of 32 columns; byte offset of element (r, c) from the tile's start
+__device__ __forceinline__ uint32_t sw_f32(int r, int c) {
+  return (uint32_t)((c >> 5) * kSlabBytes + r * 128 +
+                    ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4);
+}
+
+// a float rounded to TF32 (10 mantissa bits, the low 13 bits zero), to
+// nearest with ties away from zero — what cvt.rna.tf32.f32 gives — in two
+// integer operations at the ALU's full rate
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo in TF32, the error-compensated split: hi = tf32(x), lo =
+// tf32(x − hi); hi·hi + hi·lo + lo·hi misses ~2^-21 of a product
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d (64 × 32) += A · B over one k8 step: A the 64 × 8 TF32 fragment in
+// registers (warp w of the warpgroup rows 16·w + g and + 8, columns t and
+// t + 4; g = lane / 4, t = lane % 4), B 32 rows of a K-major tile in
+// shared memory (descriptor `db`); d in the m64nN accumulator layout
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --- host: tensor maps ----------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no
+// link against libcuda); 0 where the driver has none
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      ptr = nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous f32 operand of `rank` dimensions (dims
+// innermost first, `dims[0]` floats a row): a box of 32 columns (one
+// 128-byte swizzled slab) × `box_rows` along dimension `row_dim`, one
+// along the others; zero filled outside the tensor
+inline int make_map_f32(CUtensorMap* map, const void* ptr, int rank,
+                        const cuuint64_t* dims, int row_dim, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t strides[4];
+  cuuint32_t box[5], unit[5];
+  cuuint64_t stride = 4;
+  for (int i = 0; i < rank; ++i) {
+    if (i > 0) strides[i - 1] = stride;
+    stride *= dims[i];
+    box[i] = i == 0 ? 32 : i == row_dim ? (cuuint32_t)box_rows : 1;
+    unit[i] = 1;
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank,
+      const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the 3-d box (c0, c1, c2) of `map` into shared `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
 }
 
 }  // namespace

@@ -11,10 +11,15 @@ last chunk, which a served prefill leaves in the cache; its custom op
 ``repro_torch::mamba2_ssd_state`` runs ``ref.ssd_state_ref``.
 
 Gradients: on the card :class:`Mamba2SSD` runs the forward kernel and
-its backward launches ``csrc/mamba2_ssd_bwd.cu``
-(``mamba2_ssd_bwd_cuda``: the forward's passes (a) and (b) again into
-scratch, then the backward's three passes).  On the host the custom
-op's autograd calls the custom op ``repro_torch::mamba2_ssd_bwd``,
+its backward launches ``csrc/mamba2_ssd_bwd.cu`` (``mamba2_ssd_bwd_cuda``)
+by one of two routes (:func:`bwd_route`): where the kernel's chunk is 64,
+P and N are multiples of 8 and every operand is 16-byte aligned, the
+chained-scan route (two launches: the states forwards, then the state
+gradients backwards with each chunk's gradients, TF32 ``wgmma`` products
+on TMA-loaded tiles); elsewhere the five passes (the forward's passes
+(a) and (b) again into scratch, then the backward's three).  On the
+host the custom op's autograd calls the custom op
+``repro_torch::mamba2_ssd_bwd``,
 whose CPU impl is the same algorithm in PyTorch (``ref.ssd_bwd_ref``)
 and whose fake impl lets the counter price a training step.  The
 reference has no backward kernel: it differentiates its jnp scan.
@@ -31,9 +36,11 @@ from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref, ssd_state_ref
 #: calls of ``mamba2_ssd_cuda`` that launched the kernel's passes, in
 #: this process
 launches = 0
-#: calls of ``mamba2_ssd_bwd_cuda`` (each launches the forward's passes
-#: (a), (b) and the backward's three) in this process
+#: calls of ``mamba2_ssd_bwd_cuda`` (each launches the kernels of one
+#: route) in this process
 backward_launches = 0
+#: the same by route (:func:`bwd_route`)
+bwd_route_launches = {"chain": 0, "passes": 0}
 
 #: the largest chunk the kernel runs at, one staged tile of rows: the
 #: SSD's result does not depend on the chunking, only its work does (each
@@ -50,6 +57,10 @@ PASSES = ("repro_ssd_chunk_state_f32", "repro_ssd_state_pass_f32",
 #: forward's first two)
 BWD_PASSES = ("repro_ssd_chunk_state_grad_f32",
               "repro_ssd_state_grad_pass_f32", "repro_ssd_chunk_grad_f32")
+#: the chained-scan route's C entry point (its two kernels in one call)
+BWD_CHAIN = "repro_ssd_bwd_chain_f32"
+#: the chained-scan route's chunk: one 64-row tile, a wgmma's M
+CHAIN_CHUNK = 64
 
 
 @torch.library.custom_op("repro_torch::mamba2_ssd", mutates_args=(),
@@ -187,34 +198,82 @@ def _mamba2_ssd_state_fake(xdt, da, bm, cm, chunk):
         dtype=torch.promote_types(xdt.dtype, torch.float32))
 
 
+def bwd_route(p: int, n: int, chunk: int, aligned: bool = True) -> str:
+    """The backward's route for head dim ``p``, state dim ``n`` and the
+    caller's ``chunk``: "chain" (``repro_ssd_bwd_chain_f32``: two
+    launches, TF32 wgmma on TMA tiles) where the kernel's chunk is
+    ``CHAIN_CHUNK``, P and N are multiples of 8 up to ``MAX_DIM`` and
+    every operand is 16-byte ``aligned``; else "passes" (the five passes
+    of the forward's (a), (b) and ``BWD_PASSES``)."""
+    chain = (inner_chunk(chunk) == CHAIN_CHUNK and aligned
+             and all(0 < d <= MAX_DIM and d % 8 == 0 for d in (p, n)))
+    return "chain" if chain else "passes"
+
+
 def mamba2_ssd_bwd_cuda(xdt: torch.Tensor, da: torch.Tensor,
                         bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor,
                         chunk: int) -> Tuple[torch.Tensor, ...]:
-    """Check the operands, launch the forward's passes (a) and (b) again
-    (the state before each chunk, into scratch) and the three passes of
-    ``csrc/mamba2_ssd_bwd.cu`` (each chunk's own state gradient, the
-    reverse pass along the chunks, each chunk's gradients) at the
-    kernel's chunk; count the call.  Returns (dxdt, dda, dB, dC)."""
+    """Check the operands and launch ``csrc/mamba2_ssd_bwd.cu`` at the
+    kernel's chunk by :func:`bwd_route`'s route: the chained scans (the
+    states forwards into scratch, then the state gradients backwards
+    with each chunk's gradients), or the forward's passes (a) and (b)
+    again and the backward's three passes (each chunk's own state
+    gradient, the reverse pass along the chunks, each chunk's
+    gradients); count the call and its route.  Returns (dxdt, dda, dB,
+    dC)."""
     global backward_launches
     _check(xdt, da, bm, cm, chunk, dy)
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
+    dev = xdt.device
     inner = inner_chunk(chunk)
-    scratch = (b, s // inner, h, p, n)
-    states = torch.empty(scratch, dtype=torch.float32, device=xdt.device)
-    grads = torch.empty(scratch, dtype=torch.float32, device=xdt.device)
-    decay = torch.empty(scratch[:3], dtype=torch.float32, device=xdt.device)
+    operands = (xdt, da, bm, cm, dy)
+    route = bwd_route(p, n, chunk,
+                      aligned=all(t.data_ptr() % 16 == 0 for t in operands))
+    states = torch.empty((b, s // inner, h, p, n), dtype=torch.float32,
+                         device=dev)
     out = tuple(torch.empty_like(t) for t in (xdt, da, bm, cm))
-    launch = _launcher(xdt.device, (b, s, h, p, n, inner))
-    for _, call in (launch(PASSES[0], xdt, da, bm, states, decay),
-                    launch(PASSES[1], states, decay, None),
-                    launch(BWD_PASSES[0], dy, da, cm, grads),
-                    launch(BWD_PASSES[1], grads, decay),
-                    launch(BWD_PASSES[2], xdt, da, bm, cm, dy, states,
-                           grads, *out)):
+    launch = _launcher(dev, (b, s, h, p, n, inner))
+    if route == "chain":
+        gring = torch.empty((b * h, 2, CHAIN_CHUNK * CHAIN_CHUNK),
+                            dtype=torch.float32, device=dev)
+        sync = torch.empty(2 + 2 * b * h, dtype=torch.int32, device=dev)
+        calls = (launch(BWD_CHAIN, *operands, states, gring, sync, *out),)
+    else:
+        grads = torch.empty_like(states)
+        decay = torch.empty(states.shape[:3], dtype=torch.float32,
+                            device=dev)
+        calls = (launch(PASSES[0], xdt, da, bm, states, decay),
+                 launch(PASSES[1], states, decay, None),
+                 launch(BWD_PASSES[0], dy, da, cm, grads),
+                 launch(BWD_PASSES[1], grads, decay),
+                 launch(BWD_PASSES[2], xdt, da, bm, cm, dy, states, grads,
+                        *out))
+    for _, call in calls:
         call()
     backward_launches += 1
+    bwd_route_launches[route] += 1
     return out
+
+
+def wgmma_tf32_tile_product(a: torch.Tensor, b: torch.Tensor,
+                            a_trans: bool, split: bool) -> torch.Tensor:
+    """The chained-scan route's TF32 ``wgmma`` operand layouts alone (a
+    card check): A·bᵀ [64, 64] f32 for contiguous f32 ``a`` and ``b`` of
+    [64, 64] on the card, A = ``a`` (or aᵀ with ``a_trans``) from
+    registers and b read K-major from a TMA-loaded 128-byte-swizzled
+    tile, each warpgroup 32 of the output columns; with ``split`` the
+    kernels' three error-compensated products, else one product of the
+    raw f32 bits."""
+    if a.shape != (64, 64) or b.shape != (64, 64) or any(
+            t.dtype != torch.float32 or not t.is_contiguous() or
+            t.device.type != "cuda" for t in (a, b)):
+        raise ValueError("wgmma_tf32_tile_product takes contiguous f32 "
+                         "[64, 64] operands on the card")
+    c = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    _build.launch_on(a.device, "repro_wgmma_tile_tf32", a.data_ptr(),
+                     b.data_ptr(), c.data_ptr(), int(a_trans), int(split))
+    return c
 
 
 @torch.library.custom_op("repro_torch::mamba2_ssd_bwd", mutates_args=(),

@@ -878,6 +878,106 @@ def test_mamba2_ssd_backward_kernel_on_card(cuda, B, S, H, P, N, chunk,
                 _hold_gradients(got, bad, "float32")
 
 
+def _ssd_operands(cuda, B, S, H, P, N, shift):
+    """x·dt, dt·A (−0.1·|randn| − shift), B, C and dy on the card from
+    seeds 60–64, as test_mamba2_ssd_backward_kernel_on_card makes them."""
+    def on_card(seed, *shape, scale=1.0, add=0.0):
+        a = rn(seed, *shape)
+        if scale != 1.0:
+            a = -np.abs(a) * scale
+        return torch.from_numpy(a + add).to(cuda)
+    return (on_card(60, B, S, H, P), on_card(61, B, S, H, scale=0.1,
+                                              add=-shift),
+            on_card(62, B, S, H, N), on_card(63, B, S, H, N),
+            on_card(64, B, S, H, P))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_trans", [False, True])
+def test_wgmma_tf32_descriptors_and_split_on_card(cuda, a_trans):
+    """The chained-scan route's TF32 wgmma layouts alone: a 64 × 64 × 64
+    product, A from registers (natural or transposed reads of a TMA-loaded
+    128-byte-swizzled f32 tile), B a K-major tile read by descriptor, 32
+    rows a warpgroup, in the kernels' three-product error compensation,
+    against float64: within 1e-5 of Σ|a·b| (a wrong descriptor or
+    fragment layout gives wrong numbers, not a fault)."""
+    a = torch.from_numpy(rn(80, 64, 64)).to(cuda)
+    b = torch.from_numpy(rn(81, 64, 64)).to(cuda)
+    A = (a.T if a_trans else a).double()
+    want = A @ b.double().T
+    scale = float((A.abs() @ b.double().abs().T).max())
+    got = tssd.wgmma_tf32_tile_product(a, b, a_trans, True)
+    assert float((got.double() - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_trans", [False, True])
+def test_wgmma_tf32_reads_f32_bits_truncated_on_card(cuda, a_trans):
+    """What the tensor cores make of an f32 operand's bits in a TF32
+    wgmma: the product of raw f32 tiles agrees with the float64 product
+    of their values truncated to 10 mantissa bits, and not with their
+    values rounded to nearest (cvt.rna.tf32's hi) — so a kernel that
+    splits x = hi + lo must store hi itself, as the kernels do."""
+    a = torch.from_numpy(rn(82, 64, 64)).to(cuda)
+    b = torch.from_numpy(rn(83, 64, 64)).to(cuda)
+    a_op = (a.T if a_trans else a).contiguous()
+
+    def truncated(t):
+        return (t.view(torch.int32) & ~0x1FFF).view(torch.float32).double()
+
+    def rounded(t):
+        i = t.view(torch.int32)
+        return ((i + 0x1000) & ~0x1FFF).view(torch.float32).double()
+
+    scale = float((a_op.double().abs() @ b.double().abs().T).max())
+    got = tssd.wgmma_tf32_tile_product(a, b, a_trans, False).double()
+    err_trunc = float((got - truncated(a_op) @ truncated(b).T).abs().max())
+    err_round = float((got - rounded(a_op) @ rounded(b).T).abs().max())
+    assert err_trunc <= 1e-5 * scale < err_round
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk,shift", [
+    # test_mamba2_ssd_backward_kernel_on_card's shapes
+    *(shape + (0.0,) for shape in SSD_SHAPES),
+    (1, 96, 2, 20, 12, 48, 0.0), (1, 128, 3, 64, 64, 64, 5.0),
+    (2, 160, 2, 8, 16, 160, 0.0), (1, 64, 2, 1, 1, 16, 0.0),
+])
+def test_mamba2_ssd_backward_route_on_card(cuda, B, S, H, P, N, chunk,
+                                           shift):
+    """The SSD backward takes the chained scans exactly where
+    ``bwd_route`` says (the kernel's chunk 64, P and N multiples of 8),
+    else the five passes, and both give the plain version's gradients
+    within 1e-4 × each max |g|."""
+    x, da, bm, cm, dy = _ssd_operands(cuda, B, S, H, P, N, shift)
+    before = dict(tssd.bwd_route_launches)
+    got = tssd.mamba2_ssd_bwd_cuda(x, da, bm, cm, dy, chunk)
+    taken = {r: n - before[r] for r, n in tssd.bwd_route_launches.items()}
+    route = tssd.bwd_route(P, N, chunk)
+    assert taken == {r: int(r == route) for r in taken}
+    want = tref.plain_vjp(tref.ssd_ref, [t.double() for t in
+                                         (x, da, bm, cm)], dy.double())
+    _hold_gradients(got, want, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk,shift", [
+    (1, 256, 2, 64, 64, 64, 0.0), (2, 512, 3, 64, 64, 256, 0.0),
+    (1, 256, 2, 64, 64, 64, 5.0), (2, 384, 2, 32, 48, 128, 0.0)])
+def test_mamba2_ssd_backward_is_bit_for_bit_repeatable(cuda, B, S, H, P, N,
+                                                      chunk, shift):
+    """The chained scans take their tickets in whatever order blocks
+    start, but every link and sum is a fixed formula: four runs at the
+    kernel's chunk 64 (B 2, a strong decay, P 32 / N 48 among them) agree
+    bit for bit."""
+    x, da, bm, cm, dy = _ssd_operands(cuda, B, S, H, P, N, shift)
+    assert tssd.bwd_route(P, N, chunk) == "chain"
+    first = tssd.mamba2_ssd_bwd_cuda(x, da, bm, cm, dy, chunk)
+    for _ in range(3):
+        again = tssd.mamba2_ssd_bwd_cuda(x, da, bm, cm, dy, chunk)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,dh,floor", [
     *(shape + (False,) for shape in SLSTM_SHAPES),

@@ -225,18 +225,21 @@ def test_counter_prices_the_recurrent_backwards_by_their_cost_rules():
 
 def test_backward_kernels_are_built_and_bound():
     """The two backward sources are in the library, each C entry point
-    they define has its ctypes signature, and the forward's sLSTM entry
-    takes the trajectory pointer."""
+    they define (the SSD's both routes and its TF32 wgmma check) has its
+    ctypes signature, and the forward's sLSTM entry takes the trajectory
+    pointer."""
     for src in ("mamba2_ssd_bwd.cu", "slstm_cell_bwd.cu"):
         assert src in _build.SOURCES
     names = ("repro_ssd_chunk_state_grad_f32", "repro_ssd_state_grad_pass_f32",
              "repro_ssd_chunk_grad_f32", "repro_slstm_cell_bwd_f32",
-             "repro_slstm_cell_bwd_plan")
+             "repro_slstm_cell_bwd_plan", "repro_ssd_bwd_chain_f32",
+             "repro_wgmma_tile_tf32")
     text = "".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
     for name in names:
         assert f'extern "C" int {name}(' in text
         assert name in _build.SIGNATURES
     assert mamba2_ssd.BWD_PASSES == names[:3]
+    assert mamba2_ssd.BWD_CHAIN == names[5]
     # g_in, r, b, y, state, traj, then six ints and the stream
     assert len(_build.SIGNATURES["repro_slstm_cell_f32"]) == 13
 

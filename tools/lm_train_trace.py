@@ -13,8 +13,9 @@ phase 17 (b)'s for zamba2-7b (9 layers, batch 8) and xlstm-125m (as
 published, batch 8).  One warm-up step, one timed on the host clock
 around ``torch.cuda.synchronize()``, one under ``torch.profiler``.
 Every device kernel's time is put in a class: the sLSTM's forward and
-backward kernels, the SSD's (the backward's own passes; the forward's
-passes it runs again to recompute the chunk states count as forward),
+backward kernels, the SSD's (the backward's own passes: the chained
+scans' two, or the five passes' last three, whose recompute of the
+forward's first two counts as forward),
 the attention forward kernel (``flash_mma_kernel``) and its backward
 (``bwd_wg_query_kernel`` and ``bwd_wg_key_kernel``; ``bwd_mma_kernel`` on
 the fallback route), the GEMMs of ``torch.matmul``, and the rest (f32
@@ -41,7 +42,8 @@ from lm_serve_trace import summary  # noqa: E402  (tools/ beside this file)
 CLASSES = (
     ("slstm_backward", ("slstm_bwd_cluster_kernel",)),
     ("slstm_forward", ("slstm_cluster_kernel",)),
-    ("ssd_backward", ("chunk_grad_kernel", "chunk_state_kernel<true>",
+    ("ssd_backward", ("ssd_chain_state_kernel", "ssd_chain_grad_kernel",
+                      "chunk_grad_kernel", "chunk_state_kernel<true>",
                       "state_pass_kernel<true>")),
     ("ssd_forward", ("chunk_out_kernel", "chunk_state_kernel",
                      "state_pass_kernel")),
