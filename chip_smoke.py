@@ -186,14 +186,17 @@ Phases, each fatal on failure:
    at chunk 48; each on its ``SSD_BWD_ROUTES`` route, zamba2-7b's twice
    bit for bit) and
    ``SLSTM_BWD_CASES`` (xlstm-125m's layer, dh 256, dh 4, the n floor
-   biting), every gradient within 1e-4 × its max |g|, with plain
+   biting; xlstm-125m's twice bit for bit), every gradient within 1e-4 ×
+   its max |g|, with plain
    variants (the SSD without its carried state gradient or with it one
    chunk late, the sLSTM without its recurrent dh) that must fail; then
    both at the model's layer timed beside the forward (the sLSTM's with
    and without its trajectory), the plain vjp and the bound, the SSD's
    two chained-scan passes each from a profiler trace
    (:func:`ssd_bwd_pass_ms`) beside its design's floors
-   (:func:`ssd_bwd_floors_ms`) (:func:`check_recurrent_backward`); (b)
+   (:func:`ssd_bwd_floors_ms`), the sLSTM's three gradients beside dg_in
+   alone and its step-latency floor beside the forward's
+   (:func:`check_recurrent_backward`); (b)
    zamba2-7b at full width (9
    layers) and xlstm-125m as published trained 4 steps each through
    ``Trainer.train`` (seq 4096, batch 8, bf16, remat full): per step s,
@@ -1030,13 +1033,24 @@ NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
              "wgmma_tf32_tile_kernel")
 
 
+#: and the instances each of these must have in the report: the sLSTM
+#: backward's dh 64, 128, 192 (clusters of 6) and 256 (of 8), 1 or 2 rows
+NO_SPILLS_INSTANCES = {"slstm_bwd_cluster_kernel": 8}
+
+
 def check_no_spills(text: str) -> None:
     """Log registers and spills of the ``NO_SPILLS`` functions in a ptxas
-    report and fail if one spills."""
+    report and fail if one spills, or if a ``NO_SPILLS_INSTANCES`` kernel
+    has another number of instances there."""
     found = {fn: r for fn, r in ptxas_report(text).items()
              if any(part in fn for part in NO_SPILLS)}
     if not found:
         raise SystemExit(f"the ptxas report names none of {NO_SPILLS}")
+    for part, want in NO_SPILLS_INSTANCES.items():
+        got = sum(part in fn for fn in found)
+        if got != want:
+            raise SystemExit(f"the ptxas report has {got} instances of "
+                             f"{part}, not {want}")
     for fn, (regs, stores, loads) in sorted(found.items()):
         log(f"ptxas {fn}: {regs} registers, {stores} bytes spill stores, "
             f"{loads} bytes spill loads")
@@ -2324,24 +2338,22 @@ def attention_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, Dv, causal, window,
 TRACE_MARGIN_S = 0.25
 
 
-def pass_ms(call, kernels, what: str, launched, reps: int = 10) -> dict:
-    """Each pass ``call()`` launches: its kernel's device milliseconds a
-    launch (``kernels``: (pass, name fragment) pairs), from a
-    ``torch.profiler`` trace of ``reps`` calls (after one untraced),
-    ``TRACE_MARGIN_S`` clear of other device work on both sides.  The
-    launches are counted by the wrapper, not by the trace:
-    ``launched()`` rises by one for each call, which launches every pass
-    once; a trace in a process that has run many phases has held only
-    some of them (6 of 10 for each pass of the SSD backward in phase 17
-    (a), with the margins).  Fails unless ``launched()`` rose by exactly
-    ``reps`` and the trace holds each pass at least once and at most
-    ``reps`` times; logs how many it held."""
+def traced(call, kernels, launched, reps: int = 10) -> tuple:
+    """``reps`` calls of ``call()`` in a ``torch.profiler`` trace,
+    ``TRACE_MARGIN_S`` clear of other device work on both sides, after a
+    warm-up cycle of the profiler (one call, traced and dropped): how
+    much ``launched()`` rose, and per pass (``kernels``: (pass, name
+    fragment) pairs) the microseconds of each of its kernels the trace
+    holds."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    torch.cuda.synchronize()
-    time.sleep(TRACE_MARGIN_S)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        call()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        prof.step()
         time.sleep(TRACE_MARGIN_S)
         before = launched()
         for _ in range(reps):
@@ -2349,6 +2361,7 @@ def pass_ms(call, kernels, what: str, launched, reps: int = 10) -> dict:
         rose = launched() - before
         torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
+        prof.step()
     found = {name: [] for name, _ in kernels}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -2356,6 +2369,22 @@ def pass_ms(call, kernels, what: str, launched, reps: int = 10) -> dict:
         for name, key in kernels:
             if key in ev.name:
                 found[name].append(ev.time_range.elapsed_us())
+    return rose, found
+
+
+def pass_ms(call, kernels, what: str, launched, reps: int = 10) -> dict:
+    """Each pass ``call()`` launches: its kernel's device milliseconds a
+    launch (``kernels``: (pass, name fragment) pairs), from a
+    :func:`traced` run of ``reps`` calls.  The launches are counted by
+    the wrapper, not by the trace: ``launched()`` rises by one for each
+    call, which launches every pass once.  Late in a long process a
+    trace has held only some of them (phase 17 (a)'s SSD trace 6 and 7
+    of 10, with :func:`traced`'s warm-up cycle too, which made the traces
+    after a ``torch.compile``'d ``flex_attention`` backward in a fresh
+    process hold all: ``tools/trace_loss_probe.py``).  Fails unless
+    ``launched()`` rose by exactly ``reps`` and the trace holds each pass
+    at least once and at most ``reps`` times; logs how many it held."""
+    rose, found = traced(call, kernels, launched, reps)
     held = {name: len(f) for name, f in found.items()}
     if rose != reps or any(not 1 <= n <= reps for n in held.values()):
         raise SystemExit(f"{what}: {reps} traced calls counted {rose} "
@@ -2849,17 +2878,21 @@ def ssd_bwd_floors_ms(B, S, H, P, N, chunk) -> dict:
             "bytes": nbytes, "tf32_ops": 3 * ops_n}
 
 
-def slstm_bwd_bound_ms(B, S, H, dh) -> tuple:
+def slstm_bwd_bound_ms(B, S, H, dh, clusters) -> tuple:
     """The sLSTM backward kernel's bound: the transposed recurrence
-    R·dgg_t, dh·4dh multiply-adds a step, head and batch row, at f32 FMA,
-    against traj and dy in and dgg out, every byte once, and r once."""
-    ops_n = 2 * B * S * H * dh * 4 * dh
-    nbytes = 4 * (B * S * H * dh * (7 + 1 + 4) + H * dh * 4 * dh)
+    R·dgg_t and dR's h_{t−1} ⊗ dgg_t, dh·4dh multiply-adds each a step,
+    head and batch row, at f32 FMA, against traj, h and dy in and dgg
+    out, every byte once, r once, and the ``clusters`` (a head's) partial
+    sums of dR and db written once."""
+    ops_n = 2 * 2 * B * S * H * dh * 4 * dh
+    nbytes = 4 * (B * S * H * dh * (7 + 1 + 1 + 4) + H * dh * 4 * dh
+                  + clusters * H * (dh * 4 * dh + 4 * dh))
     t_ops, t_bytes = ops_n / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
+def check_recurrent_backward(ops, ref, variants, ssd, sc, dev,
+                             forward_floor_ms=None) -> dict:
     """Phase 17 (a): the SSD and sLSTM backward kernels, through
     ``ops.mamba2_ssd`` and ``ops.slstm_cell`` under autograd (the forward
     kernels, the sLSTM's keeping its trajectory, then the backward
@@ -2870,8 +2903,12 @@ def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
     route (as ``bwd_route`` says), the first twice bit for bit.  Then
     the first cases timed: the backward alone (the SSD's also by pass),
     the forward (the sLSTM's with and without its trajectory), the plain
-    vjp, and the bound (the SSD's also its route's floors).  Launches
-    here count nowhere."""
+    vjp, and the bound (the SSD's also its route's floors; the sLSTM's
+    also on the SMs its plan uses); the sLSTM's three gradients, dg_in
+    alone, and its step-latency floor (the same kernel at B 1, H 1, dh 4
+    and the layer's S) beside the forward's, ``forward_floor_ms``.  The
+    sLSTM's first case runs twice, bit for bit.  Launches here count
+    nowhere."""
     import torch
     out = {"ssd": {}, "slstm": {}, "ssd_routes": {}}
     names = ("dxdt", "dda", "dB", "dC")
@@ -2954,7 +2991,7 @@ def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
     torch.cuda.empty_cache()
 
     names = ("dg_in", "dr", "db")
-    for label, B, S, H, dh, floor in SLSTM_BWD_CASES:
+    for k, (label, B, S, H, dh, floor) in enumerate(SLSTM_BWD_CASES):
         gen = torch.Generator(device=dev).manual_seed(17)
         g_in, r, b = slstm_inputs(gen, dev, B, S, H, dh)
         if floor:
@@ -2965,6 +3002,13 @@ def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
         got = torch.autograd.grad(ops.slstm_cell(*leaves), leaves, dy)
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
+        if k == 0:   # no atomics in dR and db: a second run, bit for bit
+            again = torch.autograd.grad(ops.slstm_cell(*leaves), leaves, dy)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise SystemExit(f"slstm_cell backward {label}: a second "
+                                 f"run differs")
+            out["slstm_bit_for_bit"] = True
+            del again
         wide = [t.double() for t in (g_in, r, b, dy)]
         want = ref.plain_vjp(ref.slstm_cell_ref, wide[:3], wide[3])
         h, traj = ref.slstm_cell_fwd_traj_ref(*wide[:3])
@@ -2978,34 +3022,52 @@ def check_recurrent_backward(ops, ref, variants, ssd, sc, dev) -> dict:
                              f"the floor does not bite")
         out["slstm"][label] = hold_gradients(
             f"slstm_cell backward {label} ([{B}, {S}, {H}, {dh}], min n "
-            f"{n_min:.3g}, kernel {kernel_s:.2f} s)", names, got, want,
-            wrongs)
+            f"{n_min:.3g}, kernel {kernel_s:.2f} s"
+            f"{', second run bit for bit' if k == 0 else ''})", names, got,
+            want, wrongs)
         del got, want, wide, wrongs, leaves, h, traj
         torch.cuda.empty_cache()
     label, B, S, H, dh, _ = SLSTM_BWD_CASES[0]
     gen = torch.Generator(device=dev).manual_seed(17)
+    floor_in = slstm_inputs(gen, dev, 1, S, 1, 4)
+    floor_dy = torch.randn(1, S, 1, 4, generator=gen, device=dev)
+    floor_h, floor_traj = sc.slstm_cell_traj_cuda(*floor_in)
+    floor_ms = time_ms(sc.slstm_cell_bwd_cuda, floor_traj, floor_h,
+                       floor_in[1], floor_dy)
+    del floor_in, floor_dy, floor_h, floor_traj
+    gen = torch.Generator(device=dev).manual_seed(17)
     g_in, r, b = slstm_inputs(gen, dev, B, S, H, dh)
     dy = torch.randn(B, S, H, dh, generator=gen, device=dev)
     h, traj = sc.slstm_cell_traj_cuda(g_in, r, b)
-    bound, bound_by = slstm_bwd_bound_ms(B, S, H, dh)
+    ms = time_ms(sc.slstm_cell_bwd_cuda, traj, h, r, dy)
+    plan = sc.bwd_plans[(g_in.device, B, H, dh)]
+    clusters = -(-B // plan["rows_per_cluster"])
+    bound, bound_by = slstm_bwd_bound_ms(B, S, H, dh, clusters)
+    sms = clusters * H * plan["cluster_blocks"]
+    card_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out["slstm_timed"] = {
-        "ms": time_ms(sc.slstm_cell_dgg_cuda, traj, r, dy),
-        "param_grads_ms": time_ms(ref.slstm_param_grads, h,
-                                  sc.slstm_cell_dgg_cuda(traj, r, dy),
-                                  torch.float32),
+        "ms": ms,
+        "dgg_ms": time_ms(sc.slstm_cell_dgg_cuda, traj, r, dy),
         "forward_ms": time_ms(sc.slstm_cell_cuda, g_in, r, b),
         "traj_forward_ms": time_ms(sc.slstm_cell_traj_cuda, g_in, r, b),
         "plain_ms": time_ms(ref.plain_vjp, ref.slstm_cell_ref, (g_in, r, b),
                             dy, iters=2, warmup=1),
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-        "plan": sc.bwd_plans[(g_in.device, B, H, dh)],
-        "shape": [B, S, H, dh]}
+        "sms": sms, "card_sms": card_sms,
+        "bound_on_sms_ms": bound * card_sms / sms,
+        "step_floor_ms": floor_ms, "forward_step_floor_ms": forward_floor_ms,
+        "plan": plan, "shape": [B, S, H, dh]}
     t = out["slstm_timed"]
-    log(f"slstm_cell backward {label}: {t['ms']:.4g} ms = "
+    fwd_floor = ("not measured" if forward_floor_ms is None
+                 else f"{forward_floor_ms:.4g} ms")
+    log(f"slstm_cell backward {label}: dg_in, dR and db {t['ms']:.4g} ms = "
         f"{bound / t['ms']:.1%} of its bound ({bound:.4g} ms by "
-        f"{bound_by}), plan {t['plan']}; dR and db (torch) "
-        f"{t['param_grads_ms']:.4g} ms; forward {t['forward_ms']:.4g} ms, "
-        f"with its trajectory {t['traj_forward_ms']:.4g} ms "
+        f"{bound_by}), {t['bound_on_sms_ms'] / t['ms']:.1%} of it on the "
+        f"{sms} of {card_sms} SMs its plan {plan} uses; dg_in alone "
+        f"{t['dgg_ms']:.4g} ms; step-latency floor (B 1, H 1, dh 4, S {S}) "
+        f"{floor_ms:.4g} ms, the forward's {fwd_floor}; forward "
+        f"{t['forward_ms']:.4g} ms, with its trajectory "
+        f"{t['traj_forward_ms']:.4g} ms "
         f"({t['traj_forward_ms'] / t['forward_ms'] - 1:+.1%}); plain vjp "
         f"{t['plain_ms']:.4g} ms; library: none")
     del g_in, r, b, dy, h, traj
@@ -3463,8 +3525,9 @@ def main() -> int:
 
     # ---- 17. training the recurrent models on the card ---------------------
     t17 = time.perf_counter()
-    recurrent = check_recurrent_backward(ops, ref, variants, mamba2_ssd,
-                                         slstm_cell, dev)
+    recurrent = check_recurrent_backward(
+        ops, ref, variants, mamba2_ssd, slstm_cell, dev,
+        forward_floor_ms=measured["slstm_cell"]["step_floor_ms"])
     log(f"phase 17 (a) took {time.perf_counter() - t17:.1f} s")
     t0 = time.perf_counter()
     trained = {arch: train_path(
@@ -3529,8 +3592,9 @@ def main() -> int:
          for key in ("route", "pass_ms", "floors")},
         routes=recurrent["ssd_routes"])
     measured["slstm_cell_bwd"].update(
-        traj_forward_ms=recurrent["slstm_timed"]["traj_forward_ms"],
-        param_grads_ms=recurrent["slstm_timed"]["param_grads_ms"])
+        {key: recurrent["slstm_timed"][key] for key in (
+            "traj_forward_ms", "dgg_ms", "step_floor_ms", "bound_on_sms_ms",
+            "sms")})
     sources["mamba2_ssd_bwd"] = "src/repro/models/ssm.py:77"
     sources["slstm_cell_bwd"] = "src/repro/models/xlstm.py:275"
     rows = []

@@ -486,6 +486,16 @@ def slstm_cell_traj_cost(g_in: torch.Tensor, r_gates: torch.Tensor,
     return c
 
 
+def slstm_bwd_staging(dh: int) -> int:
+    """Floats the sLSTM backward's CUDA kernel stores in shared memory per
+    step, batch row and hidden unit: the recurrent sums of the unit's
+    group's two warps (2), its gate gradients dgg into each block of its
+    cluster (4 per block), and the step's inputs copied ahead into a
+    ring by the threads after the gating warps — i, f, z, o, the last
+    step's c, n, m, dy and the last step's h (9)."""
+    return 2 + 4 * slstm_cluster_blocks(dh) + 9
+
+
 def slstm_cell_bwd_cost(traj: torch.Tensor, h: torch.Tensor,
                         r_gates: torch.Tensor,
                         dy: torch.Tensor) -> FeatureCounts:
@@ -498,9 +508,12 @@ def slstm_cell_bwd_cost(traj: torch.Tensor, h: torch.Tensor,
     the floor's and the maximum's compares, ~18 mul and ~14 add.  Then
     dR = Σ h_{t−1} ⊗ dgg (B·S·H·dh·4dh madds) and db = Σ dgg (B·S·4·H·dh
     adds).  Reads traj, h, dy and r, writes dg_in, dr and db.  The
-    staging term follows the CUDA kernel: r[h] into registers once a
-    cluster, and each step every unit's recurrent sum into shared memory
-    and its four gate gradients into each block of its cluster."""
+    staging term follows the CUDA kernel (:func:`slstm_bwd_staging`):
+    r[h] into registers once a (batch row, head), and each step and unit
+    its two warps' recurrent sums, its four gate gradients into each
+    block of its cluster and the step's nine inputs copied ahead.  Above
+    dh 192 the kernel also sums dR in shared memory, once per cluster of
+    the card's launch plan; those stores are not counted."""
     b, s, _, hh, dh = traj.shape
     units = b * s * hh * dh
     c = FeatureCounts()
@@ -518,7 +531,7 @@ def slstm_cell_bwd_cost(traj: torch.Tensor, h: torch.Tensor,
     _traffic(c, "out", r_gates.dtype, r_gates.numel(), 1)
     _traffic(c, "out", r_gates.dtype, 4 * hh * dh, 1)
     c.add("f_vmem_contig_float32_store",
-          b * hh * 4 * dh * dh + units * (1 + 4 * slstm_cluster_blocks(dh)))
+          b * hh * 4 * dh * dh + units * slstm_bwd_staging(dh))
     c.add("f_sync_loop_steps", s * b)
     c.add("f_sync_grid_programs", b)
     return c

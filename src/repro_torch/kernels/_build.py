@@ -90,8 +90,9 @@ SIGNATURES: Dict[str, List] = {
     # step's gates and c, n, m, or 0), batch, S, H, dh, cluster blocks,
     # batch rows per cluster (the plan's)
     "repro_slstm_cell_f32": [_P] * 6 + [_I] * 6 + [_P],
-    # traj, r, dy, dgg, then as the forward from batch on
-    "repro_slstm_cell_bwd_f32": [_P] * 4 + [_I] * 6 + [_P],
+    # traj, h (or 0), r, dy, dgg, the clusters' dR and db partials (or
+    # both 0: dg_in alone), then as the forward from batch on
+    "repro_slstm_cell_bwd_f32": [_P] * 7 + [_I] * 6 + [_P],
     # host side, no stream: batch, H, dh, cluster blocks, out[3]
     "repro_slstm_cell_plan": [_I] * 4 + [ctypes.POINTER(_I)],
     "repro_slstm_cell_bwd_plan": [_I] * 4 + [ctypes.POINTER(_I)],

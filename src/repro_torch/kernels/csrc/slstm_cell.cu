@@ -268,10 +268,13 @@ slstm_cluster_kernel(const float* __restrict__ g_in,
 // cluster: 1 if all B·H clusters can be resident at once, else 2.
 extern "C" int repro_slstm_cell_plan(int batch, int heads, int dh, int cs,
                                      int* out) {
-  return cluster_plan(batch, heads, dh, cs, out, [](auto inst) {
-    using I = decltype(inst);
-    return slstm_cluster_kernel<I::dpt, I::cs, I::rows>;
-  });
+  return cluster_plan(
+      batch, heads, dh, cs, out,
+      [](auto inst) {
+        using I = decltype(inst);
+        return slstm_cluster_kernel<I::dpt, I::cs, I::rows>;
+      },
+      ForwardShape{});
 }
 
 // g_in[B, S, 4, H, dh], r_gates[H, dh, 4, dh], b_gates[4, H, dh] →
@@ -291,6 +294,6 @@ extern "C" int repro_slstm_cell_f32(const void* g_in, const void* r_gates,
         using I = decltype(inst);
         return slstm_cluster_kernel<I::dpt, I::cs, I::rows>;
       },
-      (const float*)g_in, (const float*)r_gates, (const float*)b_gates,
+      ForwardShape{}, (const float*)g_in, (const float*)r_gates, (const float*)b_gates,
       (float*)y, (float*)state, (float*)traj, batch, steps, heads, dh);
 }

@@ -77,13 +77,19 @@ __device__ __forceinline__ void st_async4(unsigned addr, float a, float b,
       : "memory");
 }
 
+// threads and dynamic shared memory of a kernel instance's block
+struct BlockShape {
+  int threads;
+  size_t smem;
+};
+
 template <int DPT, int CS, int ROWS>
-cudaLaunchConfig_t config(int batch, int heads, int threads,
+cudaLaunchConfig_t config(int batch, int heads, BlockShape shape,
                           cudaLaunchAttribute* attr, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CS, heads, (batch + ROWS - 1) / ROWS);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.blockDim = dim3(shape.threads);
+  cfg.dynamicSmemBytes = shape.smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = CS;
@@ -121,31 +127,48 @@ cudaError_t with_instance(int dh, int cs, int rows, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// threads of a block of the instance for dh
-template <typename I>
-int threads_for(int dh) {
-  const int units = (dh + I::cs - 1) / I::cs;
-  return (kSlices * ((units + 1) / 2) + 31) / 32 * 32;
+// the forward's block of the instance for dh: 16 threads a pair of the
+// block's hidden units, in whole warps
+struct ForwardShape {
+  template <typename I>
+  BlockShape operator()(I, int dh) const {
+    const int units = (dh + I::cs - 1) / I::cs;
+    return {(kSlices * ((units + 1) / 2) + 31) / 32 * 32, 0};
+  }
+};
+
+// A kernel's dynamic shared memory above the default 48 KB needs the
+// function's attribute raised first.
+template <typename Fn>
+cudaError_t allow_smem(Fn fn, size_t smem) {
+  if (smem == 0) return cudaSuccess;
+  return cudaFuncSetAttribute((const void*)fn,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 // The launch plan of a cluster kernel (kernel_of(instance) gives its
-// function) for [B, ·, ·, H, dh] operands on clusters of `cs` blocks:
-// out = {batch rows per cluster, resident clusters at most
-// (cudaOccupancyMaxActiveClusters), threads per block}.  Batch rows per
-// cluster: 1 if all B·H clusters can be resident at once, else 2.
-template <typename KernelOf>
+// function, shape_of(instance, dh) its block) for [B, ·, ·, H, dh]
+// operands on clusters of `cs` blocks: out = {batch rows per cluster,
+// resident clusters at most (cudaOccupancyMaxActiveClusters), threads
+// per block}.  Batch rows per cluster: 1 if all B·H clusters can be
+// resident at once, else 2.
+template <typename KernelOf, typename ShapeOf>
 int cluster_plan(int batch, int heads, int dh, int cs, int* out,
-                 KernelOf kernel_of) {
+                 KernelOf kernel_of, ShapeOf shape_of) {
   if (batch < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   for (int rows = 1; rows <= 2; ++rows) {
     int threads = 0, clusters = 0;
     const cudaError_t err =
         with_instance(dh, cs, rows, [&](auto inst) {
           using I = decltype(inst);
-          threads = threads_for<I>(dh);
+          const BlockShape shape = shape_of(inst, dh);
+          threads = shape.threads;
+          const cudaError_t set = allow_smem(kernel_of(inst), shape.smem);
+          if (set != cudaSuccess) return set;
           cudaLaunchAttribute attr;
           cudaLaunchConfig_t cfg = config<I::dpt, I::cs, I::rows>(
-              batch, heads, threads, &attr, nullptr);
+              batch, heads, shape, &attr, nullptr);
           return cudaOccupancyMaxActiveClusters(
               &clusters, (void*)kernel_of(inst), &cfg);
         });
@@ -161,19 +184,23 @@ int cluster_plan(int batch, int heads, int dh, int cs, int* out,
   return (int)cudaErrorInvalidValue;   // not reached
 }
 
-// Launch kernel_of(instance) for (dh, cs, rows) on a cluster grid with
-// `args`; with B, S or H empty only the instance is checked.
-template <typename KernelOf, typename... Args>
+// Launch kernel_of(instance) for (dh, cs, rows) on a cluster grid of
+// shape_of(instance, dh) blocks with `args`; with B, S or H empty only
+// the instance is checked.
+template <typename KernelOf, typename ShapeOf, typename... Args>
 int cluster_launch(int batch, int steps, int heads, int dh, int cs,
                    int rows, cudaStream_t stream, KernelOf kernel_of,
-                   Args... args) {
+                   ShapeOf shape_of, Args... args) {
   if (batch == 0 || steps == 0 || heads == 0)
     return (int)with_instance(dh, cs, rows, [](auto) { return cudaSuccess; });
   const cudaError_t err = with_instance(dh, cs, rows, [&](auto inst) {
     using I = decltype(inst);
+    const BlockShape shape = shape_of(inst, dh);
+    const cudaError_t set = allow_smem(kernel_of(inst), shape.smem);
+    if (set != cudaSuccess) return set;
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = config<I::dpt, I::cs, I::rows>(
-        batch, heads, threads_for<I>(dh), &attr, stream);
+        batch, heads, shape, &attr, stream);
     return cudaLaunchKernelEx(&cfg, kernel_of(inst), args...);
   });
   if (err != cudaSuccess) return (int)err;

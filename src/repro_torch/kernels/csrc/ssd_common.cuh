@@ -44,10 +44,14 @@ __device__ __forceinline__ void cp_wait() {
 
 // rows [0, kTile) of an operand with `valid` rows of `width` floats
 // (row stride `stride` floats) into dst[kTile][ld] by cp.async, zero
-// past `width` up to kMaxDim and past `valid` rows
+// past `width` up to kMaxDim and past `valid` rows.  `vec`: the caller's
+// row width is a multiple of 4; the copies are 16 bytes only where the
+// stride is too and `src` is 16-byte aligned (a contiguous view may
+// start at any float), else 4 bytes.
 __device__ void stage(float* dst, const float* src, size_t stride, int width,
                       int valid, bool vec, int ld = kLd) {
-  if (vec) {   // width and stride multiples of 4: 16-byte copies
+  if (vec && (stride & 3) == 0 &&
+      (reinterpret_cast<size_t>(src) & 15) == 0) {
     for (int i = threadIdx.x; i < kTile * kMaxDim / 4; i += kThreads) {
       const int r = i / (kMaxDim / 4);
       const int c = (i - r * (kMaxDim / 4)) * 4;

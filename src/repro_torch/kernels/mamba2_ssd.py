@@ -210,6 +210,17 @@ def bwd_route(p: int, n: int, chunk: int, aligned: bool = True) -> str:
     return "chain" if chain else "passes"
 
 
+def operand_route(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+                  cm: torch.Tensor, dy: torch.Tensor, chunk: int) -> str:
+    """:func:`bwd_route` for a call's operands: a contiguous view may
+    start at any float, and one that does not start on a 16-byte boundary
+    sends the call to the five passes, which stage such operands with
+    4-byte copies."""
+    return bwd_route(xdt.shape[-1], bm.shape[-1], chunk,
+                     aligned=all(t.data_ptr() % 16 == 0
+                                 for t in (xdt, da, bm, cm, dy)))
+
+
 def mamba2_ssd_bwd_cuda(xdt: torch.Tensor, da: torch.Tensor,
                         bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor,
                         chunk: int) -> Tuple[torch.Tensor, ...]:
@@ -228,8 +239,7 @@ def mamba2_ssd_bwd_cuda(xdt: torch.Tensor, da: torch.Tensor,
     dev = xdt.device
     inner = inner_chunk(chunk)
     operands = (xdt, da, bm, cm, dy)
-    route = bwd_route(p, n, chunk,
-                      aligned=all(t.data_ptr() % 16 == 0 for t in operands))
+    route = operand_route(*operands, chunk)
     states = torch.empty((b, s // inner, h, p, n), dtype=torch.float32,
                          device=dev)
     out = tuple(torch.empty_like(t) for t in (xdt, da, bm, cm))

@@ -315,6 +315,19 @@ def slstm_param_grads(h: torch.Tensor, dgg: torch.Tensor, dtype):
     return dr.to(dtype), dgg.sum((0, 1)).to(dtype)
 
 
+def slstm_param_partials_ref(h: torch.Tensor, dgg: torch.Tensor,
+                             rows: int):
+    """What the backward kernel's clusters of ``rows`` batch rows write:
+    per cluster z, :func:`slstm_param_grads` over its rows [z·rows,
+    (z+1)·rows) — dR's partials [Z, H, dh, 4, dh] and db's [Z, 4, H, dh],
+    Z = ceil(B / rows), in dgg's dtype.  Their sums over Z are dR and
+    db."""
+    parts = [slstm_param_grads(h[z:z + rows], dgg[z:z + rows], dgg.dtype)
+             for z in range(0, h.shape[0], rows)]
+    return (torch.stack([dr for dr, _ in parts]),
+            torch.stack([db for _, db in parts]))
+
+
 def slstm_cell_bwd_ref(traj: torch.Tensor, h: torch.Tensor,
                        r_gates: torch.Tensor, dy: torch.Tensor, *,
                        recurrent: bool = True):

@@ -17,7 +17,9 @@ the gate pre-activations and c, n, m ([B, S, 7, H, dh] f32): on the
 card :class:`SLSTMCell` launches the forward kernel with its trajectory
 pointer set (``slstm_cell_traj_cuda``) and its backward launches
 ``csrc/slstm_cell_bwd.cu`` (``slstm_cell_bwd_cuda``: the reverse
-recurrence, one cluster per (batch row, head) as the forward).  On the
+recurrence, one cluster per (batch row, head) as the forward, summing
+dR and db on the way into per-cluster partials that one ``sum`` adds;
+``slstm_cell_dgg_cuda`` launches it for dg_in alone).  On the
 host ``repro_torch::slstm_cell_traj`` (CPU impl
 ``ref.slstm_cell_fwd_traj_ref``) is the op autograd differentiates, and
 its backward calls ``repro_torch::slstm_cell_bwd`` (CPU impl
@@ -36,7 +38,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (slstm_cell_bwd_ref,
                                     slstm_cell_fwd_traj_ref, slstm_cell_ref,
-                                    slstm_cell_state_ref, slstm_param_grads)
+                                    slstm_cell_state_ref)
 
 _log = logging.getLogger(__name__)
 
@@ -178,49 +180,77 @@ def _launch(g_in: torch.Tensor, r_gates: torch.Tensor,
     return out
 
 
-def slstm_cell_dgg_cuda(traj: torch.Tensor, r_gates: torch.Tensor,
-                        dy: torch.Tensor) -> torch.Tensor:
-    """Check the operands, launch ``csrc/slstm_cell_bwd.cu`` (the reverse
-    recurrence: the gate gradients dgg [B, S, 4, H, dh] = dg_in from the
-    forward's trajectory ``traj`` and the output gradient ``dy``), count
-    the launch."""
-    global backward_launches
+def _bwd_check(traj: torch.Tensor, r_gates: torch.Tensor, dy: torch.Tensor,
+               *more: torch.Tensor) -> None:
+    """Raise on backward operands the kernel does not take (``more``: the
+    forward's h, shaped as dy)."""
     b, s, rows, hh, dh = traj.shape
-    if any(t.dtype != torch.float32 for t in (traj, r_gates, dy)):
+    ops = (traj, r_gates, dy, *more)
+    if any(t.dtype != torch.float32 for t in ops):
         raise TypeError(f"slstm_cell backward takes float32, got "
-                        f"{[t.dtype for t in (traj, r_gates, dy)]}")
+                        f"{[t.dtype for t in ops]}")
     if rows != TRAJ_ROWS or r_gates.shape != (hh, dh, 4, dh) \
-            or dy.shape != (b, s, hh, dh):
+            or any(t.shape != (b, s, hh, dh) for t in (dy, *more)):
         raise ValueError(f"slstm_cell backward: shapes "
-                         f"{[tuple(t.shape) for t in (traj, r_gates, dy)]}")
+                         f"{[tuple(t.shape) for t in ops]}")
     if dh > MAX_DH:
         raise ValueError(f"slstm_cell kernel takes dh <= {MAX_DH}, got {dh}")
-    if not all(t.is_contiguous() for t in (traj, r_gates, dy)):
+    if not all(t.is_contiguous() for t in ops):
         raise ValueError("slstm_cell backward takes contiguous operands")
-    if r_gates.device != traj.device or dy.device != traj.device:
+    if any(t.device != traj.device for t in ops):
         raise ValueError("slstm_cell backward operands must share one device")
-    dgg = torch.empty((b, s, 4, hh, dh), dtype=torch.float32,
-                      device=traj.device)
-    if b and s and hh:
-        plan = _plan(bwd_plans, "repro_slstm_cell_bwd_plan", traj.device, b,
-                     hh, dh)
-        _build.launch_on(traj.device, "repro_slstm_cell_bwd_f32",
-                         traj.data_ptr(), r_gates.data_ptr(), dy.data_ptr(),
-                         dgg.data_ptr(), b, s, hh, dh,
-                         plan["cluster_blocks"], plan["rows_per_cluster"])
-        backward_launches += 1
-    return dgg
+
+
+def _bwd_launch(traj: torch.Tensor, h: Optional[torch.Tensor],
+                r_gates: torch.Tensor, dy: torch.Tensor):
+    """Launch ``csrc/slstm_cell_bwd.cu`` and count the launch: dgg, and
+    with ``h`` each cluster's partial sums of dR and db (else None)."""
+    global backward_launches
+    b, s, _, hh, dh = traj.shape
+    dev = traj.device
+    dgg = torch.empty((b, s, 4, hh, dh), dtype=torch.float32, device=dev)
+    if not (b and s and hh):
+        zero = torch.zeros((0, hh, dh, 4, dh), dtype=torch.float32,
+                           device=dev)
+        return dgg, zero, zero.new_zeros((0, 4, hh, dh))
+    plan = _plan(bwd_plans, "repro_slstm_cell_bwd_plan", dev, b, hh, dh)
+    parts = (None, None)
+    if h is not None:
+        clusters = -(-b // plan["rows_per_cluster"])
+        parts = (torch.empty((clusters, hh, dh, 4, dh), dtype=torch.float32,
+                             device=dev),
+                 torch.empty((clusters, 4, hh, dh), dtype=torch.float32,
+                             device=dev))
+    _build.launch_on(dev, "repro_slstm_cell_bwd_f32", traj.data_ptr(),
+                     0 if h is None else h.data_ptr(), r_gates.data_ptr(),
+                     dy.data_ptr(), dgg.data_ptr(),
+                     *(0 if t is None else t.data_ptr() for t in parts),
+                     b, s, hh, dh, plan["cluster_blocks"],
+                     plan["rows_per_cluster"])
+    backward_launches += 1
+    return (dgg, *parts)
+
+
+def slstm_cell_dgg_cuda(traj: torch.Tensor, r_gates: torch.Tensor,
+                        dy: torch.Tensor) -> torch.Tensor:
+    """Check the operands, launch ``csrc/slstm_cell_bwd.cu`` for dg_in
+    alone (the reverse recurrence: the gate gradients dgg [B, S, 4, H,
+    dh] from the forward's trajectory ``traj`` and the output gradient
+    ``dy``; no dR, no db), count the launch."""
+    _bwd_check(traj, r_gates, dy)
+    return _bwd_launch(traj, None, r_gates, dy)[0]
 
 
 def slstm_cell_bwd_cuda(traj: torch.Tensor, h: torch.Tensor,
                         r_gates: torch.Tensor, dy: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dg_in, dr, db): dg_in from the backward kernel
-    (:func:`slstm_cell_dgg_cuda`); dR and db, one product and one sum
-    over the trajectory (``ref.slstm_param_grads``), from it and the
-    forward's h."""
-    dgg = slstm_cell_dgg_cuda(traj, r_gates, dy)
-    return (dgg, *slstm_param_grads(h, dgg, r_gates.dtype))
+    """(dg_in, dr, db) from one launch of ``csrc/slstm_cell_bwd.cu`` (the
+    reverse recurrence, summing dR and db as it walks; the forward's h
+    gives dR's h_{t−1}): dR and db are its clusters' partial sums
+    (``ref.slstm_param_partials_ref``) added over the clusters."""
+    _bwd_check(traj, r_gates, dy, h)
+    dgg, dr_part, db_part = _bwd_launch(traj, h, r_gates, dy)
+    return dgg, dr_part.sum(0), db_part.sum(0)
 
 
 @slstm_cell.register_fake

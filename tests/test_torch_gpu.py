@@ -979,6 +979,34 @@ def test_mamba2_ssd_backward_is_bit_for_bit_repeatable(cuda, B, S, H, P, N,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 256, 2, 64, 64, 256),    # the chained scans' shape, routed away
+    (2, 128, 3, 32, 16, 64),     # the same at the kernel's own chunk
+    (1, 96, 2, 20, 12, 48),      # the five passes' own shape
+])
+def test_mamba2_ssd_on_unaligned_operands(cuda, B, S, H, P, N, chunk):
+    """Every operand a contiguous view one float past a 16-byte boundary
+    (P and N multiples of 4, where the kernels would stage 16 bytes at a
+    time): the forward the same bits as on aligned copies (the staging
+    copies the same floats) and within 1e-4 × max |y| of the float64
+    plain version, and the backward on the five passes, each gradient
+    within 1e-4 × its max |g| of the float64 vjp."""
+    aligned = _ssd_operands(cuda, B, S, H, P, N, 0.0)
+    x, da, bm, cm, dy = (_unaligned(t.cpu().numpy(), cuda) for t in aligned)
+    y = tops.mamba2_ssd(x, da, bm, cm, chunk=chunk)
+    assert torch.equal(y, tops.mamba2_ssd(*aligned[:4], chunk=chunk))
+    _hold_gradients((y,), (tref.ssd_ref(*(t.double() for t in
+                                          (x, da, bm, cm))),), "float32")
+    before = dict(tssd.bwd_route_launches)
+    got = tssd.mamba2_ssd_bwd_cuda(x, da, bm, cm, dy, chunk)
+    assert {r: n - before[r] for r, n in tssd.bwd_route_launches.items()} \
+        == {"chain": 0, "passes": 1}
+    want = tref.plain_vjp(tref.ssd_ref, [t.double() for t in
+                                         (x, da, bm, cm)], dy.double())
+    _hold_gradients(got, want, "float32")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,dh,floor", [
     *(shape + (False,) for shape in SLSTM_SHAPES),
     (2, 16, 2, 256, False),    # 8-block clusters
@@ -1009,6 +1037,32 @@ def test_slstm_cell_backward_kernel_on_card(cuda, B, S, H, dh, floor):
                                                 dy.double())
     with pytest.raises(AssertionError):
         _hold_gradients(got, bad, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dh", [
+    (1, 16, 2, 192), (2, 16, 2, 256), (3, 12, 2, 4), (9, 12, 2, 192),
+    (2, 24, 4, 50)])
+def test_slstm_cell_backward_partials_and_repeat_on_card(cuda, B, S, H, dh):
+    """One launch's per-cluster partial sums of dR and db within 1e-4 ×
+    each max |g| of the plain partials for the plan's rows a cluster; a
+    second launch bit for bit (no atomics); and the dg_in-only launch's
+    dgg the same bits as the full launch's."""
+    g_in = torch.from_numpy(rn(75, B, S, 4, H, dh) * 0.5).to(cuda)
+    r = torch.from_numpy(rn(76, H, dh, 4, dh) * 0.1).to(cuda)
+    b = torch.from_numpy(rn(77, 4, H, dh) * 0.1).to(cuda)
+    dy = torch.from_numpy(rn(78, B, S, H, dh)).to(cuda)
+    h, traj = tsc.slstm_cell_traj_cuda(g_in, r, b)
+    dgg, dr_part, db_part = tsc._bwd_launch(traj, h, r, dy)
+    rows = tsc.bwd_plans[(g_in.device, B, H, dh)]["rows_per_cluster"]
+    _, hw, rw, dyw = (t.double() for t in (g_in, h, r, dy))
+    want_dgg = tref.slstm_cell_bwd_ref(traj.double(), hw, rw, dyw)[0]
+    want = tref.slstm_param_partials_ref(hw, want_dgg, rows)
+    _hold_gradients((dgg, dr_part, db_part), (want_dgg, *want), "float32")
+    again = tsc._bwd_launch(traj, h, r, dy)
+    assert all(torch.equal(x, y) for x, y in
+               zip((dgg, dr_part, db_part), again))
+    assert torch.equal(tsc.slstm_cell_dgg_cuda(traj, r, dy), dgg)
 
 
 @pytest.mark.gpu

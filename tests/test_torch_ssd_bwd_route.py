@@ -3,6 +3,7 @@ chained scans (``mamba2_ssd.bwd_route``) and what the cost rule's staging
 term counts for each (``kernelcost.mamba2_ssd_bwd_cost``); the kernels
 themselves run only on the card (``tests/test_torch_gpu.py``)."""
 import pytest
+import torch
 
 from repro_torch.analysis import kernelcost
 from repro_torch.analysis.targets import f32
@@ -76,3 +77,30 @@ def test_bwd_staging_term_follows_the_route(B, S, H, P, N, chunk):
     counted = count_fn(mamba2_ssd.mamba2_ssd_bwd, *args, dy, chunk)
     assert dict(counted) == {**{k: v for k, v in got.items() if v},
                              "f_sync_launch_kernel": 1}
+
+
+def _at_offset(shape, floats):
+    """A contiguous float32 tensor of ``shape`` starting ``floats`` past a
+    16-byte boundary (a view of a larger buffer)."""
+    n = 1
+    for d in shape:
+        n *= d
+    t = torch.zeros(n + 4)[floats:floats + n].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4 * floats
+    return t
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_an_unaligned_operand_takes_the_five_passes(which):
+    """A call whose operands fit the chained scans takes them only where
+    every operand starts on a 16-byte boundary: one view at an odd float
+    offset sends it to the five passes (which stage it 4 bytes at a
+    time)."""
+    B, S, H, P, N, chunk = 1, 256, 2, 64, 64, 256
+    shapes = ((B, S, H, P), (B, S, H), (B, S, H, N), (B, S, H, N),
+              (B, S, H, P))
+    aligned = [_at_offset(s, 0) for s in shapes]
+    assert mamba2_ssd.operand_route(*aligned, chunk) == "chain"
+    ops = list(aligned)
+    ops[which] = _at_offset(shapes[which], 1)
+    assert mamba2_ssd.operand_route(*ops, chunk) == "passes"

@@ -271,3 +271,78 @@ def test_backward_variants_fail_the_gradient_check(variant):
         want = ref.slstm_cell_bwd_ref(traj, h, r, dy)
         got = fn(traj, h, r, dy)
     assert _outside(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("Bz", [1, 2, 3])
+def test_slstm_param_partials_add_up_to_the_parameter_gradients(Bz, rows):
+    """The per-cluster partial sums the backward kernel writes (clusters
+    of ``rows`` batch rows, the last one short where ``rows`` does not
+    divide B) add up over the clusters to ``slstm_param_grads``, and so
+    to the reference's dR and db."""
+    g_in, r, bias, dy = _slstm_inputs(40 + Bz, Bz, 12, 2, 8, False)
+    _, vjp = jax.vjp(_jscan, g_in, r, bias)
+    _, want_dr, want_db = vjp(dy)
+    h, traj = ref.slstm_cell_fwd_traj_ref(
+        *(torch.from_numpy(a).double() for a in (g_in, r, bias)))
+    dgg = ref.slstm_cell_bwd_ref(traj, h, torch.from_numpy(r).double(),
+                                 torch.from_numpy(dy).double())[0]
+    dr_part, db_part = ref.slstm_param_partials_ref(h, dgg, rows)
+    clusters = -(-Bz // rows)
+    assert dr_part.shape == (clusters, 2, 8, 4, 8)
+    assert db_part.shape == (clusters, 4, 2, 8)
+    dr, db = ref.slstm_param_grads(h, dgg, torch.float64)
+    for part, full in ((dr_part, dr), (db_part, db)):
+        assert float((part.sum(0) - full).abs().max()) <= \
+            1e-12 * float(full.abs().max())
+    _hold((dr_part.sum(0).float(), db_part.sum(0).float()),
+          (want_dr, want_db))
+
+
+@pytest.mark.parametrize("dh", [4, 16, 64, 192, 256])
+def test_slstm_bwd_staging_term_follows_the_kernel(dh):
+    """The backward rule's staging term, written out from the kernel's
+    shared-memory traffic: r once a (batch row, head), then per step, row
+    and unit two warps' recurrent sums, 4 gate gradients into each of the
+    cluster's 6 (8 above dh 192) blocks, and 9 inputs copied ahead."""
+    B, S, H = 2, 8, 3
+    got = kernelcost.slstm_cell_bwd_cost(
+        f32(B, S, slstm_cell.TRAJ_ROWS, H, dh), f32(B, S, H, dh),
+        f32(H, dh, 4, dh), f32(B, S, H, dh))
+    blocks = 8 if dh > 192 else 6
+    assert slstm_cell.cluster_blocks(dh) == blocks
+    assert got["f_vmem_contig_float32_store"] == \
+        B * H * 4 * dh * dh + B * S * H * dh * (2 + 4 * blocks + 9)
+
+
+def test_slstm_backward_entry_takes_h_and_the_partials():
+    """The backward's C entry point takes the forward's h and the two
+    partial-sum outputs beside traj, r, dy and dgg, and its ctypes
+    signature has as many arguments."""
+    text = (_build.CSRC / "slstm_cell_bwd.cu").read_text()
+    head = text[text.index('extern "C" int repro_slstm_cell_bwd_f32('):]
+    params = head[head.index("(") + 1:head.index(")")].split(",")
+    names = [p.split()[-1].lstrip("*") for p in params]
+    assert names == ["traj", "h", "r_gates", "dy", "dgg", "dr_part",
+                     "db_part", "batch", "steps", "heads", "dh", "cs",
+                     "rows", "stream"]
+    assert len(_build.SIGNATURES["repro_slstm_cell_bwd_f32"]) == len(names)
+
+
+def test_slstm_bwd_bound_counts_the_dot_and_dr():
+    """``chip_smoke.slstm_bwd_bound_ms`` at xlstm-125m's layer (B 8, S
+    4096, H 4, dh 192, 4 clusters a head): the transposed recurrence and
+    dR, 2 × 2·B·S·H·dh·4dh = 77.3 GFLOP at 67 TFLOP/s, bound it above the
+    bytes (traj, h, dy in, dgg out, r once, the clusters' partials)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    B, S, H, dh, clusters = 8, 4096, 4, 192, 4
+    ms, by = chip_smoke.slstm_bwd_bound_ms(B, S, H, dh, clusters)
+    ops = 2 * 2 * B * S * H * dh * 4 * dh
+    assert (ms, by) == (ops / 67e12 * 1e3, "operations")
+    assert abs(ops / 1e9 - 77.3) < 0.05 and abs(ms - 1.154) < 5e-4
+    nbytes = 4 * (B * S * H * dh * 13 + H * dh * 4 * dh
+                  + clusters * H * (dh * 4 * dh + 4 * dh))
+    assert nbytes / 3.35e12 * 1e3 < ms
