@@ -208,6 +208,21 @@ Phases, each fatal on failure:
    block kind, card against host (:func:`recurrent_whole_check`).  One
    ``{"train_recurrent": ...}`` line; the ``kernels`` line gains the two
    backward kernels' rows.
+18. (after phase 17, before that ``kernels`` line) the mesh: (a)
+   phase 16 (b)'s gemma2-9b run for ``MESH_STEPS`` steps without a mesh
+   and under ``make_host_mesh()``'s 1 × 1 mesh on a one-rank NCCL group
+   (parameters and moments DTensors), the counters set to 0 before each
+   and read after: exactly ``TRAIN_STEP_LAUNCHES`` a step in both, every
+   loss within ``MESH_LOSS_REL``, the step times side by side
+   (:func:`mesh_train_path`); (b) at the smoke width, a failure restored
+   under the mesh's placements and replayed, and a mesh-less state
+   ``reshard``ed onto the mesh bit for bit, training on
+   (:func:`mesh_checkpoint_path`); (c) deepseek-v2-236b's MoE layer at
+   full width through ``moe_impl="a2a"``'s all-to-all dispatch on the
+   mesh against the scatter, within ``MOE_REL`` × max |y|, nothing
+   dropped (:func:`moe_a2a_path`); (d) the ``DRYRUN_CELLS`` dry-runs,
+   each in its own process started before (b) and collected after (c),
+   each ``status: ok``.  One ``{"mesh": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -242,6 +257,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -407,6 +423,36 @@ FT_REL = 1e-6
 TRAIN_WHOLE_LOSS_REL = 1e-5
 TRAIN_WHOLE_GRAD_REL = 2e-3
 TRAIN_WHOLE_PARAM_REL = 1e-5
+
+# phase 18: the mesh.  (a) phase 16 (b)'s gemma2-9b run (TRAIN_*) for
+# MESH_STEPS steps without a mesh, then under make_host_mesh()'s 1 × 1
+# mesh (a one-rank NCCL group; parameters and moments DTensors): losses
+# within MESH_LOSS_REL, TRAIN_STEP_LAUNCHES a step in each
+MESH_STEPS = 3
+MESH_LOSS_REL = 1e-5
+# (c) deepseek-v2-236b's MoE layer at full width (d_model 5120, 160
+# routed experts of d_ff 1536 + 2 shared, top-6), f32, on 2 × 2048 tokens
+# at the drop-free capacity factor 8: the experts are 15.1 GB; the
+# all-to-all path on one rank holds its send and receive buffers (196608
+# rows of 5120, 4.0 GB each), the local expert buffers (160 × 2464 rows:
+# 8.1 GB in, 8.1 GB out, 2.4 GB each hidden product) and the way back
+# (4.0 GB × 3), ~47 GB at most beside the weights, under 80 GB
+MOE_ARCH = "deepseek-v2-236b"
+MOE_TOKENS = (2, 2048)
+MOE_CAPACITY = 8.0
+MOE_REL = 1e-4
+# (d) the dry-run cells, each in its own process (the fake group is per
+# process), started before (b) and collected after (c)
+DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"),
+                ("xlstm-125m", "train_4k", "pod2"))
+DRYRUN_TIMEOUT_S = 600
+#: the kernels' custom ops each cell's FLOP count must hold (counted at
+#: the global shapes, ``launch/dryrun.py``)
+DRYRUN_KERNEL_OPS = {
+    "gemma2-9b": ("repro_torch.flash_attention",
+                  "repro_torch.flash_attention_bwd"),
+    "xlstm-125m": ("repro_torch.slstm_cell_traj",
+                   "repro_torch.slstm_cell_bwd")}
 
 # phase 17 (a): the SSD and sLSTM backward kernels (through ops under
 # autograd) against the plain versions' autograd in float64, each
@@ -2375,24 +2421,81 @@ def traced(call, kernels, launched, reps: int = 10) -> tuple:
 def pass_ms(call, kernels, what: str, launched, reps: int = 10) -> dict:
     """Each pass ``call()`` launches: its kernel's device milliseconds a
     launch (``kernels``: (pass, name fragment) pairs), from a
-    :func:`traced` run of ``reps`` calls.  The launches are counted by
-    the wrapper, not by the trace: ``launched()`` rises by one for each
-    call, which launches every pass once.  Late in a long process a
-    trace has held only some of them (phase 17 (a)'s SSD trace 6 and 7
-    of 10, with :func:`traced`'s warm-up cycle too, which made the traces
-    after a ``torch.compile``'d ``flex_attention`` backward in a fresh
-    process hold all: ``tools/trace_loss_probe.py``).  Fails unless
-    ``launched()`` rose by exactly ``reps`` and the trace holds each pass
-    at least once and at most ``reps`` times; logs how many it held."""
+    :func:`traced` run of ``reps`` calls.  ``launched()`` (the wrapper's
+    count) rises by one for each call, which launches every pass once, so
+    the trace must hold each pass exactly ``reps`` times: fails unless
+    ``launched()`` rose by exactly ``reps`` and it does.  Late in a long
+    process a trace has held only some of them (the SSD backward's 6 and
+    7 of 10 after a ``torch.compile``'d ``flex_attention`` backward and
+    many other traces: ``tools/trace_loss_probe.py``), so the smoke takes
+    its traces in a fresh process (:func:`pass_ms_in_child`)."""
     rose, found = traced(call, kernels, launched, reps)
     held = {name: len(f) for name, f in found.items()}
-    if rose != reps or any(not 1 <= n <= reps for n in held.values()):
+    if rose != reps or any(n != reps for n in held.values()):
         raise SystemExit(f"{what}: {reps} traced calls counted {rose} "
                          f"launches and the trace holds {held} pass "
                          f"kernels")
     log(f"{what}: {reps} calls launched, the trace holds {held} of their "
         f"pass kernels")
     return {name: sum(f) / len(f) / 1e3 for name, f in found.items()}
+
+
+def pass_ms_in_child(kind: str) -> dict:
+    """:func:`pass_ms` of phase 16 (a)'s attention backward (``kind``
+    "attention") or phase 17 (a)'s SSD backward ("ssd") at the model's
+    layer, in a fresh process of this script (``--pass-trace kind``, the
+    same inputs from the same seeds): its profiler has run no trace and
+    no ``torch.compile`` before.  Logs the child's lines; fails with its
+    errors."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--pass-trace", kind], capture_output=True,
+                          text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[pass trace child] {line}")
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"{kind} pass trace: the child exited "
+                         f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])["pass_ms"]
+
+
+def pass_trace_main(kind: str) -> int:
+    """The child of :func:`pass_ms_in_child`: builds ``kind``'s backward
+    call as phase 16 (a) or 17 (a) does and prints ``{"pass_ms": ...}``
+    last."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --pass-trace: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    dev = torch.device("cuda")
+    if kind == "attention":
+        label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs = \
+            ATTN_BWD_CASES[0]
+        gen = torch.Generator(device=dev).manual_seed(16)
+        q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, Sq, Hq, Hkv, D,
+                              qs)
+        dout = torch.randn(B, Sq, Hq, Dv, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        scale = 1.0 / math.sqrt(D)
+        _, lse = fa.flash_attention_lse_cuda(q, k, v, causal, window, cap,
+                                             scale)
+        out = attention_bwd_pass_ms(lambda: fa.flash_attention_bwd_cuda(
+            dout, q, k, v, lse, causal, window, cap, scale), fa)
+    elif kind == "ssd":
+        label, B, S, H, P, N, chunk, _ = SSD_BWD_CASES[0]
+        gen = torch.Generator(device=dev).manual_seed(17)
+        x, da, bm, cm = ssd_inputs(gen, dev, B, S, H, P, N)
+        dy = torch.randn(B, S, H, P, generator=gen, device=dev)
+        out = ssd_bwd_pass_ms(lambda: ssd.mamba2_ssd_bwd_cuda(
+            x, da, bm, cm, dy, chunk), ssd)
+    else:
+        print(f"chip_smoke --pass-trace: unknown {kind!r}", file=sys.stderr)
+        return 2
+    print(json.dumps({"pass_ms": out}), flush=True)
+    return 0
 
 
 def attention_bwd_pass_ms(backward, fa, reps: int = 10) -> dict:
@@ -2501,7 +2604,7 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
         return fa.flash_attention_bwd_cuda(dout, q, k, v, lse, causal,
                                            window, cap, scale)
 
-    passes = attention_bwd_pass_ms(backward, fa)
+    passes = pass_ms_in_child("attention")
 
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
@@ -2891,6 +2994,246 @@ def slstm_bwd_bound_ms(B, S, H, dh, clusters) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def mesh_train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
+                    configs, make_host_mesh, tree_leaves, counts,
+                    zero_counts, smi, dev, tmp) -> dict:
+    """Phase 18 (a): phase 16 (b)'s gemma2-9b run for ``MESH_STEPS``
+    steps through ``Trainer.train`` without a mesh, then under
+    ``make_host_mesh()`` (1 × 1, NCCL), from the same seed; the counters
+    set to 0 before each run and read after it.  Fails unless the mesh's
+    parameters and moments are DTensors, each run launched exactly
+    ``TRAIN_STEP_LAUNCHES`` a step (DTensor dispatch did not route around
+    the kernels), and every loss is within ``MESH_LOSS_REL`` of the
+    mesh-less run's.  Logs the step times side by side (the DTensor
+    overhead) with the card's name and power limit."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    cfg = configs.get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
+    run = make_run_config(TRAIN_ARCH, "train_4k", model_config=cfg)
+    run = run.replace(
+        shape=InputShape("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        checkpoint_every=0, checkpoint_dir=str(tmp / "mesh_train_ckpt"),
+        optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
+                                  total_steps=100))
+    mesh = make_host_mesh()
+    want = {k: v * MESH_STEPS for k, v in TRAIN_STEP_LAUNCHES.items()}
+    out = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        trainer = Trainer(run, mesh=m, device=dev)
+        state = trainer.init_state(run.seed)
+        dtensors = all(isinstance(t, DTensor) for t in
+                       tree_leaves(state.params) + tree_leaves(
+                           state.opt_state.mu) + tree_leaves(
+                           state.opt_state.nu))
+        torch.cuda.synchronize()
+        zero_counts()
+        state = trainer.train(state, MESH_STEPS, log_every=0)
+        torch.cuda.synchronize()
+        launched = {k: counts()[k] for k in TRAIN_STEP_LAUNCHES}
+        rows = [r for r in trainer.metrics_log if "loss" in r]
+        out[name] = {"losses": [r["loss"] for r in rows],
+                     "wall_s": [r["wall_s"] for r in rows],
+                     "launches": launched, "dtensors": dtensors}
+        del trainer, state
+        torch.cuda.empty_cache()
+        if launched != want or len(rows) != MESH_STEPS:
+            raise SystemExit(f"mesh ({name}): {len(rows)} steps launched "
+                             f"{launched}, not {want}")
+    if not out["mesh"]["dtensors"] or out["plain"]["dtensors"]:
+        raise SystemExit("mesh: the meshed state is not all DTensors")
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["mesh"]["losses"],
+                                               out["plain"]["losses"])]
+    exact = out["mesh"]["losses"] == out["plain"]["losses"]
+    for i, (p, q) in enumerate(zip(out["plain"]["wall_s"],
+                                   out["mesh"]["wall_s"])):
+        log(f"mesh gemma2-9b step {i + 1}: {q:.4g} s under the 1 × 1 mesh "
+            f"beside {p:.4g} s without one ({q / p:.3f}×), loss "
+            f"{out['mesh']['losses'][i]:.6g} vs "
+            f"{out['plain']['losses'][i]:.6g} ({smi})")
+    log(f"mesh gemma2-9b: losses {'bit for bit' if exact else 'not bit '}"
+        f"{'' if exact else 'for bit: rel ' + str(rel)}; launches "
+        f"{out['mesh']['launches']} (want {want}) under the mesh, "
+        f"{out['plain']['launches']} without")
+    if not max(rel) <= MESH_LOSS_REL:
+        raise SystemExit(f"mesh: losses {out['mesh']['losses']} against "
+                         f"{out['plain']['losses']}")
+    out.update(mesh_shape=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               relative_differences=rel, bit_exact=exact,
+               step_ratio=sorted(q / p for p, q in zip(
+                   out["plain"]["wall_s"], out["mesh"]["wall_s"]))[
+                   MESH_STEPS // 2])
+    return out
+
+
+def mesh_checkpoint_path(Trainer, InputShape, OptimizerConfig, RunConfig,
+                         configs, make_host_mesh, tree_leaves, dev,
+                         tmp) -> dict:
+    """Phase 18 (b), at gemma2-9b's smoke width (``FT_*``): under the 1 ×
+    1 mesh, a run with a failure injected after step ``FT_FAIL_AT + 1``
+    restores the step-``FT_FAIL_AT`` checkpoint under the mesh's
+    placements and replays (its losses against an uninterrupted meshed
+    run, bit for bit or within ``FT_REL``; the restored state DTensors);
+    then a mesh-less run's state ``reshard``ed onto the mesh — every
+    parameter and moment bit-equal — trains on."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    cfg = configs.get_smoke_config(TRAIN_ARCH)
+    mesh = make_host_mesh()
+
+    def run_for(name):
+        return RunConfig(
+            model=cfg, shape=InputShape("ft", FT_SEQ, FT_BATCH, "train"),
+            optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
+                                      total_steps=100),
+            microbatches=2, checkpoint_every=2,
+            checkpoint_dir=str(tmp / name), max_step_retries=2)
+
+    failing = {}
+
+    def hook(step):
+        if step == FT_FAIL_AT and not failing:
+            failing["at"] = step
+            trainer.ckpt.wait()
+            return True
+        return False
+
+    trainer = Trainer(run_for("mesh_ft_fail"), mesh=mesh, failure_hook=hook)
+    state = trainer.train(trainer.init_state(0), FT_STEPS, log_every=0)
+    trainer.ckpt.wait()
+    restored = all(isinstance(t, DTensor) for t in tree_leaves(state.params))
+    clean = Trainer(run_for("mesh_ft_clean"), mesh=mesh)
+    clean.train(clean.init_state(0), FT_STEPS, log_every=0)
+    got = {r["step"]: r["loss"] for r in trainer.metrics_log if "loss" in r}
+    want = {r["step"]: r["loss"] for r in clean.metrics_log if "loss" in r}
+    events = [r for r in trainer.metrics_log if r.get("event") == "restored"]
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want if k in got}
+    exact = all(r == 0 for r in rel.values())
+    log(f"mesh fault tolerance ({TRAIN_ARCH} smoke): events {events}; "
+        f"replayed losses {'bit for bit' if exact else rel}; restored "
+        f"state DTensors: {restored}")
+    if len(events) != 1 or events[0]["step"] != FT_FAIL_AT or not restored \
+            or set(got) != set(want) or not max(rel.values()) <= FT_REL:
+        raise SystemExit("mesh fault tolerance: the restore under the mesh "
+                         "failed")
+    plain = Trainer(run_for("reshard"), device=dev)
+    state = plain.train(plain.init_state(0), 2, log_every=0)
+    before = [t.detach().clone() for t in tree_leaves(state.params)
+              + tree_leaves(state.opt_state.mu)
+              + tree_leaves(state.opt_state.nu)]
+    state = plain.reshard(state, mesh)
+    after = tree_leaves(state.params) + tree_leaves(state.opt_state.mu) + \
+        tree_leaves(state.opt_state.nu)
+    equal = all(isinstance(b, DTensor) and torch.equal(a, b.full_tensor())
+                for a, b in zip(before, after))
+    state = plain.train(state, 4, log_every=0)
+    losses = [r["loss"] for r in plain.metrics_log if "loss" in r]
+    log(f"mesh reshard: {len(before)} leaves bit-equal across the reshard: "
+        f"{equal}; losses {losses} (steps 3–4 under the mesh)")
+    if not equal or state.step != 4 or not all(
+            math.isfinite(x) for x in losses):
+        raise SystemExit("mesh reshard: the state changed or training "
+                         "stopped")
+    return {"events": events, "replayed_bit_exact": exact,
+            "relative_differences": rel, "reshard_bit_equal": equal,
+            "reshard_losses": losses}
+
+
+def moe_a2a_path(configs, init_tree, moe, moe_a2a, axes_tree, place,
+                 make_host_mesh, use_mesh, smi, dev) -> dict:
+    """Phase 18 (c): deepseek-v2-236b's MoE layer at full width
+    (``MOE_*``), f32, ``moe_impl="a2a"``'s dispatch on the 1 × 1 mesh
+    against the scatter on the same weights and tokens: within
+    ``MOE_REL`` × max |y|, nothing dropped by either.  Each timed once
+    between synchronizations (host clock)."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = configs.get_config(MOE_ARCH)
+    cfg = cfg.replace(moe=cfg.moe.replace(capacity_factor=MOE_CAPACITY))
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(18)
+    with torch.no_grad():
+        p = init_tree(gen, moe.moe_schema(cfg), torch.float32, dev)
+        x = torch.randn(*MOE_TOKENS, cfg.d_model, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_sc, aux_sc = moe.apply_moe(p, cfg, x)
+        torch.cuda.synchronize()
+        scatter_s = time.perf_counter() - t0
+        mesh = make_host_mesh()
+        pd = place(p, axes_tree(moe.moe_schema(cfg)), mesh)
+        del p
+        xd = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with use_mesh(mesh), implicit_replication():
+            y, aux = moe_a2a.apply_moe_a2a(pd, cfg, xd)
+        y = y.full_tensor()
+        torch.cuda.synchronize()
+        a2a_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        dropped = float(aux["moe_frac_dropped"].full_tensor())
+        rel = float((y - y_sc).abs().max() / y_sc.abs().max())
+    log(f"moe a2a {MOE_ARCH} (d_model {cfg.d_model}, {m.num_experts} routed "
+        f"+ {m.num_shared_experts} shared experts of d_ff {m.d_ff_expert}, "
+        f"top-{m.top_k}, {MOE_TOKENS[0]} × {MOE_TOKENS[1]} tokens, "
+        f"capacity {MOE_CAPACITY}): max|a2a − scatter| = {rel:.3g} × max|y|,"
+        f" dropped {dropped} (scatter "
+        f"{float(aux_sc['moe_frac_dropped'])}); a2a {a2a_s * 1e3:.1f} ms, "
+        f"scatter {scatter_s * 1e3:.1f} ms, peak {peak / 2**30:.2f} GiB "
+        f"({smi})")
+    del pd, xd, x, y, y_sc
+    torch.cuda.empty_cache()
+    if not rel <= MOE_REL or dropped != 0.0 \
+            or float(aux_sc["moe_frac_dropped"]) != 0.0:
+        raise SystemExit("moe a2a: the all-to-all dispatch disagrees with "
+                         "the scatter or dropped tokens")
+    return {"rel_err": rel, "frac_dropped": dropped, "a2a_ms": a2a_s * 1e3,
+            "scatter_ms": scatter_s * 1e3, "peak_memory_bytes": peak,
+            "tokens": list(MOE_TOKENS)}
+
+
+def start_dryruns(tmp) -> list:
+    """Phase 18 (d): each ``DRYRUN_CELLS`` cell's dry-run in its own
+    process, started now; :func:`collect_dryruns` waits for them."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--out",
+         str(tmp / "dryrun")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT))
+        for cell in DRYRUN_CELLS]
+
+
+def collect_dryruns(started, tmp) -> dict:
+    """Each started dry-run's record; fails unless every one ends
+    ``status: ok`` (a process still running at ``DRYRUN_TIMEOUT_S`` is
+    killed)."""
+    out = {}
+    for (arch, shape, mesh), proc in started:
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SystemExit(f"dry-run {arch} {shape} {mesh}: timed out")
+        path = tmp / "dryrun" / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        log(f"dry-run {arch} × {shape} × {mesh}: {rec.get('status')} in "
+            f"{rec.get('total_s')} s (trace {rec.get('trace_s')} s), mesh "
+            f"{rec.get('mesh_shape')}, memory {rec.get('memory')}, cost "
+            f"{rec.get('cost')}")
+        if proc.returncode != 0 or rec.get("status") != "ok":
+            raise SystemExit(f"dry-run {arch} {shape} {mesh}: "
+                             f"{rec.get('traceback', err)[-4000:]}")
+        by_op = rec["cost"]["flops_by_op"]
+        if not all(by_op.get(op, 0) > 0 for op in DRYRUN_KERNEL_OPS[arch]):
+            raise SystemExit(f"dry-run {arch} {shape} {mesh}: the FLOP "
+                             f"count lacks {DRYRUN_KERNEL_OPS[arch]}")
+        out[f"{arch}__{shape}__{mesh}"] = rec
+    return out
+
+
 def check_recurrent_backward(ops, ref, variants, ssd, sc, dev,
                              forward_floor_ms=None) -> dict:
     """Phase 17 (a): the SSD and sLSTM backward kernels, through
@@ -2967,8 +3310,7 @@ def check_recurrent_backward(ops, ref, variants, ssd, sc, dev,
     bound, bound_by = ssd_bwd_bound_ms(B, S, H, P, N, inner)
     out["ssd_timed"] = {
         "ms": time_ms(ssd.mamba2_ssd_bwd_cuda, x, da, bm, cm, dy, chunk),
-        "pass_ms": ssd_bwd_pass_ms(lambda: ssd.mamba2_ssd_bwd_cuda(
-            x, da, bm, cm, dy, chunk), ssd),
+        "pass_ms": pass_ms_in_child("ssd"),
         "forward_ms": time_ms(ssd.mamba2_ssd_cuda, x, da, bm, cm, chunk),
         "plain_ms": time_ms(ref.plain_vjp, ref.ssd_ref, (x, da, bm, cm), dy,
                             iters=2, warmup=1),
@@ -3189,6 +3531,10 @@ def main() -> int:
     from repro_torch.launch.presets import make_run_config
     from repro_torch.optim import adamw
     from repro_torch.runtime import Trainer
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe, moe_a2a
+    from repro_torch.models.param import axes_tree, init_tree, place
+    from repro_torch.sharding import use_mesh
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -3549,6 +3895,37 @@ def main() -> int:
         "backward": recurrent, "trained": trained, "whole_model": wholes,
         "seconds": time.perf_counter() - t17, "device": smi}}), flush=True)
 
+    # ---- 18. the mesh -------------------------------------------------------
+    t18 = time.perf_counter()
+    meshed = mesh_train_path(Trainer, make_run_config, InputShape,
+                             OptimizerConfig, configs, make_host_mesh,
+                             tree_leaves, counts, zero_counts, smi, dev, tmp)
+    log(f"phase 18 (a) took {time.perf_counter() - t18:.1f} s")
+    t0 = time.perf_counter()
+    dryruns = start_dryruns(tmp)
+    try:
+        checkpointed = mesh_checkpoint_path(
+            Trainer, InputShape, OptimizerConfig, RunConfig, configs,
+            make_host_mesh, tree_leaves, dev, tmp)
+        log(f"phase 18 (b) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        moe_layer = moe_a2a_path(configs, init_tree, moe, moe_a2a,
+                                 axes_tree, place, make_host_mesh, use_mesh,
+                                 smi, dev)
+        log(f"phase 18 (c) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cells = collect_dryruns(dryruns, tmp)
+    finally:
+        for _, proc in dryruns:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"phase 18 (d) waited {time.perf_counter() - t0:.1f} s more")
+    print(json.dumps({"mesh": {
+        "train": meshed, "checkpoint": checkpointed, "moe_a2a": moe_layer,
+        "dryrun": cells, "seconds": time.perf_counter() - t18,
+        "device": smi}}), flush=True)
+
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
                "dg_diff": "src/repro/kernels/dg_diff.py:41",
@@ -3647,4 +4024,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--pass-trace":
+        sys.exit(pass_trace_main(sys.argv[2]))
     sys.exit(main())

@@ -13,8 +13,11 @@
   (``bits:<u2``).  A checkpoint written by either package restores in the
   other, bit for bit.
 
-On restore each leaf goes to the device the caller names.  Restoring
-under another mesh's shardings waits for ROADMAP queue A item 5.
+On restore each leaf goes to the device the caller names, or — given a
+tree of shardings (``repro_torch.sharding.NamedSharding``) — becomes a
+DTensor under the current mesh's placements.  Leaves are stored whole
+(a DTensor is gathered first), so restoring onto another mesh than the
+one that saved is the no-op elastic path.
 """
 from __future__ import annotations
 
@@ -70,12 +73,19 @@ def _rebuild(tree: Any, leaves: Dict[str, Any],
     return leaves["/".join(prefix)]
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor; a DTensor gathered whole (a collective: every rank of its
+    mesh calls it)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _to_numpy(x: Any) -> Tuple[np.ndarray, str]:
     """A leaf as the array to store and its dtype's name."""
     if not isinstance(x, torch.Tensor):
         arr = np.asarray(x)
         return arr, str(arr.dtype)
-    t = x.detach().cpu()
+    t = _whole(x.detach()).cpu()
     name = str(t.dtype).split(".")[1]
     if name in _BIT_DTYPES:
         bits, view = _BIT_DTYPES[name]
@@ -120,19 +130,22 @@ def restore_tree(directory: Path, abstract_tree: Any, shardings: Any = None,
     """The tree saved in ``directory``, in the structure, shapes and
     dtypes of ``abstract_tree`` (tensors, ``meta`` ones included, or
     anything with ``shape`` and ``dtype``), each leaf on ``device`` (the
-    host when ``None``)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring under a mesh's shardings: "
-                                  "ROADMAP queue A item 5")
+    host when ``None``).  ``shardings``, a tree of the same structure
+    whose leaves are ``NamedSharding`` or None, makes each leaf with a
+    sharding a DTensor on its mesh (on the mesh's device) under its
+    placements; the others go to ``device``."""
     directory = Path(directory)
     manifest = json.loads((directory / "manifest.json").read_text())
     by_key = {e["key"]: e for e in manifest["keys"]}
+    flat_sh = dict(_paths(shardings)) if shardings is not None else {}
     leaves = {}
     for k, spec in _paths(abstract_tree):
         t = _load_leaf(directory, by_key[k])
         dtype = spec.dtype if isinstance(spec.dtype, torch.dtype) \
             else getattr(torch, str(spec.dtype))
-        leaves[k] = t.to(dtype).reshape(tuple(spec.shape)).to(device)
+        t = t.to(dtype).reshape(tuple(spec.shape))
+        sh = flat_sh.get(k)
+        leaves[k] = t.to(device) if sh is None else sh.place(t)
     return _rebuild(abstract_tree, leaves)
 
 
@@ -155,7 +168,7 @@ class CheckpointManager:
         # snapshot: a host copy of every tensor (the caller's may be
         # updated in place while the worker writes)
         host_tree = _rebuild(tree, {
-            k: v.detach().to("cpu", copy=True)
+            k: _whole(v.detach()).to("cpu", copy=True)
             if isinstance(v, torch.Tensor) else np.array(v)
             for k, v in _paths(tree)})
         with self._lock:

@@ -9,9 +9,9 @@ each batch onto the caller's device.
 
 The token stream has learnable structure (a noisy affine-bigram process:
 x_{t+1} = (a·x_t + b + ε) mod V with zipf-ish resets) so the end-to-end
-training example shows a genuinely decreasing loss.  Sharding a batch
-over a mesh (the reference's ``shard_batch``) waits for ROADMAP queue A
-item 5.
+training example shows a genuinely decreasing loss.  Under a mesh
+:func:`shard_batch` makes each array a DTensor sharded on its batch
+dimension over the data-parallel axes (the reference's ``shard_batch``).
 """
 from __future__ import annotations
 
@@ -56,6 +56,25 @@ class SyntheticLMDataset:
         return out
 
 
+def _tensor(v: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A batch array on ``dev``: token arrays as int64 (torch's index
+    dtype), the frontend's as float32."""
+    return torch.from_numpy(np.ascontiguousarray(v)).to(
+        dev, dtype=torch.long if v.dtype.kind == "i" else None)
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh) -> Dict[str,
+                                                             torch.Tensor]:
+    """Each array as a DTensor on ``mesh``'s device, placed as ("batch",
+    None, ...) resolves (the divisibility guard applied); every rank
+    holds the whole batch and keeps its block."""
+    from repro_torch.sharding import logical_to_sharding
+    return {k: logical_to_sharding(("batch",) + (None,) * (v.ndim - 1), mesh,
+                                   dim_sizes=v.shape).place(
+                                       _tensor(v, torch.device("cpu")))
+            for k, v in batch.items()}
+
+
 def make_batch_iterator(
     cfg: ModelConfig,
     shape: InputShape,
@@ -65,17 +84,15 @@ def make_batch_iterator(
     start_step: int = 0,
     device: DeviceLike = "cuda",
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Batches ``start_step``, ``start_step + 1``, … on ``device``: token
-    arrays as int64 (torch's index dtype), the frontend's as float32."""
-    if mesh is not None:
-        raise NotImplementedError("sharding a batch over a mesh: ROADMAP "
-                                  "queue A item 5")
+    """Batches ``start_step``, ``start_step + 1``, … on ``device``, or
+    sharded over ``mesh`` (:func:`shard_batch`, on the mesh's device):
+    token arrays as int64 (torch's index dtype), the frontend's as
+    float32."""
     dev = resolve_device(device)
     ds = SyntheticLMDataset(cfg, shape.seq_len, shape.global_batch, seed=seed)
     step = start_step
     while True:
         b = ds.batch_at(step)
-        yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            dev, dtype=torch.long if v.dtype.kind == "i" else None)
-            for k, v in b.items()}
+        yield shard_batch(b, mesh) if mesh is not None else \
+            {k: _tensor(v, dev) for k, v in b.items()}
         step += 1

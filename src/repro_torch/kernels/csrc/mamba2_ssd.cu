@@ -29,9 +29,23 @@
 //       [B, H, P, N];
 //   (c) chunk_out_kernel, one block per (head, chunk, batch):
 //       y = exp(la) ∘ (C·S_cᵀ) + ((C·Bᵀ) ∘ exp(la_i − la_j), j <= i)·x,
-//       its three 64 × 64 products on the tensor cores in
-//       error-compensated TF32 (3 TF32 products per f32 product, ~2^-21
-//       of it lost) by 8 warps of 16 × 32.
+//       its three 64 × 64 products in f32 FMA on the CUDA cores
+//       (warp_fma) by 8 warps of 16 × 32, each sum in k order.
+// Precision: y_i can be 10^3 times smaller than the sum of |terms| it
+// cancels from (P = N = 64, unit inputs); the reference's elementwise
+// f32 tolerance (rtol 2e-4, atol 2e-5) then leaves ~2e-7 of that sum.
+// With its products on the tensor cores in error-compensated TF32 (3
+// TF32 products per f32 product, ~2^-22 of each term lost, the tensor
+// cores' f32 sums on top) and la in f32
+// (each la_i carries ~ulp(|la|), which exp(la_i − la_j) makes a
+// relative error): at zamba2-7b's layer 61 of 29.4 M outputs missed the
+// tolerance on an H100 (700 W), 10 with la in double and the diagonal
+// block in f32 FMA, 0 with all three products in f32 FMA on four seed
+// sets (worst 0.97 of the tolerance; tools/ssd_fwd_precision.py).  So
+// passes (a) and (c) keep la in double, and pass (c) runs in f32 FMA:
+// zamba2-7b's 9-layer training step spends 26% more time in the
+// forward's kernels than with the TF32 products (87.0 against 69.1 ms
+// in one run), 1.1% more in all.
 // The result does not depend on the chunk, only the work does: the
 // quadratic form costs L·(N + P)/2 a token and the state terms 2·P·N, so
 // the wrapper runs the kernel at the largest divisor of the caller's
@@ -52,10 +66,45 @@
 
 namespace {
 
-// pass (c): one chunk, on the tensor cores in error-compensated TF32
-// (warp_mma3).  Warp w owns rows 16·(w % 4) and columns 32·(w / 4) of
-// the chunk's 64 × 64 products.
-__global__ void __launch_bounds__(kThreads, 3)
+// One warp: d (a 16 × 32 tile in warp_mma3's accumulator layout: rows
+// m0 + g and m0 + g + 8, columns n0 + 8·nt + 2t and + 1) += A·B over k
+// in [kbeg, kend), in f32 FMA on the CUDA cores, each sum in k order.
+// A(r, k) = A[r·lda + k]; B(k, n) = B[k·ldb + n] (kBRows) or B[n·ldb + k].
+template <bool kBRows>
+__device__ __forceinline__ void warp_fma(float (&d)[4][4], const float* A,
+                                         int lda, int m0, const float* B,
+                                         int ldb, int n0, int kend,
+                                         int kbeg = 0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* a0 = A + (m0 + g) * lda;
+  const float* a8 = a0 + 8 * lda;
+  // unrolled 4 deep under two blocks an SM (96 registers, no spills):
+  // 2% less time than the rolled loop at three blocks an SM (70
+  // registers); the compiler's default unrolling at three blocks spills
+#pragma unroll 4
+  for (int k = kbeg; k < kend; ++k) {
+    const float u = a0[k], w = a8[k];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + 8 * nt + 2 * t;
+      float b0, b1;
+      if (kBRows) {
+        const float2 bv = *reinterpret_cast<const float2*>(B + k * ldb + n);
+        b0 = bv.x, b1 = bv.y;
+      } else {
+        b0 = B[n * ldb + k], b1 = B[(n + 1) * ldb + k];
+      }
+      d[nt][0] = fmaf(u, b0, d[nt][0]);
+      d[nt][1] = fmaf(u, b1, d[nt][1]);
+      d[nt][2] = fmaf(w, b0, d[nt][2]);
+      d[nt][3] = fmaf(w, b1, d[nt][3]);
+    }
+  }
+}
+
+// pass (c): one chunk, in f32 FMA (warp_fma).  Warp w owns rows
+// 16·(w % 4) and columns 32·(w / 4) of the chunk's 64 × 64 products.
+__global__ void __launch_bounds__(kThreads, 2)
 chunk_out_kernel(Params prm) {
   extern __shared__ __align__(16) float smem[];
   float* cs = smem;                 // [kTile][kLd]: C rows
@@ -63,7 +112,7 @@ chunk_out_kernel(Params prm) {
   float* gs = bs;                   // then (C·Bᵀ) ∘ decay over them
   float* xs = bs + kTile * kLd;     // [kTile][kLdX]: x rows
   float* st = xs + kTile * kLdX;    // [kMaxDim][kLd]: the state, [p][n]
-  float* la = st + kMaxDim * kLd;   // [kTile]
+  double* la = reinterpret_cast<double*>(st + kMaxDim * kLd);  // [kTile]
   // heads fastest, so blocks running together read whole token rows
   const int hh = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int L = prm.chunk, nc = prm.s / L;
@@ -92,9 +141,9 @@ chunk_out_kernel(Params prm) {
   float y[4][4] = {};
   cp_wait<2>();
   __syncthreads();
-  if (n0 < kp) warp_mma3<false>(y, cs, kLd, m0, st, kLd, n0, kn);
-  const float scale[2] = {expf(la[min(m0 + g, L - 1)]),
-                          expf(la[min(m0 + g + 8, L - 1)])};
+  if (n0 < kp) warp_fma<false>(y, cs, kLd, m0, st, kLd, n0, kn);
+  const float scale[2] = {expf((float)la[min(m0 + g, L - 1)]),
+                          expf((float)la[min(m0 + g + 8, L - 1)])};
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -105,7 +154,7 @@ chunk_out_kernel(Params prm) {
   cp_wait<1>();
   __syncthreads();
   float gt[4][4] = {};
-  if (n0 <= m0 + 15) warp_mma3<false>(gt, cs, kLd, m0, bs, kLd, n0, kn);
+  if (n0 <= m0 + 15) warp_fma<false>(gt, cs, kLd, m0, bs, kLd, n0, kn);
   __syncthreads();   // B is read: G goes where it was
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
@@ -114,12 +163,23 @@ chunk_out_kernel(Params prm) {
       const int ri = m0 + g + 8 * (e >> 1);
       const int cj = n0 + 8 * nt + 2 * t + (e & 1);
       gs[ri * kLd + cj] = (cj <= ri && ri < L)
-          ? gt[nt][e] * expf(la[ri] - la[cj]) : 0.f;
+          ? gt[nt][e] * expf((float)(la[ri] - la[cj])) : 0.f;
     }
   cp_wait<0>();      // x
   __syncthreads();   // and G is whole
-  // y += G · x over the keys up to this warp's last row
-  if (n0 < kp) warp_mma3<true>(y, gs, kLd, m0, xs, kLdX, n0, m0 + 16);
+  // y += G · x over the keys up to this warp's last row, summed from
+  // zero as the plain version's sum is
+  if (n0 < kp) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gt[nt][e] = 0.f;   // G is in smem now
+    warp_fma<true>(gt, gs, kLd, m0, xs, kLdX, n0, m0 + 16);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[nt][e] += gt[nt][e];
+  }
 
   float* yg = prm.y + (tok0 * prm.h + hh) * prm.p;
 #pragma unroll
@@ -140,8 +200,9 @@ chunk_out_kernel(Params prm) {
   }
 }
 
-constexpr size_t kOutSmem = sizeof(float) * (2 * kTile * kLd + kTile * kLdX +
-                                             kMaxDim * kLd + kTile);
+constexpr size_t kOutSmem =
+    sizeof(float) * (2 * kTile * kLd + kTile * kLdX + kMaxDim * kLd) +
+    sizeof(double) * kTile;
 
 Params params(const void* xdt, const void* da, const void* bm,
               const void* cm, void* y, void* states, void* decay, int s,

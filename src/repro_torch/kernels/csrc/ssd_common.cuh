@@ -138,15 +138,18 @@ __device__ __forceinline__ void warp_mma3(float (&d)[4][4], const float* A,
 
 // la[i] = da_0 + ... + da_i over the chunk's L <= 64 tokens (one a
 // thread of the first two warps); la[i] = la[L − 1] past L.  Ends in a
-// barrier.
-__device__ void chunk_cumsum(float* la, const float* da, size_t stride,
-                             int L) {
+// barrier.  T is float, or double where a kernel takes differences
+// la_i − la_j: in f32 each la carries ~ulp(|la|) of error (|la| reaches
+// a few units over 64 tokens), which exp(la_i − la_j) multiplies into
+// terms that can cancel to a result 10^3 times smaller.
+template <typename T>
+__device__ void chunk_cumsum(T* la, const float* da, size_t stride, int L) {
   if (threadIdx.x < kTile) {
     const int lane = threadIdx.x & 31;
-    float v = threadIdx.x < L ? da[threadIdx.x * stride] : 0.f;
+    T v = threadIdx.x < L ? (T)da[threadIdx.x * stride] : (T)0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, v, off);
+      const T o = __shfl_up_sync(0xffffffffu, v, off);
       if (lane >= off) v += o;
     }
     la[threadIdx.x] = v;
@@ -180,8 +183,10 @@ chunk_state_kernel(Params prm) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                 // [kTile][kLd]
   float* bs = xs + kTile * kLd;     // [kTile][kLd]
-  float* la = bs + kTile * kLd;     // [kTile]
-  float* w = la + kTile;            // [kTile]: the weights w_j
+  // [kTile] in double (chunk_cumsum), so exp(la_L − la_j) keeps the
+  // difference's own bits
+  double* la = reinterpret_cast<double*>(bs + kTile * kLd);
+  float* w = reinterpret_cast<float*>(la + kTile);   // [kTile]: w_j
   // heads fastest: blocks running together read whole token rows
   const int hh = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int L = prm.chunk, nc = prm.s / L;
@@ -195,12 +200,12 @@ chunk_state_kernel(Params prm) {
   stage(bs, prm.bm + (tok0 * prm.h + hh) * prm.n, bstride, prm.n, L, bvec);
   cp_commit();
   chunk_cumsum(la, prm.da + tok0 * prm.h + hh, prm.h, L);
-  const float la_last = la[L - 1];
+  const double la_last = la[L - 1];
   if (threadIdx.x < kTile)
     w[threadIdx.x] = threadIdx.x >= L ? 0.f
-        : kGrad ? expf(la[threadIdx.x]) : expf(la_last - la[threadIdx.x]);
+        : expf((float)(kGrad ? la[threadIdx.x] : la_last - la[threadIdx.x]));
   if (!kGrad && threadIdx.x == 0)
-    prm.decay[((size_t)b * nc + c) * prm.h + hh] = expf(la_last);
+    prm.decay[((size_t)b * nc + c) * prm.h + hh] = expf((float)la_last);
   cp_wait<0>();
   __syncthreads();
   // x rows ∘ w_j, in place (rows past L are zero)
@@ -282,7 +287,8 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
   if (final != nullptr) final[(size_t)b * per_chunk + idx] = run;
 }
 
-constexpr size_t kStateSmem = sizeof(float) * (2 * kTile * kLd + 2 * kTile);
+constexpr size_t kStateSmem =
+    sizeof(float) * (2 * kTile * kLd + kTile) + sizeof(double) * kTile;
 
 bool shape_ok(int p, int n, int chunk, int s) {
   return p >= 1 && p <= kMaxDim && n >= 1 && n <= kMaxDim && chunk >= 1 &&

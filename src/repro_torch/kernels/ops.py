@@ -14,6 +14,14 @@ backward kernel's algorithm in PyTorch on the CPU (the sLSTM's forward
 then keeps its trajectory, as on the card).  The counter
 (:mod:`repro_torch.core.counting`) passes fake tensors, so it meets the
 ops and prices them with their cost rules instead of running them.
+
+The model-layer kernels' wrappers declare how they shard
+(:func:`repro_torch.sharding.local_blocks`): on batch, or on heads (the
+attention's query and key/value heads together, the sLSTM's recurrent
+weights with them).  DTensor operands (a model under a mesh) are
+redistributed to the way that moves least and the same wrapper runs on
+each rank's local blocks, so the card's kernels, forward and backward,
+run there.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.kernels import matmul_tiled as _mm
 from repro_torch.kernels import microbench as _mb
 from repro_torch.kernels import slstm_cell as _sc
 from repro_torch.kernels import stencil5 as _st
+from repro_torch.sharding.local import local_blocks
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -56,6 +65,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
     return fn(a, b, bm, bn, bk)
 
 
+@local_blocks([0, 0, 0, 0], [2, 2, 2, 2])
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
@@ -77,6 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return fn(q, k, v, causal, window, softcap, scale, bq, bk)
 
 
+@local_blocks([0] * 5, [2] * 5)
 def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
     """xdt: [B, S, H, P] (inputs pre-scaled by dt); da: [B, S, H] (dt·A);
@@ -94,6 +105,7 @@ def mamba2_ssd(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     return fn(xdt, da, Bm, Cm, chunk)
 
 
+@local_blocks([0, 0] + [0] * 4, [2, 1] + [2] * 4)
 def mamba2_ssd_state(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
                      Cm: torch.Tensor, *, chunk: int = 256
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,6 +120,7 @@ def mamba2_ssd_state(xdt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     return fn(xdt, da, Bm, Cm, chunk)
 
 
+@local_blocks([0, 0, "R", "R"], [2, 3, 0, 1])
 def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
                b_gates: torch.Tensor) -> torch.Tensor:
     """g_in: [B, S, 4, H, dh]; r_gates: [H, dh, 4, dh]; b_gates:
@@ -125,6 +138,7 @@ def slstm_cell(g_in: torch.Tensor, r_gates: torch.Tensor,
     return fn(g_in, r_gates, b_gates)
 
 
+@local_blocks([0, 0, 0, 0, 0, "R", "R"], [2, 1, 1, 1, 3, 0, 1])
 def slstm_cell_state(g_in: torch.Tensor, r_gates: torch.Tensor,
                      b_gates: torch.Tensor
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:

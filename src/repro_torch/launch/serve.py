@@ -1,5 +1,9 @@
-"""Serving launcher: batched prefill + greedy decode for ``--arch`` on one
-device — the counterpart of ``repro.launch.serve``.
+"""Serving launcher: batched prefill + greedy decode for ``--arch`` under
+a (data, model) mesh of the process group's devices — the counterpart of
+``repro.launch.serve``.  One device is a 1 × 1 mesh (``make_host_mesh``;
+``--model-parallel`` must divide the device count): as in the
+reference, the model runs under ``use_mesh`` with unsharded weights, so
+its activation constraints (``shard_act``) see local tensors.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
       --smoke --batch 4 --prompt-len 16 --tokens 32 --device cpu
@@ -27,8 +31,10 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention, mamba2_ssd, slstm_cell
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 from repro_torch.models.param import param_count, tree_leaves
+from repro_torch.sharding import mesh_shape, use_mesh
 
 #: the hand kernels a served model may launch, by launch counter
 KERNELS = {"flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd,
@@ -165,15 +171,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            "--model-parallel other than 1 needs a device mesh, which comes "
-            "with the port of launch/mesh.py (ROADMAP queue A item 5)")
+    mesh = make_host_mesh(model=args.model_parallel, device=args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.num_layers is not None:
         cfg = cfg.replace(num_layers=args.num_layers)
-    res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                tokens=args.tokens, device=args.device)
+    print(f"mesh={mesh_shape(mesh)}")
+    with use_mesh(mesh):
+        res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                    tokens=args.tokens, device=args.device)
     print(f"prefill: {res['prefill_ms']:.1f} ms")
     print(f"decode: {res['decode_ms_per_token']:.2f} ms/token × batch "
           f"{args.batch}")

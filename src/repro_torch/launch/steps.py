@@ -44,6 +44,22 @@ def value_and_grad(loss_fn, params: Any, batch: Dict[str, torch.Tensor]
             tree_map(lambda _: next(it), params))
 
 
+def _microbatches(v: torch.Tensor, M: int) -> torch.Tensor:
+    """``v`` [B, ...] as [M, B/M, ...], microbatch i rows i·B/M onwards.
+    A DTensor sharded on its batch keeps each microbatch sharded so
+    (DTensor does not split a sharded dimension it cannot divide by the
+    mesh): gathered, split, then each rank keeps its block of every
+    microbatch."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    shape = (M, v.shape[0] // M, *v.shape[1:])
+    if not isinstance(v, DTensor):
+        return v.reshape(shape)
+    mesh = v.device_mesh
+    whole = v.redistribute(mesh, [Replicate()] * mesh.ndim).reshape(shape)
+    return whole.redistribute(mesh, [Shard(p.dim + 1) if p.is_shard() else p
+                                     for p in v.placements])
+
+
 def make_train_step(run: RunConfig):
     """(params, opt_state, batch) → (params, opt_state, metrics).
 
@@ -58,10 +74,8 @@ def make_train_step(run: RunConfig):
         if M == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
-            mb = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])
-                  for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
-                                                   device=p.device), params)
+            mb = {k: _microbatches(v, M) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros_like(p), params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
             rows = []

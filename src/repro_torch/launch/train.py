@@ -1,8 +1,9 @@
 """Production training launcher: ``--arch <id> --shape train_4k`` — the
 counterpart of ``repro.launch.train``.
 
-Runs on the card unless ``--device cpu``.  ``--model-parallel`` above 1
-(a mesh) waits for ROADMAP queue A item 5.
+Runs on the card unless ``--device cpu``, under a (data, model) mesh of
+the process group's devices (``make_host_mesh``: one device is a 1 × 1
+mesh); ``--model-parallel`` must divide their count.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b \\
       --smoke --steps 20 --device cpu
@@ -16,8 +17,10 @@ from pathlib import Path
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import InputShape, OptimizerConfig
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.presets import make_run_config
 from repro_torch.runtime import Trainer
+from repro_torch.sharding import mesh_shape
 
 
 def main(argv=None) -> int:
@@ -36,10 +39,6 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        print("--model-parallel: training over a mesh is ROADMAP queue A "
-              "item 5", file=sys.stderr)
-        return 2
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run = make_run_config(args.arch, args.shape, model_config=cfg)
@@ -55,10 +54,10 @@ def main(argv=None) -> int:
         optimizer=OptimizerConfig(total_steps=args.steps, warmup_steps=max(
             args.steps // 10, 1)))
 
-    # one device: the reference's 1 × 1 host mesh
+    mesh = make_host_mesh(model=args.model_parallel, device=args.device)
     print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"mesh={{'data': 1, 'model': 1}}")
-    trainer = Trainer(run, device=args.device)
+          f"mesh={mesh_shape(mesh)}")
+    trainer = Trainer(run, mesh=mesh)
     state = trainer.restore_or_init()
     state = trainer.train(state, args.steps, log_every=10)
     trainer.save(state, blocking=True)

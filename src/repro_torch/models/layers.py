@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.param import ParamSpec, torch_dtype
+from repro_torch.sharding import local_blocks, reshape, shard_act
 
 NEG_INF = -1e30
 
@@ -278,13 +279,15 @@ def attn_cache_schema(cfg: ModelConfig, batch: int, seq: int,
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum "bsd,dhk->bshk" as one GEMM."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    y = x @ reshape(w.to(x.dtype), (d, h * k))
+    return reshape(y, (*y.shape[:-1], h, k))
 
 
 def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum "bshk,hkd->bsd" as one GEMM."""
     h, k, d = w.shape
-    return o.flatten(-2) @ w.to(o.dtype).reshape(h * k, d)
+    return reshape(o, (*o.shape[:-2], h * k)) @ reshape(w.to(o.dtype),
+                                                         (h * k, d))
 
 
 def store_prefill(buf: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -296,8 +299,14 @@ def store_prefill(buf: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     if S_in <= S_c:
         buf[:, :S_in] = val
     else:
-        buf.copy_(torch.roll(val[:, -S_c:], S_in % S_c, dims=1))
+        buf.copy_(_roll_seq(val[:, -S_c:], shift=S_in % S_c))
     return buf
+
+
+@local_blocks([0, 0], [2, 2])
+def _roll_seq(t: torch.Tensor, *, shift: int) -> torch.Tensor:
+    """``t`` [B, S, H, ...] rolled along S (rows and heads apart)."""
+    return torch.roll(t, shift, dims=1)
 
 
 def apply_attn(
@@ -321,6 +330,7 @@ def apply_attn(
     causal = a.causal if causal is None else causal
 
     q = _proj(x, p["wq"])
+    q = shard_act(q, "batch", "seq", "act_heads", None)
     if a.use_rope:
         q = apply_rope(q, ctx.positions, a.rope_theta)
 
@@ -359,7 +369,8 @@ def apply_attn(
         if cache is not None:  # prefill: persist K/V into the cache buffers
             new_cache = {"k": store_prefill(cache["k"], k),
                          "v": store_prefill(cache["v"], v)}
-    return _out_proj(out, p["wo"]), new_cache
+    y = _out_proj(out, p["wo"])
+    return shard_act(y, "batch", "seq", "act_embed"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +461,8 @@ def apply_mla(
             ckv[:, :S] = ckv_new.to(ckv.dtype)
             krope[:, :S] = krope_new.to(krope.dtype)
             new_cache = {"ckv": ckv, "krope": krope}
-    return _out_proj(out, p["wo"]), new_cache
+    y = _out_proj(out, p["wo"])
+    return shard_act(y, "batch", "seq", "act_embed"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -485,11 +497,13 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     up = x @ p["w_up"].to(x.dtype)
+    up = shard_act(up, "batch", "seq", "act_ff")
     if cfg.activation.endswith("_glu"):
         h = _act(cfg.activation, x @ p["w_gate"].to(x.dtype)) * up
     else:
         h = _act(cfg.activation, up)
-    return h @ p["w_down"].to(x.dtype)
+    y = h @ p["w_down"].to(x.dtype)
+    return shard_act(y, "batch", "seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------

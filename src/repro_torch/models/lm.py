@@ -33,8 +33,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.blocks import (BLOCKS, aux_keys, effective_pattern,
                                        effective_prefix)
-from repro_torch.models.param import (ParamSpec, init_stacked, init_tree,
-                                      stack_schema, torch_dtype, tree_map)
+from repro_torch.models.param import (ParamSpec, axes_tree, init_stacked,
+                                      init_tree, stack_schema, torch_dtype,
+                                      tree_map)
+from repro_torch.sharding import (embedding_lookup, gather_dp, shard_act,
+                                  target_logits)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -119,6 +122,26 @@ def abstract_params(cfg: ModelConfig) -> Dict:
         model_schema(cfg), is_leaf=lambda x: isinstance(x, ParamSpec))
 
 
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The parameters' logical-axis tuples, leaf for leaf."""
+    return axes_tree(model_schema(cfg))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> Dict:
+    """The cache's shapes and dtypes as ``meta`` tensors, every leaf in
+    the activation dtype."""
+    dtype = torch_dtype(cfg.activation_dtype)
+    return tree_map(
+        lambda s: torch.empty(s.shape, dtype=dtype, device="meta"),
+        cache_schema(cfg, batch, seq),
+        is_leaf=lambda x: isinstance(x, ParamSpec))
+
+
+def cache_axes(cfg: ModelConfig, batch: int, seq: int) -> Dict:
+    """The cache's logical-axis tuples, leaf for leaf."""
+    return axes_tree(cache_schema(cfg, batch, seq))
+
+
 def zero_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Dict:
     """Zeroed cache buffers, every leaf in the activation dtype (as the
     reference's)."""
@@ -135,7 +158,7 @@ def zero_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Dict:
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]  # gather [B,S,D]
+    x = embedding_lookup(gather_dp(params["embed"]), tokens)  # gather [B,S,D]
     if dict(cfg.extra).get("embed_scale", False):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -144,13 +167,13 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = x @ gather_dp(params["embed"]).to(x.dtype).T
     else:
-        logits = x @ params["lm_head"].to(x.dtype)
+        logits = x @ gather_dp(params["lm_head"]).to(x.dtype)
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
-    return logits
+    return shard_act(logits, "batch", "seq", "vocab")
 
 
 def _index(tree: Dict, g: int) -> Dict:
@@ -193,7 +216,7 @@ def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor,
     """Whisper-style bidirectional encoder over stub frame embeddings."""
     enc = params["encoder"]
     B, T, _ = frames.shape
-    x = frames @ params["frontend_proj"].to(frames.dtype)
+    x = frames @ gather_dp(params["frontend_proj"]).to(frames.dtype)
     pos = torch.arange(T, device=x.device)[None].expand(B, T)
     x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
     ctx = layers.Ctx(cfg=cfg, mode="train", positions=pos,
@@ -201,12 +224,13 @@ def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor,
                      q_chunk=ctx_proto.q_chunk, kv_chunk=ctx_proto.kv_chunk)
     for g in range(cfg.encdec.num_encoder_layers):
         x, _, _ = BLOCKS["bidir_attn_mlp"].apply(
-            _index(enc["body"], g)["b0"], x, ctx, None)
-    return layers.apply_norm(enc["final_norm"], cfg, x)
+            gather_dp(_index(enc["body"], g)["b0"]), x, ctx, None)
+    return layers.apply_norm(gather_dp(enc["final_norm"]), cfg, x)
 
 
 def _apply_group(gp, x, ctx: layers.Ctx, gcache, shared_params,
                  cfg: ModelConfig, ak: Tuple[str, ...]):
+    gp, shared_params = gather_dp(gp), gather_dp(shared_params)
     new_cache: Dict = {}
     aux = {k: torch.zeros((), device=x.device) for k in ak}
     if cfg.shared_attn_every:
@@ -294,7 +318,7 @@ def forward(
     n_front = 0
     if cfg.frontend.kind != "none" and cfg.encdec is None and mode != "decode":
         fe = batch["frontend"]
-        fe = fe @ params["frontend_proj"].to(fe.dtype)
+        fe = fe @ gather_dp(params["frontend_proj"]).to(fe.dtype)
         n_front = fe.shape[1]
         x = torch.cat([fe.to(x.dtype), x], dim=1)
 
@@ -308,6 +332,8 @@ def forward(
     if cfg.encdec is not None and not cfg.attention.use_rope:
         x = x + layers.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
 
+    x = shard_act(x, "batch", "seq", "act_embed")
+
     ctx = layers.Ctx(cfg=cfg, mode=mode, positions=positions,
                      cur_index=cur_index, enc_out=enc_out,
                      attn_impl=attn_impl, q_chunk=q_chunk, kv_chunk=kv_chunk,
@@ -319,7 +345,8 @@ def forward(
     # ----- prefix blocks -----------------------------------------------------
     for i, bid in enumerate(effective_prefix(cfg)):
         c = cache.get(f"prefix_{i}") if cache else None
-        x, ci, a = BLOCKS[bid].apply(params[f"prefix_{i}"], x, ctx, c)
+        x, ci, a = BLOCKS[bid].apply(gather_dp(params[f"prefix_{i}"]), x,
+                                     ctx, c)
         if ci is not None:
             new_cache[f"prefix_{i}"] = ci
         for k, v in a.items():
@@ -350,7 +377,7 @@ def forward(
     if stacker is not None:
         new_cache["body"] = stacker.out
 
-    x = layers.apply_norm(params["final_norm"], cfg, x)
+    x = layers.apply_norm(gather_dp(params["final_norm"]), cfg, x)
     if n_front and mode != "decode":
         x = x[:, n_front:]  # logits only over text positions
     logits = _head(params, cfg, x)
@@ -365,7 +392,7 @@ def lm_loss(params, cfg: ModelConfig, batch, *, remat: str = "full",
     targets = batch["targets"]
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, targets[..., None])[..., 0]
+    ll = target_logits(lf, targets)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(targets, dtype=torch.float32)

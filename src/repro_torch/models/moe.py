@@ -11,9 +11,9 @@ Dispatch (static shapes, as the reference):
 
 Top-k breaks ties toward the lower expert id, as ``lax.top_k`` does.
 Aux loss: Switch-style load balancing (mean router prob × mean
-assignment fraction × E).  The expert-parallel all-to-all dispatch
-(``moe_impl="a2a"``, the reference's ``moe_a2a.py``) needs a device mesh
-and comes with ROADMAP queue A item 5.
+assignment fraction × E).  ``moe_impl="a2a"`` takes the expert-parallel
+all-to-all dispatch of :mod:`repro_torch.models.moe_a2a` (which, as the
+reference's, falls back to this scatter without a "model" mesh axis).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers
 from repro_torch.models.param import ParamSpec
+from repro_torch.sharding import shard_act
 
 
 def _capacity(num_tokens: int, m: MoEConfig) -> int:
@@ -105,11 +106,14 @@ def apply_moe(p: Dict, cfg: ModelConfig,
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
     buf.index_add_(0, slot, xf[t_sorted])
     buf = buf[: E * C].reshape(E, C, D)
+    buf = shard_act(buf, "experts", "expert_cap", "act_embed")
 
     # ----- expert computation (batched over E) -----------------------------
     up = torch.bmm(buf, p["w_up"].to(x.dtype))
     gate = layers._act(cfg.activation, torch.bmm(buf, p["w_gate"].to(x.dtype)))
-    out_buf = torch.bmm(gate * up, p["w_down"].to(x.dtype))
+    h = shard_act(gate * up, "experts", "expert_cap", None)
+    out_buf = torch.bmm(h, p["w_down"].to(x.dtype))
+    out_buf = shard_act(out_buf, "experts", "expert_cap", "act_embed")
 
     # ----- combine ---------------------------------------------------------
     out_flat = out_buf.reshape(E * C, D)
@@ -126,8 +130,9 @@ def apply_moe(p: Dict, cfg: ModelConfig,
         y = y + layers.apply_mlp(p["dense"], cfg, x)
 
     frac_dropped = 1.0 - keep.float().mean()
-    return y, {"moe_aux_loss": aux_loss * m.aux_loss_weight,
-               "moe_frac_dropped": frac_dropped}
+    return shard_act(y, "batch", "seq", "act_embed"), {
+        "moe_aux_loss": aux_loss * m.aux_loss_weight,
+        "moe_frac_dropped": frac_dropped}
 
 
 # ---------------------------------------------------------------------------
@@ -169,11 +174,10 @@ def apply_moe_layer(
         new_cache["attn"] = c
     x = x + y
     h = layers.apply_norm(p["ln_mlp"], cfg, x)
-    if ctx.moe_impl != "scatter":
-        raise NotImplementedError(
-            f"moe_impl={ctx.moe_impl!r}: the expert-parallel all-to-all "
-            f"dispatch needs a device mesh and comes with ROADMAP queue A "
-            f"item 5 (launch); the port has moe_impl='scatter'")
-    y, aux = apply_moe(p["moe"], cfg, h)
+    if ctx.moe_impl == "a2a":
+        from repro_torch.models.moe_a2a import apply_moe_a2a
+        y, aux = apply_moe_a2a(p["moe"], cfg, h)
+    else:
+        y, aux = apply_moe(p["moe"], cfg, h)
     x = x + y
     return x, (new_cache if cache is not None else None), aux

@@ -109,12 +109,35 @@ def param_count(tree: Any) -> int:
     return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
 
 
-def carry(tree: Any, device) -> Any:
+def place(tree: Any, axes: Any, mesh) -> Any:
+    """Each tensor of ``tree`` as a DTensor on ``mesh``, placed as its
+    logical axes in ``axes`` (a tree of the same structure) resolve under
+    the current rules, the divisibility guard applied to its shape.  Every
+    rank holds the whole tensor; it keeps its own block."""
+    from repro_torch.sharding.axes import tree_shardings
+    return place_tree(tree, tree_shardings(axes, tree, mesh=mesh))
+
+
+def place_tree(tree: Any, shardings: Any) -> Any:
+    """Each tensor of ``tree`` placed by the ``NamedSharding`` at the same
+    place of ``shardings`` (dicts and NamedTuples; a None leaf keeps its
+    tensor)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(place_tree(v, s) for v, s in zip(tree,
+                                                              shardings)))
+    return tree if shardings is None else shardings.place(tree)
+
+
+def carry(tree: Any, device, *, axes: Any = None, mesh=None) -> Any:
     """A tree of numpy arrays (a reference parameter or cache tree pulled
     through ``np.asarray``) → the same tree of tensors on ``device``, each
     in its array's dtype.  bfloat16 arrays (numpy's ``ml_dtypes``
     extension) are widened to float32 on the host first, which is exact,
-    and narrowed back on the way in."""
+    and narrowed back on the way in.  With a ``mesh``, each leaf becomes a
+    DTensor on it, placed as its logical axes in ``axes`` resolve
+    (:func:`place`)."""
 
     def one(a):
         a = np.asarray(a)
@@ -123,4 +146,5 @@ def carry(tree: Any, device) -> Any:
             a, native = a.astype(np.float32), torch.bfloat16
         t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=device, dtype=native or t.dtype)
-    return tree_map(one, tree)
+    out = tree_map(one, tree)
+    return out if mesh is None else place(out, axes, mesh)

@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.param import ParamSpec
+from repro_torch.sharding import local_blocks, reshape, shard_act
 
 
 def _dims(cfg: ModelConfig):
@@ -67,6 +68,7 @@ def mamba2_cache_schema(cfg: ModelConfig, batch: int, seq: int) -> Dict:
     }
 
 
+@local_blocks([0, 0, "R"], [2, 2, 1])
 def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over seq.  x: [B,S,C], w: [K,C]."""
     K, S = w.shape[0], x.shape[1]
@@ -75,6 +77,13 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for i in range(K):  # K is 4: unrolled taps, as the reference
         out = out + pad[:, i: i + S].float() * w[K - 1 - i]
     return out.to(x.dtype)
+
+
+@local_blocks([0, 0, "R"], [2, 2, 1])
+def conv_step(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One decode step of :func:`causal_conv`: window [B, K, C], oldest
+    first, so the newest entry meets w[0] → [B, 1, C]."""
+    return (window * w.flip(0)[None]).sum(1, keepdim=True)
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -100,6 +109,8 @@ def apply_mamba2(
     Bin = h @ p["w_B"].to(dt_)
     Cin = h @ p["w_C"].to(dt_)
     dt_raw = h @ p["w_dt"].to(dt_)
+    xin = shard_act(xin, "batch", "seq", "ssm_inner")
+    z = shard_act(z, "batch", "seq", "ssm_inner")
 
     xbc = torch.cat([xin, Bin, Cin], dim=-1)
     conv_w = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]],
@@ -113,24 +124,24 @@ def apply_mamba2(
         # the newest entry meets conv_w[0]: flip the taps)
         window = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
                            dim=1)                      # [B, K, C]
-        conv_out = (window * conv_w.flip(0)[None]).sum(1, keepdim=True)
+        conv_out = conv_step(window, conv_w)
         conv_out = F.silu(conv_out.float()).to(dt_)
         xc, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
-        xh = xc.reshape(B_, 1, H, P)
-        Bh = Bc.reshape(B_, 1, G, N).repeat_interleave(H // G, dim=2)
-        Ch = Cc.reshape(B_, 1, G, N).repeat_interleave(H // G, dim=2)
+        xh = reshape(xc, (B_, 1, H, P))
+        Bh = reshape(Bc, (B_, 1, G, N)).repeat_interleave(H // G, dim=2)
+        Ch = reshape(Cc, (B_, 1, G, N)).repeat_interleave(H // G, dim=2)
         dA = torch.exp(dt * A)  # [B,1,H]
         state = cache["state"] * dA[:, 0, :, None, None] + torch.einsum(
             "bhn,bhp->bhpn", Bh[:, 0] * dt[:, 0, :, None],
             xh[:, 0].float())
         y = torch.einsum("bhn,bhpn->bhp", Ch[:, 0].float(), state)
         y = y[:, None] + xh.float() * p["D"].float()[None, None, :, None]
-        y = y.reshape(B_, 1, di).to(dt_)
+        y = reshape(y, (B_, 1, di)).to(dt_)
         new_cache = {"conv": window[:, 1:], "state": state}
     else:
         conv_out = F.silu(causal_conv(xbc, conv_w).float()).to(dt_)
         xc, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
-        xh = xc.reshape(B_, S, H, P)
+        xh = reshape(xc, (B_, S, H, P))
         xdt = xh.float() * dt[..., None]
         dA = dt * A  # [B,S,H] (log-decay per step)
         # pad ragged lengths to a chunk multiple: dA = 0 (no decay) and
@@ -140,9 +151,9 @@ def apply_mamba2(
         # the reference's scan takes x·dt in the activation dtype
         xdt_p = _pad_seq(xdt, pad).to(dt_).float().contiguous()
         dA_p = _pad_seq(dA, pad).contiguous()
-        Bh = _pad_seq(Bc.reshape(B_, S, G, N), pad).repeat_interleave(
+        Bh = _pad_seq(reshape(Bc, (B_, S, G, N)), pad).repeat_interleave(
             H // G, dim=2).float().contiguous()
-        Ch = _pad_seq(Cc.reshape(B_, S, G, N), pad).repeat_interleave(
+        Ch = _pad_seq(reshape(Cc, (B_, S, G, N)), pad).repeat_interleave(
             H // G, dim=2).float().contiguous()
         if cache is not None:
             y, final_state = ops.mamba2_ssd_state(xdt_p, dA_p, Bh, Ch,
@@ -151,7 +162,7 @@ def apply_mamba2(
             y = ops.mamba2_ssd(xdt_p, dA_p, Bh, Ch, chunk=chunk)
         y = y.to(dt_)[:, :S].float() \
             + xh.float() * p["D"].float()[None, None, :, None]
-        y = y.reshape(B_, S, di).to(dt_)
+        y = reshape(y, (B_, S, di)).to(dt_)
         if cache is not None:  # prefill: stash conv window + final state
             tail = xbc[:, -(s.d_conv - 1):, :]
             new_cache = {"conv": tail.to(cache["conv"].dtype),
@@ -160,4 +171,5 @@ def apply_mamba2(
     y = layers.rmsnorm_simple(y * F.silu(z.float()).to(y.dtype),
                               p["out_norm"])
     out = y @ p["w_out"].to(dt_)
+    out = shard_act(out, "batch", "seq", "act_embed")
     return res + out, new_cache, {}

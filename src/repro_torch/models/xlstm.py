@@ -31,7 +31,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import slstm_gate
 from repro_torch.models import layers
 from repro_torch.models.param import ParamSpec
-from repro_torch.models.ssm import causal_conv
+from repro_torch.models.ssm import causal_conv, conv_step
+from repro_torch.sharding import (elementwise, local_blocks, reshape,
+                                  shard_act)
 
 
 def _mdims(cfg: ModelConfig):
@@ -45,6 +47,9 @@ def _mdims(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
+
+
+_logsigmoid = elementwise(F.logsigmoid)
 
 
 def mlstm_schema(cfg: ModelConfig) -> Dict:
@@ -80,6 +85,7 @@ def mlstm_cache_schema(cfg: ModelConfig, batch: int, seq: int) -> Dict:
     }
 
 
+@local_blocks([0, 0, 0, 0] + [0] * 5, [2, 1, 1, 1] + [2] * 5)
 def _mlstm_chunked(q, k, v, li, lf, *, chunk: int):
     """Chunkwise stabilized mLSTM scan.
 
@@ -147,20 +153,21 @@ def apply_mlstm(
     dt_ = h.dtype
     up = h @ p["w_up"].to(dt_)
     gate = h @ p["w_gate"].to(dt_)
+    up = shard_act(up, "batch", "seq", "act_ff")
 
     new_cache: Optional[Dict] = None
     if ctx.mode == "decode":
         window = torch.cat([cache["conv"], up.to(cache["conv"].dtype)], 1)
         conv_w = p["conv"].to(dt_)
         # window is oldest-first; causal-conv tap k multiplies x[t-k]
-        cx = (window * conv_w.flip(0)[None]).sum(1, keepdim=True)
+        cx = conv_step(window, conv_w)
         cx = F.silu(cx.float()).to(dt_)
-        q = (cx @ p["w_q"].to(dt_)).reshape(B, H, dh)
-        k = (cx @ p["w_k"].to(dt_)).reshape(B, H, dh)
-        v = (up @ p["w_v"].to(dt_)).reshape(B, H, dh)
-        li = (cx @ p["w_i"].to(dt_)).reshape(B, H).float() \
+        q = reshape(cx @ p["w_q"].to(dt_), (B, H, dh))
+        k = reshape(cx @ p["w_k"].to(dt_), (B, H, dh))
+        v = reshape(up @ p["w_v"].to(dt_), (B, H, dh))
+        li = reshape(cx @ p["w_i"].to(dt_), (B, H)).float() \
             + p["b_i"].float()
-        lf = F.logsigmoid((cx @ p["w_f"].to(dt_)).reshape(B, H).float()
+        lf = _logsigmoid(reshape(cx @ p["w_f"].to(dt_), (B, H)).float()
                           + p["b_f"].float())
         C, n, m = cache["C"], cache["n"], cache["m"]
         m_new = torch.maximum(lf + m, li)
@@ -174,15 +181,20 @@ def apply_mlstm(
         num = torch.einsum("bhd,bhde->bhe", qf, C)
         den = torch.einsum("bhd,bhd->bh", qf, n)
         hv = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
-        hv = hv.reshape(B, 1, M).to(dt_)
+        hv = reshape(hv, (B, 1, M)).to(dt_)
         new_cache = {"conv": window[:, 1:], "C": C, "n": n, "m": m_new}
     else:
         cx = F.silu(causal_conv(up, p["conv"].to(dt_)).float()).to(dt_)
-        q = (cx @ p["w_q"].to(dt_)).reshape(B, S, H, dh)
-        k = (cx @ p["w_k"].to(dt_)).reshape(B, S, H, dh)
-        v = (up @ p["w_v"].to(dt_)).reshape(B, S, H, dh)
-        li = (cx @ p["w_i"].to(dt_)).float() + p["b_i"].float()
-        lf = F.logsigmoid((cx @ p["w_f"].to(dt_)).float() + p["b_f"].float())
+        q = reshape(cx @ p["w_q"].to(dt_), (B, S, H, dh))
+        k = reshape(cx @ p["w_k"].to(dt_), (B, S, H, dh))
+        v = reshape(up @ p["w_v"].to(dt_), (B, S, H, dh))
+        # the gates' sums over the (model-sharded) inner dim reduced here:
+        # DTensor otherwise carries them partial into the scan, and its
+        # backward into a layout its products cannot take
+        li = shard_act((cx @ p["w_i"].to(dt_)).float() + p["b_i"].float(),
+                       "batch", "seq", None)
+        lf = shard_act(_logsigmoid((cx @ p["w_f"].to(dt_)).float()
+                                   + p["b_f"].float()), "batch", "seq", None)
         # pad ragged lengths to a chunk multiple: li = -1e9 (no input
         # gate) and lf = 0 (no decay) make padded steps state no-ops
         chunk = min(xc.m_chunk_size, S)
@@ -192,7 +204,7 @@ def apply_mlstm(
             li = F.pad(li, (0, 0, 0, pad), value=-1e9)
             lf = F.pad(lf, (0, 0, 0, pad))
         hv, (Cf, nf, mf) = _mlstm_chunked(q, k, v, li, lf, chunk=chunk)
-        hv = hv[:, :S].reshape(B, S, M)
+        hv = reshape(hv[:, :S], (B, S, M))
         if cache is not None:
             tail = up[:, -(xc.s_conv_kernel - 1):, :]
             new_cache = {"conv": tail.to(cache["conv"].dtype),
@@ -201,7 +213,7 @@ def apply_mlstm(
     hv = layers.rmsnorm_simple(hv, p["out_norm"])
     hv = hv * F.silu(gate.float()).to(hv.dtype)
     out = hv @ p["w_down"].to(dt_)
-    return res + out, new_cache, {}
+    return res + shard_act(out, "batch", "seq", "act_embed"), new_cache, {}
 
 
 # ---------------------------------------------------------------------------
@@ -270,12 +282,12 @@ def apply_slstm(
     h = layers.apply_norm(p["ln"], cfg, x)
     dt_ = h.dtype
     wg = p["w_gates"].to(dt_)
-    g_in = (h @ wg.reshape(D, 4 * H * dh)).reshape(B, S, 4, H, dh)
+    g_in = reshape(h @ reshape(wg, (D, 4 * H * dh)), (B, S, 4, H, dh))
 
     if ctx.mode == "decode":
         state = (cache["c"], cache["n"], cache["m"], cache["h"].to(dt_))
         state, hv = _slstm_step(p, state, g_in[:, 0])
-        hv = hv.reshape(B, 1, D).to(dt_)
+        hv = reshape(hv, (B, 1, D)).to(dt_)
         new_cache = {"c": state[0], "n": state[1], "m": state[2],
                      "h": state[3].to(cache["h"].dtype)}
     else:
@@ -288,7 +300,7 @@ def apply_slstm(
                          "h": hs[:, -1].to(dt_).to(cache["h"].dtype)}
         else:
             hs = ops.slstm_cell(*args)
-        hv = hs.reshape(B, S, D).to(dt_)
+        hv = reshape(hs, (B, S, D)).to(dt_)
 
     hv = layers.rmsnorm_simple(hv, p["out_norm"])
     x = res + hv
@@ -298,4 +310,4 @@ def apply_slstm(
     gate = F.gelu((h2 @ p["w_ff_gate"].to(x.dtype)).float(),
                   approximate="tanh").to(x.dtype)
     y = (gate * up) @ p["w_ff_down"].to(x.dtype)
-    return x + y, new_cache, {}
+    return x + shard_act(y, "batch", "seq", "act_embed"), new_cache, {}

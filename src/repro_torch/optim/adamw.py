@@ -12,8 +12,12 @@ through each tensor in slices of ``CHUNK`` elements, so its float32
 temporaries stay small beside a 0.9 B-element embedding.  Elementwise
 arithmetic does not depend on the slicing.
 
-``opt_state_axes`` (the sharding rules' tree) waits for the mesh
-(ROADMAP queue A item 5).
+Under a mesh the parameters and moments are DTensors of one placement
+each (``opt_state_axes`` gives the moments the parameters' axes): the
+update runs on each rank's local blocks, the gradient first
+redistributed to its parameter's placement, and the global norm sums
+each distinct block once across the ranks.  The step count stays a plain
+tensor on each rank.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.models.param import torch_dtype, tree_leaves, tree_map
+from repro_torch.sharding.local import is_dtensor
 
 #: elements of one tensor updated at a time
 CHUNK = 1 << 26
@@ -38,9 +43,9 @@ class OptState(NamedTuple):
 def init_opt_state(params: Any, ocfg: OptimizerConfig) -> OptState:
     mdt = torch_dtype(ocfg.moment_dtype)
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
-    leaves = tree_leaves(params)
+    def zeros(p):   # a DTensor parameter gets a DTensor of its placement
+        return torch.zeros_like(p, dtype=mdt)
+    leaves = [_local(p) for p in tree_leaves(params)]
     device = leaves[0].device if leaves else None
     return OptState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
                     count=torch.zeros((), dtype=torch.int32, device=device))
@@ -56,6 +61,17 @@ def abstract_opt_state(abstract_params: Any,
     return OptState(mu=tree_map(meta, abstract_params),
                     nu=tree_map(meta, abstract_params),
                     count=torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def opt_state_axes(param_axes: Any) -> OptState:
+    """Logical-axis tree for the optimizer state (mirrors parameters)."""
+    return OptState(mu=param_axes, nu=param_axes, count=())
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank (sharing its storage); a tensor
+    itself."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def lr_schedule(ocfg: OptimizerConfig, step) -> torch.Tensor:
@@ -76,11 +92,41 @@ def _slices(t: torch.Tensor):
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    leaves = [sum(x.float().square().sum() for x in _slices(t))
-              for t in tree_leaves(tree) if t.numel()]
+    """The 2-norm of every leaf together, a plain tensor.  A DTensor leaf
+    counts its local block once: the block's sum of squares is divided by
+    the ranks holding a copy of it (its mesh dimensions that replicate),
+    and one all-reduce adds them up."""
+    leaves, mesh = [], None
+    for t in tree_leaves(tree):
+        if not t.numel():
+            continue
+        local = _local(t)
+        sq = sum(x.float().square().sum() for x in _slices(local))
+        if is_dtensor(t):
+            mesh = t.device_mesh
+            copies = 1
+            for dim, pl in enumerate(t.placements):
+                copies *= 1 if pl.is_shard() else mesh.size(dim)
+            sq = sq / copies
+        leaves.append(sq)
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    total = torch.sum(torch.stack(leaves))
+    if mesh is not None:   # the mesh spans the process group
+        import torch.distributed as dist
+        from torch.distributed import _functional_collectives as funcol
+        total = funcol.all_reduce(total, "sum", dist.group.WORLD)
+    return torch.sqrt(total)
+
+
+def _to_param_placements(grads: Any, params: Any) -> Any:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (a gradient may come back partial, or laid out otherwise)."""
+    it = iter(g.redistribute(p.device_mesh, p.placements)
+              if is_dtensor(g) and tuple(g.placements) != tuple(p.placements)
+              else g
+              for g, p in zip(tree_leaves(grads), tree_leaves(params)))
+    return tree_map(lambda _: next(it), grads)
 
 
 def _quantize_grads(grads: Any, mode: str) -> Any:
@@ -115,6 +161,7 @@ def apply_updates(
     tensors of ``params`` and ``state`` (each must be contiguous) and
     returns those trees with the new count, and the metrics ``grad_norm``
     (before clipping) and ``lr``."""
+    grads = _to_param_placements(grads, params)
     grads = _quantize_grads(grads, ocfg.grad_compression)
     gnorm = global_norm(grads)
     clip = torch.clamp(ocfg.grad_clip_norm / torch.clamp(gnorm, min=1e-12),
@@ -142,6 +189,7 @@ def apply_updates(
 
     for p, g, m, v in zip(*map(tree_leaves, (params, grads, state.mu,
                                               state.nu))):
+        p, g, m, v = map(_local, (p, g, m, v))
         if not all(t.is_contiguous() for t in (p, m, v)):
             raise ValueError("apply_updates updates contiguous parameter "
                              "and moment tensors in place")

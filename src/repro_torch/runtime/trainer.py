@@ -3,13 +3,18 @@
 
 Responsibilities
   * run the train step eagerly on the trainer's device (the reference jits
-    and donates; here the optimizer updates its tensors in place),
+    and donates; here the optimizer updates its tensors in place) — under
+    a mesh (``torch.distributed`` ``DeviceMesh``) with parameters,
+    optimizer state and batches as DTensors placed by the logical-axis
+    rules,
   * checkpoint/restart: async checkpoints every N steps; on a step failure
     the trainer restores the latest complete checkpoint and *replays* —
     the data pipeline is deterministic per step, so recovery is exact,
-  * straggler mitigation: per-step wall time vs the perf-model prediction.
-
-Elastic scaling (``reshard``) and any mesh wait for ROADMAP queue A item 5.
+  * straggler mitigation: per-step wall time vs the perf-model prediction,
+  * elastic scaling: ``reshard(state, new_mesh)`` re-lays-out parameters
+    and optimizer state under another mesh (or none).  A DTensor cannot
+    be redistributed across meshes, so each leaf goes through its whole
+    tensor.
 
 Failure injection for tests: pass ``failure_hook(step) -> bool``; a True
 return raises a simulated device failure *after* the step executed, which
@@ -29,12 +34,10 @@ from repro_torch.data.pipeline import make_batch_iterator
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import place_tree, tree_map
 from repro_torch.optim import adamw
 from repro_torch.runtime.straggler import StragglerMonitor
-
-_MESH = "training over a mesh (sharded params, reshard): ROADMAP queue A " \
-        "item 5"
+from repro_torch.sharding import tree_shardings, use_mesh
 
 
 class SimulatedFailure(RuntimeError):
@@ -53,11 +56,11 @@ class Trainer:
                  predicted_step_s: Optional[float] = None,
                  failure_hook: Optional[Callable[[int], bool]] = None,
                  device: DeviceLike = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         self.run = run
         self.cfg = run.model
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device_type)
         self.ckpt = CheckpointManager(run.checkpoint_dir,
                                       keep=run.keep_checkpoints)
         self.monitor = StragglerMonitor(
@@ -69,7 +72,28 @@ class Trainer:
     # ------------------------------------------------------------------
     def _build(self):
         self._abs_params = lm.abstract_params(self.cfg)
-        self._train_step = make_train_step(self.run)
+        if self.mesh is not None:
+            self._param_sh = tree_shardings(
+                lm.param_axes(self.cfg), self._abs_params, mesh=self.mesh)
+            self._opt_sh = adamw.opt_state_axes(self._param_sh)._replace(
+                count=None)
+        else:
+            self._param_sh = self._opt_sh = None
+        step = make_train_step(self.run)
+        if self.mesh is None:
+            self._train_step = step
+        else:
+            def sharded_step(params, opt_state, batch):
+                from torch.distributed.tensor.experimental import \
+                    implicit_replication
+                # tensors the model makes itself (positions, masks) are
+                # the same on every rank: replicated
+                with use_mesh(self.mesh), implicit_replication():
+                    params, opt_state, metrics = step(params, opt_state,
+                                                      batch)
+                return params, opt_state, {k: _whole(v)
+                                           for k, v in metrics.items()}
+            self._train_step = sharded_step
 
     @staticmethod
     def _trainable(params: Any) -> Any:
@@ -78,7 +102,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = self._trainable(lm.init(gen, self.cfg, self.device))
+        params = lm.init(gen, self.cfg, self.device)
+        if self._param_sh is not None:
+            params = place_tree(params, self._param_sh)
+        params = self._trainable(params)
         opt = adamw.init_opt_state(params, self.run.optimizer)
         return TrainState(params, opt, 0)
 
@@ -93,6 +120,7 @@ class Trainer:
     def _sync(value: Any) -> None:
         """Wait for the card to finish the step (the reference's
         ``block_until_ready``)."""
+        value = _whole(value)
         if isinstance(value, torch.Tensor) and value.is_cuda:
             torch.cuda.synchronize(value.device)
 
@@ -100,8 +128,9 @@ class Trainer:
               *, log_every: int = 10) -> TrainState:
         run = self.run
         it_step = state.step
-        batches = make_batch_iterator(self.cfg, run.shape, seed=run.seed,
-                                      start_step=it_step, device=self.device)
+        batches = make_batch_iterator(self.cfg, run.shape, self.mesh,
+                                      seed=run.seed, start_step=it_step,
+                                      device=self.device)
         retries = 0
         while state.step < num_steps:
             batch = next(batches)
@@ -122,7 +151,7 @@ class Trainer:
                 else:
                     state = self.load(latest)
                 batches = make_batch_iterator(
-                    self.cfg, run.shape, seed=run.seed,
+                    self.cfg, run.shape, self.mesh, seed=run.seed,
                     start_step=state.step, device=self.device)
                 self.metrics_log.append(
                     {"step": state.step, "event": "restored",
@@ -153,10 +182,41 @@ class Trainer:
         opt_abs = adamw.abstract_opt_state(self._abs_params,
                                            self.run.optimizer)
         abs_tree = {"params": self._abs_params, "opt": opt_abs}
-        tree = self.ckpt.restore(step, abs_tree, device=self.device)
+        sh_tree = {"params": self._param_sh, "opt": self._opt_sh} \
+            if self._param_sh is not None else None
+        tree = self.ckpt.restore(step, abs_tree, sh_tree, device=self.device)
         return TrainState(self._trainable(tree["params"]), tree["opt"], step)
 
     # ------------------------------------------------------------------
     def reshard(self, state: TrainState, new_mesh) -> TrainState:
-        """Elastic scaling onto another mesh: not yet in the port."""
-        raise NotImplementedError(_MESH)
+        """Elastic scaling: move the state onto another mesh (None: one
+        device, plain tensors) and rebuild the step for it.  Each leaf
+        goes through its whole tensor, bit for bit."""
+        whole = _map(lambda t: _whole(t.detach()),
+                     {"params": state.params, "opt": state.opt_state})
+        self.mesh = new_mesh
+        if new_mesh is not None:
+            self.device = resolve_device(new_mesh.device_type)
+        self._build()
+        moved = _map(lambda t: t.to(self.device).contiguous(), whole)
+        if new_mesh is not None:
+            moved = place_tree(moved, {"params": self._param_sh,
+                                       "opt": self._opt_sh})
+        return TrainState(self._trainable(moved["params"]), moved["opt"],
+                          state.step)
+
+
+def _map(fn: Callable, tree: Any) -> Any:
+    """``fn`` over the tensors of a tree of dicts and NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    return fn(tree)
+
+
+def _whole(t: Any) -> Any:
+    """A DTensor gathered whole (every rank of its mesh calls this); any
+    other value itself."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t

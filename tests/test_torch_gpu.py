@@ -988,15 +988,15 @@ def test_mamba2_ssd_on_unaligned_operands(cuda, B, S, H, P, N, chunk):
     """Every operand a contiguous view one float past a 16-byte boundary
     (P and N multiples of 4, where the kernels would stage 16 bytes at a
     time): the forward the same bits as on aligned copies (the staging
-    copies the same floats) and within 1e-4 × max |y| of the float64
-    plain version, and the backward on the five passes, each gradient
-    within 1e-4 × its max |g| of the float64 vjp."""
+    copies the same floats) and within the reference's elementwise f32
+    tolerance of the float64 plain version, and the backward on the five
+    passes, each gradient within 1e-4 × its max |g| of the float64
+    vjp."""
     aligned = _ssd_operands(cuda, B, S, H, P, N, 0.0)
     x, da, bm, cm, dy = (_unaligned(t.cpu().numpy(), cuda) for t in aligned)
     y = tops.mamba2_ssd(x, da, bm, cm, chunk=chunk)
     assert torch.equal(y, tops.mamba2_ssd(*aligned[:4], chunk=chunk))
-    _hold_gradients((y,), (tref.ssd_ref(*(t.double() for t in
-                                          (x, da, bm, cm))),), "float32")
+    _check(y, tref.ssd_ref, x, da, bm, cm)
     before = dict(tssd.bwd_route_launches)
     got = tssd.mamba2_ssd_bwd_cuda(x, da, bm, cm, dy, chunk)
     assert {r: n - before[r] for r, n in tssd.bwd_route_launches.items()} \
@@ -1004,6 +1004,16 @@ def test_mamba2_ssd_on_unaligned_operands(cuda, B, S, H, P, N, chunk):
     want = tref.plain_vjp(tref.ssd_ref, [t.double() for t in
                                          (x, da, bm, cm)], dy.double())
     _hold_gradients(got, want, "float32")
+
+
+@pytest.mark.gpu
+def test_mamba2_ssd_forward_at_zamba2_layer_width(cuda):
+    """The forward at zamba2-7b's layer (B 1, S 4096, H 112, P = N = 64,
+    its chunk 256) within the reference's elementwise f32 tolerance of
+    the float64 plain version, on seeds 60–63 as the other SSD cases."""
+    x, da, bm, cm, _ = _ssd_operands(cuda, 1, 4096, 112, 64, 64, 0.0)
+    _check(tops.mamba2_ssd(x, da, bm, cm, chunk=256), tref.ssd_ref, x, da,
+           bm, cm)
 
 
 @pytest.mark.gpu

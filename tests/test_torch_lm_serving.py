@@ -251,7 +251,8 @@ def test_serve_cli_on_the_host_and_its_refusals():
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])["serve"]
     assert res["arch"] == "xlstm-125m" and res["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    assert "mesh={'data': 1, 'model': 1}" in out.stdout
+    with pytest.raises(ValueError, match="1 device"):
         serve.main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
                     "--model-parallel", "2"])
     if not torch.cuda.is_available():

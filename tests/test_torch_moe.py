@@ -2,7 +2,7 @@
 ``tests/test_moe.py``'s five scatter cases and the reference's
 ``apply_moe`` (y and both aux values), with the reference's expert
 weights carried over; top-k's tie order against ``lax.top_k``; the
-all-to-all dispatch raises until ROADMAP queue A item 5."""
+all-to-all dispatch falls back to the scatter without a mesh."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,15 +128,23 @@ def test_top_k_breaks_ties_as_lax_top_k():
 
 
 def test_a2a_dispatch_raises_until_the_mesh_is_ported():
+    """``moe_impl="a2a"`` dispatches to ``models.moe_a2a``; without a
+    mesh (no "model" axis) it is the reference's fallback to the
+    scatter, so the layer and the whole model give the scatter's results
+    bit for bit.  The all-to-all itself at 8 ranks:
+    ``tests/test_torch_mesh.py``."""
     cfg = get_smoke_config("deepseek-v2-236b")
     params = lm.init(torch.Generator().manual_seed(0), cfg)
     layer = jax.tree.map(lambda t: t[0], params["body"])["b0"]
-    ctx = layers.Ctx(cfg=cfg, mode="train",
-                     positions=torch.zeros((1, 4), dtype=torch.long),
-                     moe_impl="a2a")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        moe.apply_moe_layer(layer, torch.zeros((1, 4, cfg.d_model)), ctx)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        lm.forward(params, cfg, {"tokens": torch.zeros((1, 4),
-                                                       dtype=torch.long)},
-                   moe_impl="a2a")
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    got = {}
+    for impl in ("scatter", "a2a"):
+        ctx = layers.Ctx(cfg=cfg, mode="train",
+                         positions=torch.arange(4)[None], moe_impl=impl)
+        y, _, aux = moe.apply_moe_layer(layer, x, ctx)
+        logits, _, _ = lm.forward(params, cfg, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.long)}, moe_impl=impl)
+        got[impl] = (y, aux["moe_aux_loss"], logits)
+    for a, b in zip(got["scatter"], got["a2a"]):
+        assert torch.equal(a, b)

@@ -38,6 +38,7 @@ from repro_torch.configs.base import InputShape, OptimizerConfig, RunConfig
 from repro_torch.data import SyntheticLMDataset, make_batch_iterator
 from repro_torch.launch import train as train_cli
 from repro_torch.launch import train_lm
+from repro_torch.models.param import tree_leaves
 from repro_torch.optim import adamw
 from repro_torch.profiles import profile
 from repro_torch.runtime import StragglerMonitor, Trainer
@@ -221,17 +222,38 @@ def test_straggler_monitor_median_fallback():
 
 
 def test_reshard_and_a_mesh_raise_until_the_mesh_is_ported(tmp_path):
-    """The reference's elastic reshard moves state onto a new mesh; the
-    port has no mesh yet (ROADMAP queue A item 5) and says so."""
-    run = _tiny_run(tmp_path)
-    tr = Trainer(run, device=CPU)
-    state = tr.train(tr.restore_or_init(), 1, log_every=0)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        tr.reshard(state, object())
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        Trainer(run, mesh=object(), device=CPU)
-    assert train_cli.main(["--arch", "yi-6b", "--smoke",
-                           "--model-parallel", "2", "--device", CPU]) == 2
+    """The reference's elastic reshard
+    (``test_elastic_reshard_preserves_state``): the state moves onto a
+    1 × 1 gloo mesh with its step, each parameter bit for bit, and keeps
+    training there; a checkpoint saved under the mesh restores under its
+    placements; ``--model-parallel 2`` on one device fails in
+    ``make_host_mesh``, naming the device count."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device=CPU)
+    try:
+        run = _tiny_run(tmp_path)
+        tr = Trainer(run, device=CPU)
+        state = tr.train(tr.restore_or_init(), 3, log_every=0)
+        state2 = tr.reshard(state, mesh)
+        assert state2.step == state.step
+        for a, b in zip(tree_leaves(state.params),
+                        tree_leaves(state2.params)):
+            assert isinstance(b, DTensor)
+            assert torch.equal(a.detach(), b.full_tensor().detach())
+        state3 = tr.train(state2, 5, log_every=0)
+        assert state3.step == 5
+        tr.save(state3, blocking=True)
+        back = tr.load(5)
+        for a, b in zip(tree_leaves(state3.params), tree_leaves(back.params)):
+            assert b.placements == a.placements
+            assert torch.equal(a.full_tensor(), b.full_tensor())
+        with pytest.raises(ValueError, match="1 device"):
+            train_cli.main(["--arch", "yi-6b", "--smoke",
+                            "--model-parallel", "2", "--device", CPU])
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
