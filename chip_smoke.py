@@ -223,6 +223,26 @@ Phases, each fatal on failure:
    dropped (:func:`moe_a2a_path`); (d) the ``DRYRUN_CELLS`` dry-runs,
    each in its own process started before (b) and collected after (c),
    each ``status: ok``.  One ``{"mesh": ...}`` line.
+19. (after phase 18, before that ``kernels`` line) the roofline: (a)
+   one more step of gemma2-9b at phase 16 (b)'s cut, zamba2-7b and
+   xlstm-125m at phase 17 (b)'s, on the card under
+   ``core.opcost.OpRecorder`` and ``FlopCounterMode``, the counters set
+   to 0 before and read after: exactly ``TRAIN_STEP_LAUNCHES`` /
+   ``RECURRENT_STEP_LAUNCHES``; the walk priced on ``H100_SXM`` (compute
+   and memory terms, dominant term, ``useful_ratio``, the top five ops
+   by bytes and by FLOPs) and its roofline time's share of the median
+   step phases 16 (b) / 17 (b) measured without the modes; fatal if a
+   measured step beats its roofline or the walk counts fewer FLOPs than
+   ``FlopCounterMode`` (:func:`roofline_step_path`); before it, in a
+   child process (``--walk-check``), a sharded product on 8 fake ranks
+   walked to exactly its FLOPs ÷ 8, its sum's all-reduce at the ring's
+   wire bytes (:func:`walk_check_main`); (b) phase 18 (d)'s records
+   priced by ``core.roofline.roofline_table`` — the three terms, the
+   dominant one, MFU at the roofline, HBM a device against the card's —
+   and ``python -m repro_torch.studies.run roofline`` over them; fatal
+   on a row not ``ok``, a ``.FAILED`` bench row, or walked FLOPs a
+   device × devices below the record's (:func:`roofline_cells_path`).
+   One ``{"roofline": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -246,7 +266,9 @@ after them, which fails unless the attention kernels launched exactly
 ``TRAIN_STEP_LAUNCHES`` a step; and set to 0 before each of phase 17
 (b)'s runs and read after it, which fails unless every model-layer
 kernel, forward and backward, launched exactly
-``RECURRENT_STEP_LAUNCHES`` a step.  Without a
+``RECURRENT_STEP_LAUNCHES`` a step; and set to 0 before each of phase 19
+(a)'s walked steps and read after it, which fails unless it launched
+exactly one step's count.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -2662,6 +2684,25 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
     return out
 
 
+def train_run(make_run_config, InputShape, OptimizerConfig, configs, tmp,
+              *, arch, layers, batch) -> tuple:
+    """(cfg, run, shape) of phases 16 (b), 17 (b) and 19 (a): ``arch`` at
+    full width (cut to ``layers`` when not None), train_4k cut to seq
+    ``TRAIN_SEQ`` and global batch ``batch`` in its preset's
+    microbatches, lr 1e-3 warmup 1, no checkpoints."""
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    run = make_run_config(arch, "train_4k", model_config=cfg)
+    shape = InputShape("train_4k_cut", TRAIN_SEQ, batch, "train")
+    run = run.replace(shape=shape, checkpoint_every=0,
+                      checkpoint_dir=str(tmp / f"train_ckpt_{arch}"),
+                      optimizer=OptimizerConfig(learning_rate=1e-3,
+                                                warmup_steps=1,
+                                                total_steps=100))
+    return cfg, run, shape
+
+
 def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
                configs, counting, tree_leaves, counts, zero_counts, dev,
                tmp, *, arch, layers, batch, steps, launches,
@@ -2678,16 +2719,9 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     backward, ``models.counting``) and with remat's recompute (8·N·tokens
     + 4/3 of attention), over 989 TFLOP/s.  Peak memory over the run."""
     import torch
-    cfg = configs.get_config(arch)
-    if layers is not None:
-        cfg = cfg.replace(num_layers=layers)
-    run = make_run_config(arch, "train_4k", model_config=cfg)
-    shape = InputShape("train_4k_cut", TRAIN_SEQ, batch, "train")
-    run = run.replace(shape=shape, checkpoint_every=0,
-                      checkpoint_dir=str(tmp / f"train_ckpt_{arch}"),
-                      optimizer=OptimizerConfig(learning_rate=1e-3,
-                                                warmup_steps=1,
-                                                total_steps=100))
+    cfg, run, shape = train_run(make_run_config, InputShape,
+                                OptimizerConfig, configs, tmp, arch=arch,
+                                layers=layers, batch=batch)
     flops = counting.model_flops(cfg, shape)
     attn = counting.attention_flops(cfg, shape)
     bound_ms = (flops + attn) / PEAK_BF16_FLOPS * 1e3
@@ -3193,6 +3227,15 @@ def moe_a2a_path(configs, init_tree, moe, moe_a2a, axes_tree, place,
             "tokens": list(MOE_TOKENS)}
 
 
+def dryrun_dir(tmp) -> Path:
+    """Where phase 18 (d)'s dry-runs write under the smoke's temporary
+    directory ``tmp``: the roofline bench's own directory
+    (``studies.roofline_bench.DRYRUN_DIR``) under its working directory,
+    so that phase 19 (b) runs the bench from ``tmp``."""
+    from repro_torch.studies.roofline_bench import DRYRUN_DIR
+    return tmp / DRYRUN_DIR
+
+
 def start_dryruns(tmp) -> list:
     """Phase 18 (d): each ``DRYRUN_CELLS`` cell's dry-run in its own
     process, started now; :func:`collect_dryruns` waits for them."""
@@ -3200,7 +3243,7 @@ def start_dryruns(tmp) -> list:
     return [(cell, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          cell[0], "--shape", cell[1], "--mesh", cell[2], "--out",
-         str(tmp / "dryrun")], stdout=subprocess.PIPE,
+         str(dryrun_dir(tmp))], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT))
         for cell in DRYRUN_CELLS]
 
@@ -3217,7 +3260,7 @@ def collect_dryruns(started, tmp) -> dict:
             proc.kill()
             proc.communicate()
             raise SystemExit(f"dry-run {arch} {shape} {mesh}: timed out")
-        path = tmp / "dryrun" / f"{arch}__{shape}__{mesh}.json"
+        path = dryrun_dir(tmp) / f"{arch}__{shape}__{mesh}.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
         log(f"dry-run {arch} × {shape} × {mesh}: {rec.get('status')} in "
             f"{rec.get('total_s')} s (trace {rec.get('trace_s')} s), mesh "
@@ -3231,6 +3274,420 @@ def collect_dryruns(started, tmp) -> dict:
             raise SystemExit(f"dry-run {arch} {shape} {mesh}: the FLOP "
                              f"count lacks {DRYRUN_KERNEL_OPS[arch]}")
         out[f"{arch}__{shape}__{mesh}"] = rec
+    return out
+
+
+#: phase 19 (a): the custom ops a launch counter's kernel is recorded as
+#: (each launcher reports its launch under one, ``kernels/_observe.py``)
+KERNEL_OPS = {
+    "flash_attention": ("flash_attention",),
+    "flash_attention_bwd": ("flash_attention_bwd",),
+    "mamba2_ssd": ("mamba2_ssd", "mamba2_ssd_state"),
+    "mamba2_ssd_bwd": ("mamba2_ssd_bwd",),
+    "slstm_cell": ("slstm_cell", "slstm_cell_state", "slstm_cell_traj"),
+    "slstm_cell_bwd": ("slstm_cell_bwd",)}
+#: phase 19 (b): the dry-run cells whose MLP and query / output
+#: projections must run split over the mesh as the rules put them
+LAYOUT_CELLS = ("gemma2-9b__train_4k__single",)
+
+
+def launch_counters():
+    """(counts, zero_counts) of every hand kernel's launch counter: the
+    six kernels' ``launches``, the microbenchmarks', and the three
+    backward kernels' ``backward_launches`` (as ``<kernel>_bwd``)."""
+    from repro_torch.kernels import (dg_diff, flash_attention, mamba2_ssd,
+                                     matmul_tiled, microbench, slstm_cell,
+                                     stencil5)
+    single = (matmul_tiled, stencil5, dg_diff, flash_attention, mamba2_ssd,
+              slstm_cell)
+    with_backward = (flash_attention, mamba2_ssd, slstm_cell)
+
+    def counts():
+        return {**{m.__name__.rsplit(".", 1)[1]: m.launches for m in single},
+                **microbench.launches,
+                **{m.__name__.rsplit(".", 1)[1] + "_bwd": m.backward_launches
+                   for m in with_backward}}
+
+    def zero_counts():
+        for m in single:
+            m.launches = 0
+        for m in with_backward:
+            m.backward_launches = 0
+        for name in microbench.launches:
+            microbench.launches[name] = 0
+    return counts, zero_counts
+
+
+def launch_flops(cfg, batch: int, seq: int) -> dict:
+    """Phase 19 (a): {launch counter: FLOPs of one launch} of the
+    model-layer kernels a train step of ``cfg`` runs on microbatches of
+    ``batch`` rows of ``seq`` tokens, by ``kernels/flops.py``'s formulas
+    on ``meta`` operands shaped as the model layers shape them: the
+    attention's q [B, S, Hq, D] and k, v [B, S, Hkv, D]; the SSD's x
+    [B, S, H, P], da [B, S, H] and B, C [B, S, H, N] (H = expand ·
+    d_model / P) at chunk min(chunk_size, S); the sLSTM's gates [B, S,
+    4, H, dh], R [H, dh, 4, dh] and b [4, H, dh] (dh = d_model / H), its
+    backward's trajectory [B, S, 7, H, dh]."""
+    import torch
+    from torch.utils.flop_counter import flop_registry
+
+    from repro_torch.kernels import flops  # noqa: F401 (the formulas)
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    def formula(op, *args):
+        return float(flop_registry[getattr(torch.ops.repro_torch, op)](
+            *args, out_val=None))
+    b, s, out = batch, seq, {}
+    a = cfg.attention
+    if a.kind != "none":
+        q = meta(b, s, a.num_heads, a.head_dim)
+        kv = meta(b, s, a.num_kv_heads, a.head_dim)
+        out["flash_attention"] = formula("flash_attention", q, kv, kv)
+        out["flash_attention_bwd"] = formula("flash_attention_bwd", q, q,
+                                             kv, kv)
+    if cfg.ssm is not None:
+        m = cfg.ssm
+        h = m.expand * cfg.d_model // m.head_dim
+        x, da, bc = (meta(b, s, h, m.head_dim), meta(b, s, h),
+                     meta(b, s, h, m.d_state))
+        chunk = min(m.chunk_size, s)
+        out["mamba2_ssd"] = formula("mamba2_ssd", x, da, bc, bc, chunk)
+        out["mamba2_ssd_bwd"] = formula("mamba2_ssd_bwd", x, da, bc, bc, x,
+                                        chunk)
+    if cfg.xlstm is not None:
+        h = cfg.xlstm.num_heads
+        dh = cfg.d_model // h
+        r, y = meta(h, dh, 4, dh), meta(b, s, h, dh)
+        out["slstm_cell"] = formula("slstm_cell", meta(b, s, 4, h, dh), r,
+                                    meta(4, h, dh))
+        out["slstm_cell_bwd"] = formula(
+            "slstm_cell_bwd", meta(b, s, 7, h, dh), y, r, y)
+    return out
+
+
+def roofline_step_path(counts, zero_counts, dev, tmp, *, arch, layers,
+                       batch, launches, measured) -> dict:
+    """Phase 19 (a): one more step of ``arch`` at phase 16 (b)'s / 17
+    (b)'s cut (:func:`train_run`) on the card under ``OpRecorder`` and,
+    inside it, ``FlopCounterMode``; the counters set to 0 before and read
+    after must show ``launches`` exactly (the modes change nothing on the
+    path).  The walk priced by ``OpCostAnalyzer`` into a ``RooflineRow``
+    on ``H100_SXM``: the compute and memory terms, the dominant term,
+    ``useful_ratio``, the top five ops by bytes and by FLOPs, and the
+    roofline time's share of the median of ``measured`` (phase 16 (b)'s /
+    17 (b)'s host-clock steps, taken without the modes).  Fails if any
+    measured step is faster than the roofline time, the walk counts
+    fewer FLOPs than ``FlopCounterMode`` (which cannot see the hand
+    kernels), or the walk's FLOPs of a kernel (its launchers' reports,
+    :data:`KERNEL_OPS`) differ from its launches × one launch's by
+    ``kernels/flops.py`` at the step's shapes (:func:`launch_flops`)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.configs import InputShape, OptimizerConfig
+    from repro_torch.core.opcost import OpCostAnalyzer, OpRecorder
+    from repro_torch.core.roofline import H100_SXM, RooflineRow
+    from repro_torch.launch.presets import make_run_config
+    from repro_torch.models import counting
+    from repro_torch.runtime import Trainer
+    cfg, run, shape = train_run(make_run_config, InputShape,
+                                OptimizerConfig, configs, tmp, arch=arch,
+                                layers=layers, batch=batch)
+    trainer = Trainer(run, device=dev)
+    state = trainer.init_state(run.seed)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with OpRecorder() as rec, FlopCounterMode(display=False) as fc:
+        trainer.train(state, 1, log_every=0)
+    torch.cuda.synchronize()
+    walked_s = time.perf_counter() - t0
+    launched = {name: counts()[name] for name in launches}
+    entries = rec.entries()
+    walker = OpCostAnalyzer(entries, track_breakdown=True)
+    cost = walker.entry_cost()
+    row = RooflineRow(arch=arch, shape=shape.name, mesh="none", chips=1,
+                      hlo_flops=cost.flops, hlo_bytes=cost.bytes,
+                      coll_wire_bytes=cost.collective_wire_bytes,
+                      model_flops_total=counting.model_flops(cfg, shape)
+                      ).finish(H100_SXM)
+    counted = float(fc.get_total_flops())
+    per_launch = launch_flops(cfg, batch // run.microbatches,
+                              shape.seq_len)
+    kernel_flops = {name: {
+        "walked": sum(e.get("flops") or 0.0 for e in entries
+                      if e["op"] in {f"repro_torch.{op}"
+                                     for op in KERNEL_OPS[name]}),
+        "want": n * per_launch.get(name, 0.0)}
+        for name, n in launches.items()}
+    steps_s = sorted(r["wall_s"] for r in measured)
+    median_s = steps_s[len(steps_s) // 2] if len(steps_s) % 2 else \
+        (steps_s[len(steps_s) // 2 - 1] + steps_s[len(steps_s) // 2]) / 2
+
+    def top(breakdown):
+        return {k: v for k, v in sorted(breakdown.items(),
+                                        key=lambda kv: -kv[1])[:5]}
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
+           "microbatches": run.microbatches, "calls": rec.calls,
+           "distinct_ops": len(entries), "flops": cost.flops,
+           "bytes": cost.bytes, "transcendentals": cost.transcendentals,
+           "flop_counter_flops": counted, "kernel_flops": kernel_flops,
+           "t_compute_s": row.t_compute,
+           "t_memory_s": row.t_memory, "dominant": row.dominant,
+           "roofline_s": row.roofline_time,
+           "useful_ratio": row.useful_ratio,
+           "model_flops": row.model_flops_total,
+           "median_step_s": median_s, "steps_s": steps_s,
+           "share_of_roofline": row.roofline_time / median_s,
+           "walked_step_s": walked_s, "launches": launched,
+           "top_bytes": top(walker.byte_breakdown),
+           "top_flops": top(walker.flop_breakdown)}
+    log(f"{arch} step walked on the card: {rec.calls} op calls "
+        f"({out['distinct_ops']} distinct), {cost.flops:.4g} FLOPs "
+        f"(FlopCounterMode {counted:.4g}), {cost.bytes:.4g} bytes; compute "
+        f"{row.t_compute:.4g} s, memory {row.t_memory:.4g} s, "
+        f"{row.dominant}-bound; useful {row.useful_ratio:.3f}; the "
+        f"roofline {row.roofline_time:.4g} s is "
+        f"{out['share_of_roofline']:.1%} of the median step "
+        f"{median_s:.4g} s (steps {[round(x, 4) for x in steps_s]}); "
+        f"walked in {walked_s:.1f} s; launches {launched} (want "
+        f"{launches})")
+    log(f"{arch} kernel FLOPs walked / launches × kernels/flops.py "
+        f"{kernel_flops}")
+    log(f"{arch} top bytes {out['top_bytes']}")
+    log(f"{arch} top FLOPs {out['top_flops']}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    if launched != launches:
+        raise SystemExit(f"{arch}: the walked step launched {launched}, "
+                         f"not {launches}")
+    if steps_s[0] < row.roofline_time:
+        raise SystemExit(f"{arch}: a measured step ({steps_s[0]:.4g} s) "
+                         f"beat its roofline ({row.roofline_time:.4g} s): "
+                         f"the walk overcounts")
+    if cost.flops < counted:
+        raise SystemExit(f"{arch}: the walk counts {cost.flops:.6g} FLOPs, "
+                         f"FlopCounterMode {counted:.6g}")
+    if any(not math.isclose(k["walked"], k["want"], rel_tol=1e-12)
+           for k in kernel_flops.values()):
+        raise SystemExit(f"{arch}: the walk's kernel FLOPs {kernel_flops} "
+                         f"(walked / want)")
+    return out
+
+
+def layout_split(entries, run, mesh_shape) -> dict:
+    """Phase 19 (b)'s layout check of a dry-run cell's op program
+    ``entries`` (rank 0's; the run ``run``, its mesh ``mesh_shape``):
+    per device, the FLOPs of the products holding the MLP's width ÷ the
+    model axis (d_ff) and the query and output projections' (heads ·
+    head_dim), each against the even split the rules imply — "ff" and
+    "heads" on the model axis, the batch on the others — under remat
+    "full": each weight in four products a microbatch (forward,
+    recompute, input gradient, weight gradient), 2 · tokens · d_model ·
+    width FLOPs each over all devices; and the FLOPs of the products
+    holding either width whole, which must be 0.  The key/value
+    projections are not held: where the key/value heads do not split
+    over the model axis (gemma2-9b: 8 over 16) the rules replicate
+    them, and the attention kernel runs replicated."""
+    from repro_torch.core.opcost import product_flops
+    cfg, shape = run.model, run.shape
+    if run.remat != "full":
+        raise SystemExit(f"layout check: remat {run.remat!r}, not 'full'")
+    chips = math.prod(mesh_shape.values())
+    model = mesh_shape["model"]
+    tokens = shape.global_batch * shape.seq_len
+    a = cfg.attention
+    widths = {"mlp": (cfg.d_ff, 3 if cfg.activation.endswith("_glu")
+                      else 2),
+              "q_o": (a.num_heads * a.head_dim, 2)}
+    out = {}
+    for name, (width, weights) in widths.items():
+        out[name] = {
+            "width": width, "local_width": width // model,
+            "walked": product_flops(entries, width // model),
+            "want": weights * 4 * 2 * tokens * cfg.d_model * width
+            * cfg.num_layers / chips,
+            "whole_width": product_flops(entries, width)}
+    return out
+
+
+def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
+    """Phase 19 (b): phase 18 (d)'s dry-run records priced by
+    ``roofline_table`` (each mesh's) on ``H100_SXM``, and ``python -m
+    repro_torch.studies.run`` with ``bench_args`` run over them (from
+    ``tmp``, whose ``runs/dryrun_torch`` they are).  Fails on a row whose
+    status is not ``ok``, a ``.FAILED`` bench row, a missing cell's row,
+    walked FLOPs per device × chips below the record's ``cost.flops``, or
+    a :data:`LAYOUT_CELLS` cell whose MLP or query / output projections
+    do not split as the rules say (:func:`layout_split`)."""
+    import torch
+
+    from repro_torch.core.opcost import parse_ops
+    from repro_torch.core.roofline import (H100_SXM, format_table,
+                                           roofline_table)
+    from repro_torch.launch.presets import make_run_config
+    total = torch.cuda.get_device_properties(dev).total_memory
+    rows = {}
+    for mesh in sorted({m for _, _, m in DRYRUN_CELLS}):
+        table = roofline_table(str(dryrun_dir(tmp)), mesh=mesh,
+                               hw=H100_SXM)
+        for line in format_table(table).splitlines():
+            log(f"roofline {mesh}: {line}")
+        for r in table:
+            rows[f"{r.arch}__{r.shape}__{r.mesh}"] = r
+    out = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        key = f"{arch}__{shape}__{mesh}"
+        r, rec = rows.get(key), cells[key]
+        if r is None or r.status != "ok":
+            raise SystemExit(f"roofline {key}: "
+                             f"{'no row' if r is None else r.note}")
+        walked = r.hlo_flops * r.chips
+        out[key] = {**r.as_dict(), "ops_count": rec["ops_count"],
+                    "walked_flops_total": walked,
+                    "record_flops": rec["cost"]["flops"],
+                    "hbm_per_device_bytes":
+                        rec["memory"]["total_per_device_bytes"],
+                    "device_memory_bytes": total}
+        log(f"roofline {key}: compute {r.t_compute:.4g} s, memory "
+            f"{r.t_memory:.4g} s, collective {r.t_collective:.4g} s, "
+            f"{r.dominant}-bound, MFU at roofline {r.mfu_at_roofline:.4f}, "
+            f"useful {r.useful_ratio:.3f}; {rec['ops_count']} op calls a "
+            f"device, walked {walked:.4g} FLOPs over {r.chips} devices "
+            f"against the record's {rec['cost']['flops']:.4g}; HBM "
+            f"{r.hbm_gb_per_chip:.2f} GiB a device of the card's "
+            f"{total / 2**30:.2f} GiB")
+        if walked < rec["cost"]["flops"]:
+            raise SystemExit(f"roofline {key}: the walk counts "
+                             f"{walked:.6g} FLOPs, the record "
+                             f"{rec['cost']['flops']:.6g}")
+        if key in LAYOUT_CELLS:
+            entries = parse_ops(
+                (dryrun_dir(tmp) / f"{key}.ops.json").read_text())
+            split = layout_split(entries, make_run_config(arch, shape),
+                                 rec["mesh_shape"])
+            out[key]["layout"] = split
+            log(f"roofline {key}: per-device product FLOPs against the "
+                f"rules' even split {split}")
+            if any(v["whole_width"] or not math.isclose(
+                    v["walked"], v["want"], rel_tol=1e-12)
+                    for v in split.values()):
+                raise SystemExit(f"roofline {key}: the layout does not "
+                                 f"split as the rules say: {split}")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.studies.run", *bench_args],
+        capture_output=True, text=True, cwd=tmp, env=env, timeout=300)
+    bench = proc.stdout.splitlines()
+    for line in bench:
+        log(f"bench {line}")
+    names = [line.split(",", 1)[0] for line in bench]
+    want = [f"roofline.{a}.{s}" for a, s, m in DRYRUN_CELLS
+            if m == "single"]
+    if proc.returncode != 0 or any(n.endswith(".FAILED") for n in names) \
+            or not set(want) <= set(names):
+        raise SystemExit(f"the roofline bench: rc {proc.returncode}, rows "
+                         f"{bench}, want {want}; {proc.stderr[-2000:]}")
+    return {"cells": out, "bench": bench}
+
+
+def roofline_phase(counts, zero_counts, measured, cells, tmp, dev, smi,
+                   bench_args=("roofline",)) -> dict:
+    """Phase 19: the walk check (:func:`walk_check_in_child`), one
+    walked step of each of gemma2-9b (phase 16 (b)'s cut), zamba2-7b and
+    xlstm-125m (phase 17 (b)'s) against ``measured`` ({arch: its measured
+    steps}; :func:`roofline_step_path`), then the dry-run ``cells``
+    priced (:func:`roofline_cells_path`).  Returns what the
+    ``{"roofline": ...}`` line prints."""
+    t19 = time.perf_counter()
+    walk_check = walk_check_in_child()
+    walked = {}
+    for arch, layers, batch, launches in (
+            (TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEP_LAUNCHES),
+            *((arch, layers, RECURRENT_BATCH, RECURRENT_STEP_LAUNCHES[arch])
+              for arch, layers in RECURRENT_TRAIN)):
+        walked[arch] = roofline_step_path(
+            counts, zero_counts, dev, tmp, arch=arch, layers=layers,
+            batch=batch, launches=launches, measured=measured[arch])
+    log(f"phase 19 (a) took {time.perf_counter() - t19:.1f} s")
+    t0 = time.perf_counter()
+    priced = roofline_cells_path(cells, tmp, dev, bench_args)
+    log(f"phase 19 (b) took {time.perf_counter() - t0:.1f} s")
+    from repro_torch.core.roofline import H100_SXM
+    return {"steps": walked, **priced, "walk_check": walk_check,
+            "hw": H100_SXM, "seconds": time.perf_counter() - t19,
+            "device": smi}
+
+
+#: the fake ranks of phase 19's walk check
+WALK_CHECK_RANKS = 8
+
+
+def walk_check_main() -> int:
+    """The child of phase 19: on ``WALK_CHECK_RANKS`` ranks of torch's
+    fake process group, a ``Shard(0)`` (1024, 64) @ (64, 32) walked by
+    ``OpRecorder`` must hold each rank's product only — its FLOPs the
+    global product's ÷ ranks exactly, DTensor's global-shape propagation
+    left out on this torch — and the sum's all-reduce its ring wire bytes
+    2·(g − 1)/g × payload.  Prints ``{"walk_check": ...}`` last."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.core.opcost import OpCostAnalyzer, OpRecorder
+    g = WALK_CHECK_RANKS
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=g)
+    try:
+        mesh = init_device_mesh("cpu", (g,), mesh_dim_names=("d",))
+        x = DTensor.from_local(torch.ones(1024 // g, 64), mesh, [Shard(0)],
+                               run_check=False, shape=(1024, 64),
+                               stride=(64, 1))
+        w = DTensor.from_local(torch.ones(64, 32), mesh, [Replicate()],
+                               run_check=False)
+        with OpRecorder() as product:
+            x @ w
+        with OpRecorder() as summed:
+            x.sum().full_tensor()
+    finally:
+        dist.destroy_process_group()
+    walk = OpCostAnalyzer(product.entries(), num_devices=g,
+                          track_breakdown=True)
+    walk.entry_cost()
+    reduce = OpCostAnalyzer(summed.entries(), num_devices=g).entry_cost()
+    ar = reduce.as_dict()["collectives"].get("all-reduce", {})
+    out = {"torch": torch.__version__, "ranks": g,
+           "product_ops": product.entries(),
+           "formula_flops": walk.formula_flops,
+           "want_flops": 2 * 1024 * 64 * 32 / g, "all_reduce": ar}
+    print(json.dumps({"walk_check": out}), flush=True)
+    ok = (walk.formula_flops == {"aten.mm": out["want_flops"]}
+          and ar.get("count", 0) >= 1
+          and ar["wire"] == 2 * (g - 1) / g * ar["payload"])
+    return 0 if ok else 1
+
+
+def walk_check_in_child() -> dict:
+    """:func:`walk_check_main` in a fresh process (the fake group is per
+    process); fails unless it passes."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--walk-check"], capture_output=True, text=True,
+                          cwd=ROOT, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])["walk_check"] if lines else {}
+    log(f"walk check on {out.get('ranks')} fake ranks, torch "
+        f"{out.get('torch')}: per-device product FLOPs "
+        f"{out.get('formula_flops')} (want {out.get('want_flops')}), "
+        f"all-reduce {out.get('all_reduce')}")
+    if proc.returncode != 0:
+        raise SystemExit(f"the walk check failed: {proc.stdout[-2000:]} "
+                         f"{proc.stderr[-2000:]}")
     return out
 
 
@@ -3496,9 +3953,8 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.analysis.targets import f32
     from repro_torch.api import PerfSession
-    from repro_torch.kernels import _build, dg_diff, flash_attention
-    from repro_torch.kernels import mamba2_ssd, matmul_tiled, microbench
-    from repro_torch.kernels import ops, ref, slstm_cell, stencil5
+    from repro_torch.kernels import _build, flash_attention, mamba2_ssd
+    from repro_torch.kernels import ops, ref, slstm_cell
     from repro_torch import studies
     from repro_torch.core import uipick
     from repro_torch.core.countengine import CountEngine
@@ -3570,24 +4026,7 @@ def main() -> int:
     sizes = model_layer_sizes(configs)
     log(f"model-layer real sizes (port configs): {sizes}")
     errs.update(check_model_kernels(ops, ref, variants, dev, sizes))
-    single = (matmul_tiled, stencil5, dg_diff, flash_attention, mamba2_ssd,
-              slstm_cell)
-
-    with_backward = (flash_attention, mamba2_ssd, slstm_cell)
-
-    def counts():
-        return {**{m.__name__.rsplit(".", 1)[1]: m.launches for m in single},
-                **microbench.launches,
-                **{m.__name__.rsplit(".", 1)[1] + "_bwd": m.backward_launches
-                   for m in with_backward}}
-
-    def zero_counts():
-        for m in single:
-            m.launches = 0
-        for m in with_backward:
-            m.backward_launches = 0
-        for name in microbench.launches:
-            microbench.launches[name] = 0
+    counts, zero_counts = launch_counters()
 
     # ---- 3-5. the base-model path, counted ---------------------------------
     zero_counts()
@@ -3926,6 +4365,13 @@ def main() -> int:
         "dryrun": cells, "seconds": time.perf_counter() - t18,
         "device": smi}}), flush=True)
 
+    # ---- 19. the roofline ---------------------------------------------------
+    print(json.dumps({"roofline": roofline_phase(
+        counts, zero_counts,
+        {TRAIN_ARCH: training["steps"],
+         **{arch: trained[arch]["steps"] for arch, _ in RECURRENT_TRAIN}},
+        cells, tmp, dev, smi)}), flush=True)
+
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
                "dg_diff": "src/repro/kernels/dg_diff.py:41",
@@ -4026,4 +4472,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--pass-trace":
         sys.exit(pass_trace_main(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--walk-check":
+        sys.exit(walk_check_main())
     sys.exit(main())

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
 #: launches of the forward CUDA kernel in this process (with or without
@@ -204,6 +204,7 @@ def _forward(q, k, v, causal, window, softcap, scale, lse: bool):
                      scale, 0.0 if softcap is None else softcap,
                      int(causal), -1 if window is None else window)
     launches += 1
+    _observe.launched("flash_attention", (q, k, v), (out, lse_t))
     return out, lse_t
 
 
@@ -257,6 +258,8 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
                      scale, 0.0 if softcap is None else softcap,
                      int(causal), -1 if window is None else window)
     backward_launches += 1
+    _observe.launched("flash_attention_bwd", (dout, q, k, v, lse),
+                      (dq, dk, dv))
     return dq, dk, dv
 
 

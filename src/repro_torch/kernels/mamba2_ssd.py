@@ -30,7 +30,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref, ssd_state_ref
 
 #: calls of ``mamba2_ssd_cuda`` that launched the kernel's passes, in
@@ -166,6 +166,7 @@ def mamba2_ssd_cuda(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     for _, launch in calls:
         launch()
     launches += 1
+    _observe.launched("mamba2_ssd", (xdt, da, bm, cm, chunk), out)
     return out
 
 
@@ -182,6 +183,8 @@ def mamba2_ssd_state_cuda(xdt: torch.Tensor, da: torch.Tensor,
     for _, launch in calls:
         launch()
     launches += 1
+    _observe.launched("mamba2_ssd_state", (xdt, da, bm, cm, chunk),
+                      (out, final))
     return out, final
 
 
@@ -263,6 +266,7 @@ def mamba2_ssd_bwd_cuda(xdt: torch.Tensor, da: torch.Tensor,
         call()
     backward_launches += 1
     bwd_route_launches[route] += 1
+    _observe.launched("mamba2_ssd_bwd", (*operands, chunk), out)
     return out
 
 

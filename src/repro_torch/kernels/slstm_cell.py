@@ -35,7 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _observe
 from repro_torch.kernels.ref import (slstm_cell_bwd_ref,
                                     slstm_cell_fwd_traj_ref, slstm_cell_ref,
                                     slstm_cell_state_ref)
@@ -177,6 +177,10 @@ def _launch(g_in: torch.Tensor, r_gates: torch.Tensor,
                      0 if traj is None else traj.data_ptr(), b, s, h, dh,
                      plan["cluster_blocks"], plan["rows_per_cluster"])
     launches += 1
+    _observe.launched("slstm_cell" if state is None and traj is None else
+                      "slstm_cell_state" if traj is None else
+                      "slstm_cell_traj", (g_in, r_gates, b_gates),
+                      (out, state, traj))
     return out
 
 
@@ -228,6 +232,8 @@ def _bwd_launch(traj: torch.Tensor, h: Optional[torch.Tensor],
                      b, s, hh, dh, plan["cluster_blocks"],
                      plan["rows_per_cluster"])
     backward_launches += 1
+    _observe.launched("slstm_cell_bwd", (traj, h, r_gates, dy),
+                      (dgg, *parts))
     return (dgg, *parts)
 
 

@@ -47,9 +47,20 @@ The record fills, per device (rank 0's blocks; the layout is even):
     ``FlopCounterMode`` sees their local shapes.
 It leaves out the reference's ``alias_bytes`` (no donation in eager
 PyTorch: the train step's in-place update is the alias, counted once in
-the arguments), ``code_bytes`` (no compiled executable), ``hlo_path``
-and ``hlo_chars`` (no HLO), ``lower_s`` and ``compile_s`` (no lowering
-or compiling); ``trace_s`` is the step's traced run.
+the arguments), ``code_bytes`` (no compiled executable), ``lower_s`` and
+``compile_s`` (no lowering or compiling); ``trace_s`` is the step's
+traced run.
+
+In place of the reference's post-SPMD HLO (``hlo_path``, ``hlo_chars``)
+the same traced run records rank 0's per-device program with
+:class:`repro_torch.core.opcost.OpRecorder`: every aten op, kernel custom
+op and functional collective it dispatches on its local blocks (not
+DTensor's global-shape propagation), as (op, operand and result dtypes
+and shapes, written operands, collective group size) → calls, with the
+FLOPs of each op the flop registry knows.  It is written beside the
+record as ``{arch}__{shape}__{mesh}.ops.json``; ``ops_path`` names it and
+``ops_count`` is the calls recorded.  ``core/roofline.py`` prices it
+(``--no-ops`` leaves it out, as the reference's ``--no-hlo``).
 
 Usage (one cell a process: the fake group is per process):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b \\
@@ -58,6 +69,7 @@ Usage (one cell a process: the fake group is per process):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import time
@@ -233,8 +245,11 @@ def _local_mem_tracker():
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
-             overrides=None, *, smoke: bool = False):
+             overrides=None, *, smoke: bool = False,
+             save_ops: bool = True):
     from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.opcost import OpRecorder
 
     out_dir.mkdir(parents=True, exist_ok=True)
     # DTensor warns at every multi-axis gather; the record keeps the result
@@ -257,7 +272,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
             train = SHAPES_BY_NAME[shape_name].kind == "train"
             t1 = time.time()
             mt = _local_mem_tracker()
-            with mt, implicit_replication():
+            recorder = (OpRecorder() if save_ops
+                        else contextlib.nullcontext())
+            with mt, implicit_replication(), recorder:
                 # a train step's parameters are what autograd differentiates
                 fargs = tuple(_materialize(a, s, grad=(i == 0 and train))
                               for i, (a, s) in enumerate(zip(args, in_sh)))
@@ -279,6 +296,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
         mem["total_per_device_bytes"] = mem["argument_bytes"] + \
             mem["temp_bytes"]
         rec["memory"] = mem
+        if save_ops:
+            ops_path = out_dir / \
+                f"{arch}__{shape_name}__{mesh_kind}.ops.json"
+            rec["ops_count"] = recorder.save(ops_path)
+            rec["ops_path"] = str(ops_path)
         print(mem)
         t1 = time.time()
         by_op = step_flops(fn, args, train=train)
@@ -311,6 +333,8 @@ def main(argv=None):
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced config (tests)")
+    ap.add_argument("--no-ops", action="store_true",
+                    help="do not record the per-device op program")
     ap.add_argument("--override", action="append", default=[],
                     help="key=value run-config overrides (repeatable)")
     args = ap.parse_args(argv)
@@ -323,7 +347,8 @@ def main(argv=None):
             pass
         overrides[k] = v
     rec = run_cell(args.arch, args.shape, args.mesh, Path(args.out),
-                   overrides=overrides or None, smoke=args.smoke)
+                   overrides=overrides or None, smoke=args.smoke,
+                   save_ops=not args.no_ops)
     raise SystemExit(0 if rec["status"] == "ok" else 1)
 
 

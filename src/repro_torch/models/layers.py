@@ -369,6 +369,10 @@ def apply_attn(
         if cache is not None:  # prefill: persist K/V into the cache buffers
             new_cache = {"k": store_prefill(cache["k"], k),
                          "v": store_prefill(cache["v"], v)}
+    # XLA carries q's head sharding through the attention; the kernel runs
+    # replicated where the key/value heads do not split over the mesh, so
+    # its output goes back onto the heads before the out projection
+    out = shard_act(out, "batch", "seq", "act_heads", None)
     y = _out_proj(out, p["wo"])
     return shard_act(y, "batch", "seq", "act_embed"), new_cache
 

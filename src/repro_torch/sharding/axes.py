@@ -286,9 +286,31 @@ def logical_to_sharding(
                                                 dim_sizes))
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, and its gradient too —
+    the transpose of jax's ``with_sharding_constraint`` is the same
+    constraint on the cotangent.  DTensor's own redistribute sends the
+    gradient back to the operand's placements, and keeps a gradient that
+    arrives ``Partial`` partial where the operand was: the sum then
+    reaches the products before the constraint unreduced, and DTensor
+    runs them on gathered weights at full width."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
 def shard_act(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """Apply a sharding constraint expressed in logical axes to an
-    activation: a DTensor is redistributed to the resolved placements.
+    activation: a DTensor is redistributed to the resolved placements,
+    and so is its gradient (:class:`_Constrain`).
 
     No-op when no mesh is installed (one device), and for a plain tensor,
     which is local to its rank.
@@ -303,9 +325,11 @@ def shard_act(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    placements = logical_to_placements(logical_axes, mesh,
-                                       dim_sizes=tuple(x.shape))
-    if tuple(x.placements) == tuple(placements):
+    placements = tuple(logical_to_placements(logical_axes, mesh,
+                                             dim_sizes=tuple(x.shape)))
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Constrain.apply(x, placements)
+    if tuple(x.placements) == placements:
         return x
     return x.redistribute(x.device_mesh, placements)
 

@@ -20,14 +20,14 @@ Benches, in the reference's order:
   autotune     pruned against exhaustive timing over the three §8 spaces
   fig1 fig2 fig5 fig7 fig8 fig9 table3
                the paper's figures (:mod:`repro_torch.studies.paper_figures`)
+  roofline     three-term roofline per (arch × shape) from the dry-run's
+               records under ``runs/dryrun_torch``
 
 ``calibration``, ``study``, ``predict``, ``serve``, ``counting`` and
 ``fleet`` time the host and need no card.  ``autotune`` and the figures
 time kernels on ``--device`` (default ``cuda``); ``autotune``, Figs 7–9
 and Table 3 read the ``base`` fit, calibrated on ``--device`` once per
-run.
-The reference's ``roofline`` bench is not in the list: it reads the
-launch dry-run's HLO records, which the port does not have yet.
+run.  ``roofline`` reads files and needs no card.
 """
 from __future__ import annotations
 
@@ -90,6 +90,11 @@ def _autotune(ctx: _Context) -> List[str]:
     return b.rows(b.autotune(ctx.profile(), device=ctx.device))
 
 
+def _roofline(ctx: _Context) -> List[str]:
+    from repro_torch.studies import roofline_bench as b
+    return b.roofline_rows()
+
+
 def _figure(name: str) -> Callable[[_Context], List[str]]:
     def run(ctx: _Context) -> List[str]:
         from repro_torch.studies import paper_figures as pf
@@ -108,6 +113,7 @@ BENCHES: Dict[str, Callable[[_Context], List[str]]] = {
     "autotune": _autotune,
     **{name: _figure(name) for name in
        ("fig1", "fig2", "fig5", "fig7", "fig8", "fig9", "table3")},
+    "roofline": _roofline,
 }
 
 

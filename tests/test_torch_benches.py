@@ -11,8 +11,9 @@ harness ``studies/run.py``.
 * Each bench's rows at a reduced size: the reference's names, three CSV
   fields, a number in the second; the calibration bench at full size
   agrees with its reference arm to 1e-4.
-* The harness: the reference's bench names less ``roofline``, subset
-  selection, a ``.FAILED`` row, and its error on an unknown bench.
+* The harness: the reference's bench names (``roofline`` among them),
+  subset selection, a ``.FAILED`` row, its error on an unknown bench,
+  and ``roofline``'s note row without dry-run records.
 """
 import re
 from pathlib import Path
@@ -161,11 +162,14 @@ def test_study_bench_rows():
 
 
 def test_harness_names_the_reference_benches_but_roofline():
+    """The name is kept from before ``roofline`` was ported: the harness
+    now lists every one of the reference's benches, ``roofline`` too, in
+    the reference's order."""
     src = (ROOT / "benchmarks" / "run.py").read_text()
     body = src[src.index("benches = {"):src.index("only = ")]
     reference = re.findall(r'"(\w+)":', body)
     assert "roofline" in reference
-    assert list(run.BENCHES) == [n for n in reference if n != "roofline"]
+    assert list(run.BENCHES) == reference
 
 
 def test_harness_runs_a_subset_and_turns_a_failure_into_a_row(
@@ -193,7 +197,20 @@ def test_harness_runs_a_subset_and_turns_a_failure_into_a_row(
 
 def test_harness_refuses_an_unknown_bench():
     with pytest.raises(SystemExit, match="unknown bench"):
-        run.main(["roofline", "--device", "cpu"])
+        run.main(["fig3", "--device", "cpu"])
+
+
+def test_harness_roofline_without_records_prints_the_note_row(
+        tmp_path, monkeypatch, capsys):
+    """With no ``runs/dryrun_torch`` under the working directory the
+    roofline bench prints the reference's one note row."""
+    monkeypatch.chdir(tmp_path)
+    assert run.main(["roofline", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:2] == ["name,us_per_call,derived",
+                         "roofline.skipped_no_dryrun_artifacts,0,"]
+    assert re.fullmatch(r"roofline\.bench_wall_s,\d+,", lines[2])
+    assert len(lines) == 3
 
 
 def test_harness_runs_a_real_bench_on_the_host(capsys):
