@@ -240,9 +240,10 @@ Phases, each fatal on failure:
    priced by ``core.roofline.roofline_table`` — the three terms, the
    dominant one, MFU at the roofline, HBM a device against the card's —
    and ``python -m repro_torch.studies.run roofline`` over them; fatal
-   on a row not ``ok``, a ``.FAILED`` bench row, or walked FLOPs a
-   device × devices below the record's (:func:`roofline_cells_path`).
-   One ``{"roofline": ...}`` line.
+   on a row not ``ok``, a ``.FAILED`` bench row, walked FLOPs a device
+   × devices below the record's, or a ``LAYOUT_CELLS`` cell whose MLP,
+   q / k / v / o projections or attention kernel do not run at the even
+   split (:func:`roofline_cells_path`).  One ``{"roofline": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -464,17 +465,24 @@ MOE_TOKENS = (2, 2048)
 MOE_CAPACITY = 8.0
 MOE_REL = 1e-4
 # (d) the dry-run cells, each in its own process (the fake group is per
-# process), started before (b) and collected after (c)
+# process), started before (b) and collected after (c): gemma2-9b (phase
+# 15's served model, 8 key/value heads under a model axis of 16) trained,
+# prefilled and decoding on the 16 × 16 mesh, xlstm-125m trained on
+# 2 × 16 × 16
 DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"),
-                ("xlstm-125m", "train_4k", "pod2"))
+                ("xlstm-125m", "train_4k", "pod2"),
+                ("gemma2-9b", "prefill_32k", "single"),
+                ("gemma2-9b", "decode_32k", "single"))
 DRYRUN_TIMEOUT_S = 600
 #: the kernels' custom ops each cell's FLOP count must hold (counted at
-#: the global shapes, ``launch/dryrun.py``)
+#: the global shapes, ``launch/dryrun.py``); decode runs no kernel
 DRYRUN_KERNEL_OPS = {
-    "gemma2-9b": ("repro_torch.flash_attention",
-                  "repro_torch.flash_attention_bwd"),
-    "xlstm-125m": ("repro_torch.slstm_cell_traj",
-                   "repro_torch.slstm_cell_bwd")}
+    ("gemma2-9b", "train_4k"): ("repro_torch.flash_attention",
+                                "repro_torch.flash_attention_bwd"),
+    ("gemma2-9b", "prefill_32k"): ("repro_torch.flash_attention",),
+    ("gemma2-9b", "decode_32k"): (),
+    ("xlstm-125m", "train_4k"): ("repro_torch.slstm_cell_traj",
+                                 "repro_torch.slstm_cell_bwd")}
 
 # phase 17 (a): the SSD and sLSTM backward kernels (through ops under
 # autograd) against the plain versions' autograd in float64, each
@@ -3270,9 +3278,10 @@ def collect_dryruns(started, tmp) -> dict:
             raise SystemExit(f"dry-run {arch} {shape} {mesh}: "
                              f"{rec.get('traceback', err)[-4000:]}")
         by_op = rec["cost"]["flops_by_op"]
-        if not all(by_op.get(op, 0) > 0 for op in DRYRUN_KERNEL_OPS[arch]):
+        kernel_ops = DRYRUN_KERNEL_OPS[arch, shape]
+        if not all(by_op.get(op, 0) > 0 for op in kernel_ops):
             raise SystemExit(f"dry-run {arch} {shape} {mesh}: the FLOP "
-                             f"count lacks {DRYRUN_KERNEL_OPS[arch]}")
+                             f"count lacks {kernel_ops}")
         out[f"{arch}__{shape}__{mesh}"] = rec
     return out
 
@@ -3286,8 +3295,8 @@ KERNEL_OPS = {
     "mamba2_ssd_bwd": ("mamba2_ssd_bwd",),
     "slstm_cell": ("slstm_cell", "slstm_cell_state", "slstm_cell_traj"),
     "slstm_cell_bwd": ("slstm_cell_bwd",)}
-#: phase 19 (b): the dry-run cells whose MLP and query / output
-#: projections must run split over the mesh as the rules put them
+#: phase 19 (b): the dry-run cells whose MLP, projections and attention
+#: kernel must run split over the mesh as the rules put them
 LAYOUT_CELLS = ("gemma2-9b__train_4k__single",)
 
 
@@ -3478,20 +3487,24 @@ def roofline_step_path(counts, zero_counts, dev, tmp, *, arch, layers,
     return out
 
 
-def layout_split(entries, run, mesh_shape) -> dict:
+def layout_split(entries, run, mesh_shape, record_flops=None) -> dict:
     """Phase 19 (b)'s layout check of a dry-run cell's op program
     ``entries`` (rank 0's; the run ``run``, its mesh ``mesh_shape``):
     per device, the FLOPs of the products holding the MLP's width ÷ the
-    model axis (d_ff) and the query and output projections' (heads ·
-    head_dim), each against the even split the rules imply — "ff" and
-    "heads" on the model axis, the batch on the others — under remat
-    "full": each weight in four products a microbatch (forward,
+    model axis (d_ff), and the query, key, value and output
+    projections' (heads · head_dim; the key/value heads repeated as
+    ``models.layers.kv_split`` repeats them: gemma2-9b's 8 to 16 under a
+    model axis of 16), each against the even split the rules imply —
+    "ff" and "heads" on the model axis, the batch on the others — under
+    remat "full": each weight in four products a microbatch (forward,
     recompute, input gradient, weight gradient), 2 · tokens · d_model ·
-    width FLOPs each over all devices; and the FLOPs of the products
-    holding either width whole, which must be 0.  The key/value
-    projections are not held: where the key/value heads do not split
-    over the model axis (gemma2-9b: 8 over 16) the rules replicate
-    them, and the attention kernel runs replicated."""
+    width FLOPs each over all devices; the FLOPs of the products holding
+    a width whole (the MLP's, the query heads', the key/value heads'
+    repeated and unrepeated), which must be 0; and the attention
+    kernel's walked FLOPs (its forward and backward custom ops) against
+    ``record_flops`` (the record's ``flops_by_op``: the same ops at the
+    global shapes) over the devices, equal where each rank runs its even
+    share of the query heads."""
     from repro_torch.core.opcost import product_flops
     cfg, shape = run.model, run.shape
     if run.remat != "full":
@@ -3500,17 +3513,33 @@ def layout_split(entries, run, mesh_shape) -> dict:
     model = mesh_shape["model"]
     tokens = shape.global_batch * shape.seq_len
     a = cfg.attention
-    widths = {"mlp": (cfg.d_ff, 3 if cfg.activation.endswith("_glu")
-                      else 2),
-              "q_o": (a.num_heads * a.head_dim, 2)}
+    q_width = a.num_heads * a.head_dim
+    kv_width = math.lcm(a.num_kv_heads, model) * a.head_dim
+    kv_whole = a.num_kv_heads * a.head_dim
+    widths = {"mlp": ((cfg.d_ff,), 3 if cfg.activation.endswith("_glu")
+                      else 2)}
+    if kv_width == q_width:
+        widths["qkvo"] = ((q_width, kv_whole), 4)
+    else:
+        widths["q_o"] = ((q_width,), 2)
+        widths["k_v"] = ((kv_width, kv_whole), 2)
     out = {}
-    for name, (width, weights) in widths.items():
+    for name, ((width, *whole), weights) in widths.items():
         out[name] = {
             "width": width, "local_width": width // model,
             "walked": product_flops(entries, width // model),
             "want": weights * 4 * 2 * tokens * cfg.d_model * width
             * cfg.num_layers / chips,
-            "whole_width": product_flops(entries, width)}
+            "whole_width": sum(product_flops(entries, w)
+                               for w in {width, *whole})}
+    if record_flops is not None:
+        ops = ("repro_torch.flash_attention",
+               "repro_torch.flash_attention_bwd")
+        out["attention"] = {
+            "walked": sum(e.get("flops") or 0.0 for e in entries
+                          if e["op"] in ops),
+            "want": sum(record_flops.get(op, 0) for op in ops) / chips,
+            "whole_width": 0}
     return out
 
 
@@ -3521,8 +3550,8 @@ def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
     ``tmp``, whose ``runs/dryrun_torch`` they are).  Fails on a row whose
     status is not ``ok``, a ``.FAILED`` bench row, a missing cell's row,
     walked FLOPs per device × chips below the record's ``cost.flops``, or
-    a :data:`LAYOUT_CELLS` cell whose MLP or query / output projections
-    do not split as the rules say (:func:`layout_split`)."""
+    a :data:`LAYOUT_CELLS` cell whose MLP, projections or attention
+    kernel do not split as the rules say (:func:`layout_split`)."""
     import torch
 
     from repro_torch.core.opcost import parse_ops
@@ -3568,7 +3597,8 @@ def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
             entries = parse_ops(
                 (dryrun_dir(tmp) / f"{key}.ops.json").read_text())
             split = layout_split(entries, make_run_config(arch, shape),
-                                 rec["mesh_shape"])
+                                 rec["mesh_shape"],
+                                 rec["cost"]["flops_by_op"])
             out[key]["layout"] = split
             log(f"roofline {key}: per-device product FLOPs against the "
                 f"rules' even split {split}")

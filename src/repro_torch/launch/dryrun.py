@@ -90,6 +90,7 @@ from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.sharding import logical_to_pspec, use_mesh
 from repro_torch.sharding.axes import RULE_PRESETS, NamedSharding
+from repro_torch.sharding.local import contiguous_strides
 
 DEFAULT_OUT = "runs/dryrun_torch"
 
@@ -99,11 +100,13 @@ def _shard_tree(axes_tree, spec_tree, mesh):
 
 
 def build_cell(arch: str, shape_name: str, mesh, overrides=None, *,
-               smoke: bool = False):
+               smoke: bool = False, model_config=None):
     """Returns (fn, arg_specs, in_shardings, out_shardings): ``arg_specs``
     ``meta`` tensors, the shardings trees of ``NamedSharding`` (None: a
-    plain value).  ``smoke`` takes the architecture's reduced config."""
-    model_config = get_smoke_config(arch) if smoke else None
+    plain value).  ``smoke`` takes the architecture's reduced config,
+    ``model_config`` a given one (e.g. the full width at fewer layers)."""
+    if smoke:
+        model_config = get_smoke_config(arch)
     run = make_run_config(arch, shape_name, overrides=overrides,
                           model_config=model_config)
     cfg, shape = run.model, run.shape
@@ -165,7 +168,7 @@ def _meta_dtensor(spec: torch.Tensor, sharding, *, grad: bool = False):
                         dtype=spec.dtype, device="meta")
     out = DTensor.from_local(local, sharding.mesh, sharding.placements,
                              run_check=False, shape=shape,
-                             stride=torch.empty(shape, device="meta").stride())
+                             stride=contiguous_strides(shape))
     return out.requires_grad_() if grad else out
 
 
@@ -246,7 +249,7 @@ def _local_mem_tracker():
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
              overrides=None, *, smoke: bool = False,
-             save_ops: bool = True):
+             save_ops: bool = True, model_config=None):
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.core.opcost import OpRecorder
@@ -263,12 +266,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
     }
     if smoke:
         rec["smoke"] = True
+    if model_config is not None:
+        rec["num_layers"] = model_config.num_layers
     t0 = time.time()
     try:
         preset = (overrides or {}).get("sharding_preset", "tp_fsdp")
         with use_mesh(mesh, RULE_PRESETS[preset]):
-            fn, args, in_sh, out_sh = build_cell(arch, shape_name, mesh,
-                                                 overrides, smoke=smoke)
+            fn, args, in_sh, out_sh = build_cell(
+                arch, shape_name, mesh, overrides, smoke=smoke,
+                model_config=model_config)
             train = SHAPES_BY_NAME[shape_name].kind == "train"
             t1 = time.time()
             mt = _local_mem_tracker()

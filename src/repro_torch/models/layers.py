@@ -33,7 +33,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.param import ParamSpec, torch_dtype
-from repro_torch.sharding import local_blocks, reshape, shard_act
+from repro_torch.sharding import (current_mesh, local_blocks,
+                                  logical_to_pspec, matmul, mesh_shape,
+                                  repeat_heads, reshape, shard_act,
+                                  write_position)
 
 NEG_INF = -1e30
 
@@ -181,18 +184,71 @@ def blockwise_attention(
 
 
 def _decode_softmax_pv(q, k_cache, v_cache, valid, *, softcap, scale):
+    if _positions_split(k_cache):
+        return _decode_on_positions(q, k_cache, v_cache, valid,
+                                    softcap=softcap, scale=scale)
     B, _, Hq, Dk = q.shape
     Hkv = k_cache.shape[2]
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
-    qr = q.reshape(B, Hkv, G, Dk)
+    qr = reshape(q, (B, Hkv, G, Dk))
     s = torch.einsum("bhgd,bshd->bhgs", qr, k_cache).float()
     s = _softcap(s * scale, softcap)
     s = torch.where(valid[None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype),
                        v_cache).float()
-    return out.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)
+    return reshape(out, (B, 1, Hq, v_cache.shape[-1])).to(q.dtype)
+
+
+def _positions_split(cache: torch.Tensor) -> bool:
+    """Whether ``cache`` is a DTensor split on its positions (dim 1),
+    and on nothing but them and its batch (dim 0)."""
+    from repro_torch.sharding.local import is_dtensor
+    if not is_dtensor(cache):
+        return False
+    shards = [p.dim for p in cache.placements if p.is_shard()]
+    return 1 in shards and set(shards) <= {0, 1}
+
+
+def _decode_on_positions(q, k_cache, v_cache, valid, *, softcap, scale):
+    """:func:`_decode_softmax_pv` against caches split on their
+    positions, as XLA runs it: each rank scores its block of positions
+    with every query head, and the softmax's max, sum and weighted
+    values are reduced over the ranks that split the positions (the
+    whole cache is never gathered)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.sharding.local import _as_dtensor, _vocab_block
+    mesh = k_cache.device_mesh
+    seq = [i for i, p in enumerate(k_cache.placements)
+           if p.is_shard() and p.dim == 1]
+    rows = [Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+            for p in k_cache.placements]
+    ql = _as_dtensor(q, mesh).redistribute(mesh, rows).to_local()
+    k, v = k_cache.to_local(), v_cache.to_local()
+    block, _ = _vocab_block(mesh, seq)
+    width = k.shape[1]
+    valid = valid[block * width:(block + 1) * width]
+    B, _, Hq, Dk = ql.shape
+    Hkv = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
+    qr = ql.reshape(B, Hkv, Hq // Hkv, Dk)
+    s = torch.einsum("bhgd,bshd->bhgs", qr, k).float()
+    s = _softcap(s * scale, softcap)
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+
+    def reduce(t, op):
+        part = [Partial(op) if i in seq else p for i, p in enumerate(rows)]
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, rows).to_local()
+    m = reduce(s.amax(-1, keepdim=True), "max")
+    p = torch.exp(s - m)
+    den = reduce(p.sum(-1, keepdim=True), "sum")
+    num = reduce(torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype), v).float(),
+                 "sum")
+    out = (num / den).reshape(B, 1, Hq, v.shape[-1]).to(ql.dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
 def decode_attention_at_positions(
@@ -279,15 +335,24 @@ def attn_cache_schema(cfg: ModelConfig, batch: int, seq: int,
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum "bsd,dhk->bshk" as one GEMM."""
     d, h, k = w.shape
-    y = x @ reshape(w.to(x.dtype), (d, h * k))
+    y = matmul(x, reshape(w.to(x.dtype), (d, h * k)))
     return reshape(y, (*y.shape[:-1], h, k))
+
+
+@local_blocks([0, 0, "R"], [1, 1, "R"])
+def _proj_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`_proj` on each rank's rows of ``x`` [B, S, D] (its batch
+    block and its positions) with the whole weight: DTensor would plan
+    the product over the rows' merged batch and position shards, minutes
+    on 2 × 16 × 16."""
+    return _proj(x, w)
 
 
 def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum "bshk,hkd->bsd" as one GEMM."""
     h, k, d = w.shape
-    return reshape(o, (*o.shape[:-2], h * k)) @ reshape(w.to(o.dtype),
-                                                         (h * k, d))
+    return matmul(reshape(o, (*o.shape[:-2], h * k)),
+                  reshape(w.to(o.dtype), (h * k, d)))
 
 
 def store_prefill(buf: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -301,6 +366,112 @@ def store_prefill(buf: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     else:
         buf.copy_(_roll_seq(val[:, -S_c:], shift=S_in % S_c))
     return buf
+
+
+def heads_axis(heads: int) -> Optional[int]:
+    """The mesh dimension of the axis for "act_heads" where it does not
+    split ``heads`` (it has more than one rank); None otherwise."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    spec = logical_to_pspec(("act_heads",), mesh)
+    if not spec or not isinstance(spec[0], str):
+        return None
+    n = mesh_shape(mesh)[spec[0]]
+    if n == 1 or heads % n == 0:
+        return None
+    return list(mesh_shape(mesh)).index(spec[0])
+
+
+def heads_repeat(heads: int) -> Optional[int]:
+    """Under a mesh whose axis for "act_heads" does not split ``heads``
+    (gemma2-9b's 8 key/value heads, xlstm-125m's 4 mLSTM heads, over
+    16): how many times to repeat each head so that the axis splits the
+    repeats evenly, one rank a repeat — the fewest repeats it divides.
+    None where the axis splits them, or there is none."""
+    axis = heads_axis(heads)
+    if axis is None:
+        return None
+    n = current_mesh().size(axis)
+    return math.lcm(heads, n) // heads
+
+
+def kv_split(a: AttentionConfig) -> Optional[Tuple[int, int]]:
+    """Under a mesh whose axis for "act_heads" splits the query heads but
+    not the key/value heads: (times, mesh dimension), each key/value
+    head repeated ``times`` (:func:`heads_repeat`) so that each rank's
+    repeats serve its query heads, where the repeats divide the query
+    heads.  None otherwise (no mesh, or nothing to repeat)."""
+    times = heads_repeat(a.num_kv_heads)
+    if times is None or heads_axis(a.num_heads) is not None or \
+            a.num_heads % (a.num_kv_heads * times):
+        return None
+    return times, heads_axis(a.num_kv_heads)
+
+
+def repeat_on_heads(t: torch.Tensor, times: int) -> torch.Tensor:
+    """``t`` [B, S, H, ...] with each head repeated ``times``
+    (:func:`heads_repeat`), sharded on the repeats over the axis for
+    "act_heads" (each rank builds its block from its whole copy, which
+    ``shard_act`` makes first: its gradient then comes back whole, not
+    partial, to the projections before)."""
+    dim = heads_axis(t.shape[2])
+    t = shard_act(t, "batch", "seq", *([None] * (t.ndim - 2)))
+    return repeat_heads(t, 2, times, dim)
+
+
+def _kv_weights(p: Dict, split: Optional[Tuple[int, int]]):
+    """wk and wv as the projections use them: with ``split``, each rank's
+    block of the heads repeated (:func:`kv_split`)."""
+    wk, wv = p["wk"], p["wv"]
+    if split is None or not hasattr(wk, "device_mesh"):
+        return wk, wv
+    times, dim = split
+    return (repeat_heads(wk, 1, times, dim), repeat_heads(wv, 1, times, dim))
+
+
+def _cache_seq_dim(cache: Optional[Dict], wk: torch.Tensor,
+                   src: torch.Tensor) -> Optional[int]:
+    """The mesh dimension that a prefill's cache buffers split their
+    positions over, where the keys/values are computed whole on each
+    rank (``src`` and ``wk`` replicated there) and the buffers keep all
+    of ``src``'s positions (not a ring buffer of the last few); None
+    where there is none."""
+    if cache is None or not hasattr(cache["k"], "device_mesh") or \
+            not hasattr(wk, "device_mesh") or \
+            not hasattr(src, "device_mesh"):
+        return None
+    buf = cache["k"]
+    if buf.shape[1] < src.shape[1]:
+        return None
+    for i, place in enumerate(buf.placements):
+        if place.is_shard() and place.dim == 1 and \
+                wk.placements[i].is_replicate() and \
+                src.placements[i].is_replicate() and \
+                src.shape[1] % buf.device_mesh.size(i) == 0:
+            return i
+    return None
+
+
+def placed(t: torch.Tensor, mesh_dim: int, dim: Optional[int]):
+    """``t`` sharded on ``dim`` (None: replicated) over mesh dimension
+    ``mesh_dim``, its other placements kept."""
+    from torch.distributed.tensor import Replicate, Shard
+    want = list(t.placements)
+    want[mesh_dim] = Replicate() if dim is None else Shard(dim)
+    return t if want == list(t.placements) else \
+        t.redistribute(t.device_mesh, want)
+
+
+def _cache_heads(kv: torch.Tensor, split, buf: torch.Tensor) -> torch.Tensor:
+    """The key/value heads a cache holds, from ``kv``'s repeats (every
+    ``times``-th head), moved first to the buffer's placements, where
+    each rank holds all heads of its positions."""
+    if split is None or not hasattr(kv, "device_mesh"):
+        return kv
+    if hasattr(buf, "device_mesh"):
+        kv = kv.redistribute(buf.device_mesh, buf.placements)
+    return kv[:, :, ::split[0]]
 
 
 @local_blocks([0, 0], [2, 2])
@@ -345,8 +516,8 @@ def apply_attn(
         ring = window is not None and S_c == min(window, S_c)  # ring buffer
         # the reference's dynamic_update_slice clamps the offset
         write_at = min(cur % S_c if ring else cur, S_c - 1)
-        k_cache[:, write_at] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[:, write_at] = v_new[:, 0].to(v_cache.dtype)
+        write_position(k_cache, write_at, k_new[:, 0].to(k_cache.dtype))
+        write_position(v_cache, write_at, v_new[:, 0].to(v_cache.dtype))
         if ring:
             out = decode_attention_at_positions(
                 q, k_cache, v_cache, ring_slot_positions(cur, S_c, x.device),
@@ -357,21 +528,43 @@ def apply_attn(
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         src = kv_x if kv_x is not None else x
-        k = _proj(src, p["wk"])
-        v = _proj(src, p["wv"])
+        split = kv_split(a)
+        by_seq = _cache_seq_dim(cache, p["wk"], src)
+        if by_seq is not None:
+            # prefill into a cache split on positions over a mesh axis
+            # that leaves the key/value heads whole: each rank projects
+            # every key/value head at its positions, as the cache holds
+            # them
+            src = placed(src, by_seq, 1)
+            k, v = _proj_rows(src, p["wk"]), _proj_rows(src, p["wv"])
+        else:
+            wk, wv = _kv_weights(p, split)
+            k, v = _proj(src, wk), _proj(src, wv)
         if a.use_rope and kv_x is None:
             k = apply_rope(k, ctx.positions, a.rope_theta)
+        kc, vc = k, v
+        if by_seq is not None:   # the attention reads all positions: its
+            k, v = (placed(t, by_seq, None) for t in (k, v))   # heads'
+            if split is not None:                               # repeats
+                k, v = (repeat_heads(t, 2, split[0], split[1])
+                        for t in (k, v))
+        elif cache is not None:
+            kc, vc = (_cache_heads(t, split, cache[n])
+                      for t, n in ((k, "k"), (v, "v")))
         out = blockwise_attention(
             q, k, v, causal=causal and kv_x is None, window=window,
             softcap=a.logit_softcap, q_chunk=ctx.q_chunk,
             kv_chunk=ctx.kv_chunk, impl=ctx.attn_impl).to(x.dtype)
         new_cache = None
         if cache is not None:  # prefill: persist K/V into the cache buffers
-            new_cache = {"k": store_prefill(cache["k"], k),
-                         "v": store_prefill(cache["v"], v)}
-    # XLA carries q's head sharding through the attention; the kernel runs
-    # replicated where the key/value heads do not split over the mesh, so
-    # its output goes back onto the heads before the out projection
+            new_cache = {"k": store_prefill(cache["k"], kc),
+                         "v": store_prefill(cache["v"], vc)}
+    # As XLA carries q's head sharding through the reference's attention,
+    # the kernel runs on each rank's query heads: where the key/value
+    # heads do not split over the mesh, each rank projects the repeats
+    # its query heads read (kv_split).  Where the query heads do not
+    # split either, the kernel runs replicated, and its output goes back
+    # onto the heads before the out projection.
     out = shard_act(out, "batch", "seq", "act_heads", None)
     y = _out_proj(out, p["wo"])
     return shard_act(y, "batch", "seq", "act_embed"), new_cache
@@ -437,8 +630,8 @@ def apply_mla(
         cur = int(ctx.cur_index)
         ckv, krope = cache["ckv"], cache["krope"]
         at = min(cur, ckv.shape[1] - 1)
-        ckv[:, at] = ckv_new[:, 0].to(ckv.dtype)
-        krope[:, at] = krope_new[:, 0].to(krope.dtype)
+        write_position(ckv, at, ckv_new[:, 0].to(ckv.dtype))
+        write_position(krope, at, krope_new[:, 0].to(krope.dtype))
         # Absorbed decode: fold W_uk into the query; attend in latent space.
         q_eff = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(dt))
         s = torch.einsum("bshr,btr->bhst", q_eff, ckv).float()
@@ -500,13 +693,13 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    up = x @ p["w_up"].to(x.dtype)
+    up = matmul(x, p["w_up"].to(x.dtype))
     up = shard_act(up, "batch", "seq", "act_ff")
     if cfg.activation.endswith("_glu"):
-        h = _act(cfg.activation, x @ p["w_gate"].to(x.dtype)) * up
+        h = _act(cfg.activation, matmul(x, p["w_gate"].to(x.dtype))) * up
     else:
         h = _act(cfg.activation, up)
-    y = h @ p["w_down"].to(x.dtype)
+    y = matmul(h, p["w_down"].to(x.dtype))
     return shard_act(y, "batch", "seq", "act_embed")
 
 

@@ -165,11 +165,14 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x.to(torch_dtype(cfg.activation_dtype))
 
 
-def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _head(params, cfg: ModelConfig, x: torch.Tensor,
+          decode: bool = False) -> torch.Tensor:
+    step = x if decode else None
     if cfg.tie_embeddings:
-        logits = x @ gather_dp(params["embed"]).to(x.dtype).T
+        logits = x @ gather_dp(params["embed"], step,
+                               transposed=True).to(x.dtype).T
     else:
-        logits = x @ gather_dp(params["lm_head"]).to(x.dtype)
+        logits = x @ gather_dp(params["lm_head"], step).to(x.dtype)
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -230,7 +233,10 @@ def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor,
 
 def _apply_group(gp, x, ctx: layers.Ctx, gcache, shared_params,
                  cfg: ModelConfig, ak: Tuple[str, ...]):
-    gp, shared_params = gather_dp(gp), gather_dp(shared_params)
+    step = x if ctx.mode == "decode" else None
+    # a MoE layer gathers its experts as its dispatch buffer lies
+    gp = gather_dp(gp, step, leave=("moe",))
+    shared_params = gather_dp(shared_params, step)
     new_cache: Dict = {}
     aux = {k: torch.zeros((), device=x.device) for k in ak}
     if cfg.shared_attn_every:
@@ -345,8 +351,9 @@ def forward(
     # ----- prefix blocks -----------------------------------------------------
     for i, bid in enumerate(effective_prefix(cfg)):
         c = cache.get(f"prefix_{i}") if cache else None
-        x, ci, a = BLOCKS[bid].apply(gather_dp(params[f"prefix_{i}"]), x,
-                                     ctx, c)
+        x, ci, a = BLOCKS[bid].apply(
+            gather_dp(params[f"prefix_{i}"], x if mode == "decode" else None,
+                      leave=("moe",)), x, ctx, c)
         if ci is not None:
             new_cache[f"prefix_{i}"] = ci
         for k, v in a.items():
@@ -380,7 +387,7 @@ def forward(
     x = layers.apply_norm(gather_dp(params["final_norm"]), cfg, x)
     if n_front and mode != "decode":
         x = x[:, n_front:]  # logits only over text positions
-    logits = _head(params, cfg, x)
+    logits = _head(params, cfg, x, decode=mode == "decode")
     return logits, aux, (new_cache or None)
 
 

@@ -25,7 +25,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers
 from repro_torch.models.param import ParamSpec
-from repro_torch.sharding import shard_act
+from repro_torch.sharding import (gather_dp, local_blocks, matmul,
+                                  searchsorted, shard_act)
+
+#: the experts' stacked weights, gathered by :func:`apply_moe` itself
+EXPERTS = ("w_gate", "w_up", "w_down")
 
 
 def _capacity(num_tokens: int, m: MoEConfig) -> int:
@@ -66,6 +70,33 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+# Under a mesh the scatter and gather run on whole operands (the routing
+# is global: an expert's capacity ranks every token of the batch), then
+# the buffers are sharded as the rules say.  DTensor has no rule for
+# ``index_add_`` into a new buffer.
+
+
+@local_blocks(["R", "R", "R", "R"])
+def _dispatch(xf: torch.Tensor, slot: torch.Tensor, t_sorted: torch.Tensor,
+              *, rows: int) -> torch.Tensor:
+    """[rows, D] dispatch buffer: row ``slot[i]`` += ``xf[t_sorted[i]]``."""
+    buf = torch.zeros((rows, xf.shape[1]), dtype=xf.dtype, device=xf.device)
+    buf.index_add_(0, slot, xf[t_sorted])
+    return buf
+
+
+@local_blocks(["R"] * 5)
+def _combine(out_flat: torch.Tensor, slot: torch.Tensor, weight: torch.Tensor,
+             t_sorted: torch.Tensor, *, tokens: int) -> torch.Tensor:
+    """[tokens, D]: token ``t_sorted[i]`` += ``weight[i]`` × row
+    ``slot[i]`` of the experts' output."""
+    contrib = out_flat[slot] * weight[:, None]
+    y = torch.zeros((tokens, out_flat.shape[1]), dtype=out_flat.dtype,
+                    device=out_flat.device)
+    y.index_add_(0, t_sorted, contrib)
+    return y
+
+
 def apply_moe(p: Dict, cfg: ModelConfig,
               x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """x: [B, S, D] → (y, aux).  aux carries the load-balancing loss."""
@@ -76,6 +107,8 @@ def apply_moe(p: Dict, cfg: ModelConfig,
     C = _capacity(T, m)
     dev = x.device
     xf = x.reshape(T, D)
+    experts = {k: p[k] for k in EXPERTS}
+    p = gather_dp({k: v for k, v in p.items() if k not in EXPERTS})
 
     # ----- routing (float32) ---------------------------------------------
     logits = xf.float() @ p["router"].float()
@@ -96,31 +129,33 @@ def apply_moe(p: Dict, cfg: ModelConfig,
     order = torch.argsort(e_flat, stable=True)
     e_sorted, t_sorted, g_sorted = e_flat[order], t_flat[order], \
         g_flat[order]
-    start = torch.searchsorted(e_sorted, torch.arange(E, device=dev),
-                               side="left")           # [E]
+    start = searchsorted(e_sorted, torch.arange(E, device=dev),
+                         side="left")                 # [E]
     rank = torch.arange(T * K, device=dev) - start[e_sorted]
     keep = rank < C
     slot = torch.where(keep, e_sorted * C + rank,
                        torch.full_like(rank, E * C))  # E*C = dropped bin
 
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
-    buf.index_add_(0, slot, xf[t_sorted])
+    buf = _dispatch(xf, slot, t_sorted, rows=E * C + 1)
     buf = buf[: E * C].reshape(E, C, D)
     buf = shard_act(buf, "experts", "expert_cap", "act_embed")
+    # where the capacity does not split over the batch axes, each rank
+    # keeps its block of d_model and contracts over it, as XLA does
+    experts = gather_dp(experts, buf)
 
     # ----- expert computation (batched over E) -----------------------------
-    up = torch.bmm(buf, p["w_up"].to(x.dtype))
-    gate = layers._act(cfg.activation, torch.bmm(buf, p["w_gate"].to(x.dtype)))
+    up = matmul(buf, experts["w_up"].to(x.dtype))
+    gate = layers._act(cfg.activation,
+                       matmul(buf, experts["w_gate"].to(x.dtype)))
     h = shard_act(gate * up, "experts", "expert_cap", None)
-    out_buf = torch.bmm(h, p["w_down"].to(x.dtype))
+    out_buf = matmul(h, experts["w_down"].to(x.dtype))
     out_buf = shard_act(out_buf, "experts", "expert_cap", "act_embed")
 
     # ----- combine ---------------------------------------------------------
     out_flat = out_buf.reshape(E * C, D)
     slot_cl = torch.clamp(slot, max=E * C - 1)
-    contrib = out_flat[slot_cl] * (keep * g_sorted)[:, None].to(x.dtype)
-    y = torch.zeros((T, D), dtype=x.dtype, device=dev)
-    y.index_add_(0, t_sorted, contrib)
+    y = _combine(out_flat, slot_cl, (keep * g_sorted).to(x.dtype), t_sorted,
+                 tokens=T)
     y = y.reshape(B, S, D)
 
     # ----- shared experts / dense residual (always-on branches) -----------
@@ -176,7 +211,7 @@ def apply_moe_layer(
     h = layers.apply_norm(p["ln_mlp"], cfg, x)
     if ctx.moe_impl == "a2a":
         from repro_torch.models.moe_a2a import apply_moe_a2a
-        y, aux = apply_moe_a2a(p["moe"], cfg, h)
+        y, aux = apply_moe_a2a(gather_dp(p["moe"]), cfg, h)
     else:
         y, aux = apply_moe(p["moe"], cfg, h)
     x = x + y

@@ -93,6 +93,18 @@ def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([t, t.new_zeros((t.shape[0], pad, *t.shape[2:]))], 1)
 
 
+@local_blocks([0] * 7, [1] * 7)
+def _ssd_step(state: torch.Tensor, dA: torch.Tensor, Bdt: torch.Tensor,
+              x: torch.Tensor, C: torch.Tensor):
+    """One decode step of the SSD recurrence, rows and heads apart: state
+    [B, H, P, N] decayed by dA [B, H] plus x [B, H, P] ⊗ Bdt [B, H, N];
+    y [B, H, P] = C [B, H, N] · state.  (DTensor's einsum rule enumerates
+    every placement over the mesh, minutes a step on 2 × 16 × 16.)"""
+    state = state * dA[:, :, None, None] + torch.einsum("bhn,bhp->bhpn",
+                                                        Bdt, x)
+    return torch.einsum("bhn,bhpn->bhp", C, state), state
+
+
 def apply_mamba2(
     p: Dict, x: torch.Tensor, ctx: layers.Ctx, cache: Optional[Dict] = None
 ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
@@ -131,10 +143,9 @@ def apply_mamba2(
         Bh = reshape(Bc, (B_, 1, G, N)).repeat_interleave(H // G, dim=2)
         Ch = reshape(Cc, (B_, 1, G, N)).repeat_interleave(H // G, dim=2)
         dA = torch.exp(dt * A)  # [B,1,H]
-        state = cache["state"] * dA[:, 0, :, None, None] + torch.einsum(
-            "bhn,bhp->bhpn", Bh[:, 0] * dt[:, 0, :, None],
-            xh[:, 0].float())
-        y = torch.einsum("bhn,bhpn->bhp", Ch[:, 0].float(), state)
+        y, state = _ssd_step(cache["state"], dA[:, 0],
+                             Bh[:, 0] * dt[:, 0, :, None], xh[:, 0].float(),
+                             Ch[:, 0].float())
         y = y[:, None] + xh.float() * p["D"].float()[None, None, :, None]
         y = reshape(y, (B_, 1, di)).to(dt_)
         new_cache = {"conv": window[:, 1:], "state": state}

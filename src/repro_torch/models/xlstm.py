@@ -32,8 +32,8 @@ from repro_torch.kernels.ref import slstm_gate
 from repro_torch.models import layers
 from repro_torch.models.param import ParamSpec
 from repro_torch.models.ssm import causal_conv, conv_step
-from repro_torch.sharding import (elementwise, local_blocks, reshape,
-                                  shard_act)
+from repro_torch.sharding import (elementwise, local_blocks, matmul,
+                                  reshape, shard_act)
 
 
 def _mdims(cfg: ModelConfig):
@@ -142,6 +142,16 @@ def _mlstm_chunked(q, k, v, li, lf, *, chunk: int):
     return torch.cat(hs, dim=1), (C, n, m)
 
 
+@local_blocks([0, 0] + [0] * 6, [3, 2, 3, "R", 2, "R", "R", "R"])
+def _mlstm_state_step(C, k, v, fp, ip, q):
+    """A decode step's matrix-memory update and read, rows apart or
+    columns (``e``) of C apart: C [B, H, d, e] decayed by fp [B, H] plus
+    ip · k ⊗ v; num [B, H, e] = q · C."""
+    C = C * fp[..., None, None] + ip[..., None, None] * torch.einsum(
+        "bhd,bhe->bhde", k, v)
+    return C, torch.einsum("bhd,bhde->bhe", q, C)
+
+
 def apply_mlstm(
     p: Dict, x: torch.Tensor, ctx: layers.Ctx, cache: Optional[Dict] = None
 ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
@@ -174,13 +184,17 @@ def apply_mlstm(
         fp = torch.exp(lf + m - m_new)
         ip = torch.exp(li - m_new)
         kf = k.float()
-        C = C * fp[..., None, None] + ip[..., None, None] * torch.einsum(
-            "bhd,bhe->bhde", kf, v.float())
-        n = n * fp[..., None] + ip[..., None] * kf
         qf = q.float() / math.sqrt(dh)
-        num = torch.einsum("bhd,bhde->bhe", qf, C)
+        vf = v.float()
+        axis = layers.heads_axis(H)
+        if axis is not None:   # each rank its columns of C, as XLA splits it
+            C, vf = layers.placed(C, axis, 3), layers.placed(vf, axis, 2)
+        C, num = _mlstm_state_step(C, kf, vf, fp, ip, qf)
+        n = n * fp[..., None] + ip[..., None] * kf
         den = torch.einsum("bhd,bhd->bh", qf, n)
         hv = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+        if axis is not None:   # whole again: a few values a row
+            hv = layers.placed(hv, axis, None)
         hv = reshape(hv, (B, 1, M)).to(dt_)
         new_cache = {"conv": window[:, 1:], "C": C, "n": n, "m": m_new}
     else:
@@ -203,7 +217,14 @@ def apply_mlstm(
             q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
             li = F.pad(li, (0, 0, 0, pad), value=-1e9)
             lf = F.pad(lf, (0, 0, 0, pad))
+        times = layers.heads_repeat(H)
+        if times:   # each rank a repeat of a head, as XLA pads them
+            q, k, v, li, lf = (layers.repeat_on_heads(t, times)
+                               for t in (q, k, v, li, lf))
         hv, (Cf, nf, mf) = _mlstm_chunked(q, k, v, li, lf, chunk=chunk)
+        if times:
+            hv, Cf, nf, mf = (t[:, :, ::times] if i == 0 else t[:, ::times]
+                              for i, t in enumerate((hv, Cf, nf, mf)))
         hv = reshape(hv[:, :S], (B, S, M))
         if cache is not None:
             tail = up[:, -(xc.s_conv_kernel - 1):, :]
@@ -282,7 +303,8 @@ def apply_slstm(
     h = layers.apply_norm(p["ln"], cfg, x)
     dt_ = h.dtype
     wg = p["w_gates"].to(dt_)
-    g_in = reshape(h @ reshape(wg, (D, 4 * H * dh)), (B, S, 4, H, dh))
+    g_in = reshape(matmul(h, reshape(wg, (D, 4 * H * dh))),
+                   (B, S, 4, H, dh))
 
     if ctx.mode == "decode":
         state = (cache["c"], cache["n"], cache["m"], cache["h"].to(dt_))

@@ -26,6 +26,7 @@ DTensor's placements, one per mesh dimension.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -334,26 +335,67 @@ def shard_act(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     return x.redistribute(x.device_mesh, placements)
 
 
-def gather_dp(tree: Any) -> Any:
+def gather_dp(tree: Any, meets: Optional[torch.Tensor] = None,
+              leave: Sequence[str] = (), transposed: bool = False) -> Any:
     """A parameter tree as a layer uses it: each DTensor leaf replicated
     on the mesh axes the current rules put the batch on (FSDP / ZeRO-3:
     the parameters' shards over the data-parallel axes are all-gathered
     for the layer, and their gradients reduce-scattered back), its
     tensor-parallel shards kept.  XLA reaches this layout from the
     reference's activation constraints; DTensor, choosing op by op, may
-    instead gather the activations' batch.  No-op without a mesh."""
+    instead gather the activations' batch.  No-op without a mesh.
+
+    ``meets``: the activation the leaves' products take (a decode
+    step's, a token a sequence; the MoE's dispatch buffer), where XLA's
+    partitioner may move it rather than the weights.  This holds for a
+    leaf whose batch-axes shards split the dimension a product contracts
+    over: its first, or with ``transposed`` (``x @ w.T``) its last (a
+    leaf sharded there on its output dimension is gathered).  Such a
+    leaf keeps its shards where ``meets`` is replicated on those axes
+    and a rank would hold more of the leaf, gathered, than of ``meets``
+    (the product contracts over the shards, its partial sums reduced,
+    instead of gathering the larger operand); where ``meets`` is sharded
+    there, a leaf replicated on a mesh axis as large as the batch axes
+    together moves its shards onto that axis (a permutation of the
+    blocks) instead of gathering them.  Subtrees under a key in
+    ``leave`` are returned as they are: their layer gathers them."""
     mesh = current_mesh()
     if mesh is None:
         return tree
     from torch.distributed.tensor import DTensor, Replicate
-    dp = _expand_virtual(current_rules().get("batch"), mesh_shape(mesh))
+    shape = mesh_shape(mesh)
+    dp = _expand_virtual(current_rules().get("batch"), shape)
+    names = list(shape)
+    idle = isinstance(meets, DTensor) and all(
+        not meets.placements[names.index(a)].is_shard() for a in dp)
+    meets_local = meets.to_local().numel() if idle else 0
+    n_dp = _axis_size(mesh, dp)
 
     def one(t):
         if isinstance(t, dict):
-            return {k: one(v) for k, v in t.items()}
+            return {k: v if k in leave else one(v) for k, v in t.items()}
         if not isinstance(t, DTensor):
             return t
-        names = t.device_mesh.mesh_dim_names
+        held = {p.dim for i, p in enumerate(t.placements)
+                if names[i] in dp and p.is_shard()}
+        contracted = held == {t.ndim - 1} if transposed else \
+            bool(held) and t.ndim - 1 not in held
+        if isinstance(meets, DTensor) and contracted:
+            if idle:   # the leaf's elements on a rank once gathered
+                split = math.prod(shape[names[i]] for i, p in
+                                  enumerate(t.placements)
+                                  if names[i] not in dp and p.is_shard())
+                if t.numel() // split > meets_local:
+                    return t
+            free = [i for i, p in enumerate(t.placements)
+                    if names[i] not in dp and shape[names[i]] == n_dp
+                    and not p.is_shard()]
+            if not idle and len(held) == 1 and free:
+                want = [Replicate() if names[i] in dp else p
+                        for i, p in enumerate(t.placements)]
+                want[free[0]] = [p for i, p in enumerate(t.placements)
+                                 if names[i] in dp and p.is_shard()][0]
+                return t.redistribute(t.device_mesh, want)
         want = [Replicate() if names[i] in dp and p.is_shard() else p
                 for i, p in enumerate(t.placements)]
         return t if want == list(t.placements) else \

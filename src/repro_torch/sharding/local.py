@@ -19,6 +19,15 @@ plain code:
   dimension no way shards falls back to.
 * :func:`reshape`: a reshape DTensor cannot carry, after the gather it
   needs (logged).
+* :func:`repeat_heads`: a replicated weight's heads repeated and split
+  over a mesh dimension, each rank building its own block.
+* :func:`searchsorted`: on whole operands (DTensor has no rule for it).
+* :func:`matmul`: ``x @ w`` whose weight gradient (over batch axes,
+  the input's too) is computed in blocks over the mesh axes that neither
+  operand splits (the product itself is repeated there), as XLA does.
+* :func:`write_position`: a decode step's write into a cache split on
+  its positions, on the rank that holds the position (DTensor would
+  gather the whole cache to write one slot).
 * :func:`embedding_lookup` and :func:`target_logits`: a row lookup and a
   last-dimension gather on a vocabulary-sharded DTensor, each rank on its
   own vocabulary block.
@@ -43,6 +52,17 @@ Row = Tuple[list, list]
 def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (without making
+    one: a global-shape tensor, even on ``meta``, counts as memory to
+    ``MemTracker``)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(out))
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +261,144 @@ def reshape(t: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# repeat_heads, searchsorted
+# ---------------------------------------------------------------------------
+
+
+def repeat_heads(w: torch.Tensor, dim: int, times: int,
+                 mesh_dim: int) -> torch.Tensor:
+    """``w.repeat_interleave(times, dim)`` as a DTensor sharded on ``dim``
+    over mesh dimension ``mesh_dim``, where ``w`` is replicated there:
+    each rank gathers its block's entries from its own copy (no
+    collective), so a product with it runs on the rank's share of the
+    repeated heads.  The gradient of each rank's block is summed into
+    the entries it repeats, then over the ranks of ``mesh_dim`` (a
+    partial sum: the reduction ``w``'s own placement asks for)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = w.device_mesh
+    n = mesh.size(mesh_dim)
+    width = w.shape[dim] * times
+    if not w.placements[mesh_dim].is_replicate() or width % n:
+        raise ValueError(f"repeat_heads: {w.placements} on mesh dim "
+                         f"{mesh_dim}, {width} heads over {n} ranks")
+    grads = [Partial() if i == mesh_dim else p
+             for i, p in enumerate(w.placements)]
+    local = w.to_local(grad_placements=grads)
+    first = mesh.get_local_rank(mesh_dim) * (width // n)
+    idx = torch.arange(first, first + width // n,
+                       device=local.device) // times
+    block = local.index_select(dim, idx)
+    shape = list(w.shape)
+    shape[dim] = width
+    placements = [Shard(dim) if i == mesh_dim else p
+                  for i, p in enumerate(w.placements)]
+    return DTensor.from_local(block, mesh, placements, run_check=False,
+                              shape=tuple(shape),
+                              stride=contiguous_strides(shape))
+
+
+@local_blocks(["R", "R", "R"])
+def _searchsorted_whole(sorted_seq, values, *, side):
+    return torch.searchsorted(sorted_seq, values, side=side)
+
+
+def searchsorted(sorted_seq: torch.Tensor, values: torch.Tensor, *,
+                 side: str = "left") -> torch.Tensor:
+    """``torch.searchsorted``; DTensor operands (it has no rule for the
+    op) replicated first, the result replicated."""
+    if not (is_dtensor(sorted_seq) or is_dtensor(values)):
+        return torch.searchsorted(sorted_seq, values, side=side)
+    return _searchsorted_whole(sorted_seq, values, side=side)
+
+
+class _BlockedWeightGrad(torch.autograd.Function):
+    """``x @ w`` (``w`` [..., K, N], batch dims matching ``x``'s leading
+    ones); the gradient of ``w`` computed in blocks of K rows, each rank
+    of the mesh dimensions ``dims`` its block, and ``x``'s in blocks of
+    its K columns over those of ``dims`` in ``x_dims`` (``x`` and the
+    output's gradient are whole there, so a block needs no collective)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dims, x_dims):
+        ctx.save_for_backward(x, w)
+        ctx.dims, ctx.x_dims = dims, x_dims
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Shard
+        x, w = ctx.saved_tensors
+        want = list(w.placements)
+        for i in ctx.x_dims:
+            want[i] = Shard(w.ndim - 2)
+        gx = g @ w.redistribute(w.device_mesh, want).transpose(-2, -1)
+        k, n = w.shape[-2:]
+        lead = w.shape[:-2]
+        x2 = x.reshape(*lead, -1, k)
+        g2 = g.reshape(*lead, -1, n)
+        want = list(x2.placements)
+        for i in ctx.dims:
+            want[i] = Shard(x2.ndim - 1)
+        x2 = x2.redistribute(x2.device_mesh, want)
+        return gx, x2.transpose(-2, -1) @ g2, None, None
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``.  Where ``x`` and ``w`` are DTensors that some mesh
+    dimensions leave whole (both replicated: every rank there repeats
+    the product), each such rank computes one block of ``w``'s rows of
+    its gradient, the block its own, instead of the whole of it again;
+    where those are batch axes (``x``'s batch did not split there: the
+    MoE's dispatch buffer), so does ``x``'s gradient — as XLA's
+    partitioner splits them."""
+    if not (is_dtensor(x) and is_dtensor(w)) or w.ndim < 2:
+        return x @ w
+    k = w.shape[-2]
+    dims, n = [], 1
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        if px.is_replicate() and pw.is_replicate() and \
+                k % (n * w.device_mesh.size(i)) == 0:
+            dims.append(i)
+            n *= w.device_mesh.size(i)
+    if not dims or not (x.requires_grad or w.requires_grad) or \
+            not torch.is_grad_enabled():
+        return x @ w
+    from repro_torch.sharding.axes import (_expand_virtual, current_rules,
+                                           mesh_shape)
+    names = list(mesh_shape(w.device_mesh))
+    dp = _expand_virtual(current_rules().get("batch"),
+                         mesh_shape(w.device_mesh))
+    return _BlockedWeightGrad.apply(
+        x, w, tuple(dims), tuple(i for i in dims if names[i] in dp))
+
+
+def write_position(buf: torch.Tensor, pos: int,
+                   value: torch.Tensor) -> torch.Tensor:
+    """``buf[:, pos] = value`` in place; returns ``buf``.  A DTensor
+    buffer split on its positions (dim 1) and its batch only is written
+    on the rank whose block holds ``pos``, ``value`` taken there in the
+    buffer's batch layout."""
+    if not is_dtensor(buf) or not any(p.is_shard() and p.dim == 1
+                                      for p in buf.placements) \
+            or any(p.is_shard() and p.dim > 1 for p in buf.placements):
+        buf[:, pos] = value
+        return buf
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    seq = [i for i, p in enumerate(buf.placements)
+           if p.is_shard() and p.dim == 1]
+    rows = [Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+            for p in buf.placements]
+    v = _as_dtensor(value, mesh).redistribute(mesh, rows).to_local()
+    block, n = _vocab_block(mesh, seq)
+    local = buf.to_local()
+    first = block * local.shape[1]
+    if first <= pos < first + local.shape[1]:
+        local[:, pos - first] = v
+    return buf
+
+
+# ---------------------------------------------------------------------------
 # The vocabulary-sharded lookup and gather
 # ---------------------------------------------------------------------------
 
@@ -292,8 +450,8 @@ def embedding_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     shape = (*tokens.shape, w.shape[1])
     part = [Partial() if i in vocab else p for i, p in enumerate(rest)]
     return DTensor.from_local(rows, mesh, part, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta")
-                              .stride()).redistribute(mesh, rest)
+                              stride=contiguous_strides(shape)
+                              ).redistribute(mesh, rest)
 
 
 def target_logits(lf: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

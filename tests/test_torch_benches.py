@@ -161,10 +161,9 @@ def test_study_bench_rows():
         "study.recovery_citra"])
 
 
-def test_harness_names_the_reference_benches_but_roofline():
-    """The name is kept from before ``roofline`` was ported: the harness
-    now lists every one of the reference's benches, ``roofline`` too, in
-    the reference's order."""
+def test_harness_names_every_reference_bench_in_its_order():
+    """The harness lists every one of the reference's benches,
+    ``roofline`` too, in the reference's order."""
     src = (ROOT / "benchmarks" / "run.py").read_text()
     body = src[src.index("benches = {"):src.index("only = ")]
     reference = re.findall(r'"(\w+)":', body)

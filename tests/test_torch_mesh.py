@@ -313,6 +313,138 @@ def test_custom_op_strategy_matches_the_plain_op(strategies, name):
 
 
 # ---------------------------------------------------------------------------
+# Attention split on the query heads, K/V heads repeated, at 4 ranks
+# ---------------------------------------------------------------------------
+
+KV_SPLIT_BODY = """
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.param import axes_tree, carry
+from repro_torch.sharding import repeat_heads, use_mesh
+
+t = {k: torch.from_numpy(v) for k, v in data.items()}
+R = Replicate()
+
+
+def ok(got, want):
+    got = got.full_tensor() if hasattr(got, "full_tensor") else got
+    return bool(np.allclose(got.detach().numpy(), want.detach().numpy(),
+                            rtol=2e-4, atol=2e-5))
+
+
+def attention(q, k, v):
+    return ops.flash_attention(q, k, v, causal=True, softcap=20.0,
+                               scale=0.25, block_q=32, block_k=32)
+
+
+# (a) the kernel's wrapper on q's heads, k and v repeated from replicated
+q, k, v, do = (t[n].requires_grad_() for n in ("q", "k", "v", "do"))
+want = attention(q, k, v)
+wgrads = torch.autograd.grad((want * do).sum(), [q, k, v])
+qd = distribute_tensor(q.detach(), mesh, [R, Shard(2)]).requires_grad_()
+kd, vd = (distribute_tensor(u.detach(), mesh, [R, R]).requires_grad_()
+          for u in (k, v))
+kr, vr = (repeat_heads(u, 2, 2, 1) for u in (kd, vd))
+got = attention(qd, kr, vr)
+dod = distribute_tensor(t["do"], mesh, list(got.placements))
+ggrads = torch.autograd.grad((got * dod).sum(), [qd, kd, vd])
+out["kernel"] = np.array(
+    [ok(got, want)] + [ok(g, w) for g, w in zip(ggrads, wgrads)]
+    + [tuple(got.placements) == (R, Shard(2)),
+       tuple(kr.to_local().shape) == (4, 32, 1, 16),
+       tuple(kr.placements) == (R, Shard(2))])
+
+# (b) the attention sub-block: the split's projections and gradients
+cfg = get_smoke_config("gemma2-9b")
+a = cfg.attention
+schema = layers.attn_schema(cfg)
+tree = {n: data["w_" + n] for n in ("wq", "wk", "wv", "wo")}
+x = t["x"]
+pos = torch.arange(x.shape[1])[None].expand(x.shape[0], -1)
+
+
+def block(params, xx):
+    ctx = layers.Ctx(cfg=cfg, mode="train", positions=pos)
+    y, _ = layers.apply_attn(params, xx, ctx)
+    return y
+
+
+plain = {n: u.requires_grad_() for n, u in carry(tree, "cpu").items()}
+xs = x.clone().requires_grad_()
+y_want = block(plain, xs)
+dy = t["dy"]
+g_want = torch.autograd.grad((y_want * dy).sum(),
+                             [xs] + [plain[n] for n in sorted(plain)])
+with use_mesh(mesh), implicit_replication():
+    split = layers.kv_split(a)
+    params = carry(tree, "cpu", axes=axes_tree(schema), mesh=mesh)
+    params = {n: u.requires_grad_() for n, u in params.items()}
+    xd = distribute_tensor(x, mesh, [Shard(0), R]).requires_grad_()
+    y = block(params, xd)
+    dyd = distribute_tensor(dy, mesh, list(y.placements))
+    g_got = torch.autograd.grad((y * dyd).sum(),
+                                [xd] + [params[n] for n in sorted(params)])
+out["block"] = np.array(
+    [split == (2, 1), ok(y, y_want)]
+    + [ok(g, w) for g, w in zip(g_got, g_want)]
+    + [tuple(params["wk"].placements) == (R, R)])
+
+# (c) a product the model axis repeats: the weight's gradient in row
+# blocks, a block a rank, then whole again
+from repro_torch.sharding import matmul
+xm, wm, dm = t["x"], t["w_wq"].reshape(64, 64), t["dy"]
+xs, ws = xm.clone().requires_grad_(), wm.clone().requires_grad_()
+g_want = torch.autograd.grad((matmul(xs, ws) * dm).sum(), [xs, ws])
+xd = distribute_tensor(xm, mesh, [Shard(0), R]).requires_grad_()
+wd = distribute_tensor(wm, mesh, [R, R]).requires_grad_()
+yd = matmul(xd, wd)
+g_got = torch.autograd.grad(
+    (yd * distribute_tensor(dm, mesh, list(yd.placements))).sum(), [xd, wd])
+out["matmul"] = np.array([ok(yd, xm @ wm)]
+                         + [ok(g, w) for g, w in zip(g_got, g_want)])
+"""
+
+
+@pytest.fixture(scope="module")
+def kv_split(tmp_path_factory):
+    rng = np.random.default_rng(11)
+
+    def rn(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    B, S, Hq, Hkv, D = 4, 32, 4, 2, 16
+    d = 64
+    return run_ranks(tmp_path_factory.mktemp("kv_split"), (1, 4),
+                     ("data", "model"), KV_SPLIT_BODY, {
+        "q": rn(B, S, Hq, D), "k": rn(B, S, Hkv, D), "v": rn(B, S, Hkv, D),
+        "do": rn(B, S, Hq, D),
+        "w_wq": rn(d, Hq, D, scale=0.2), "w_wk": rn(d, Hkv, D, scale=0.2),
+        "w_wv": rn(d, Hkv, D, scale=0.2), "w_wo": rn(Hq, D, d, scale=0.2),
+        "x": rn(2, 32, d), "dy": rn(2, 32, d)})
+
+
+@pytest.mark.parametrize("case", ("kernel", "block", "matmul"))
+def test_attention_split_on_the_query_heads_matches_the_plain_op(kv_split,
+                                                                 case):
+    """4 query / 2 key-value heads on a model axis of 4 (gloo ranks): 2
+    K/V heads do not split over 4, so each is repeated twice and each
+    rank holds one repeat beside its one query head.  ``kernel``: the
+    attention wrapper on q sharded on its heads and k, v repeated from
+    replicated by ``sharding.repeat_heads`` — output, dq, dk and dv
+    against the plain op on the whole tensors (dk and dv summed over the
+    repeats and the ranks), the output on the heads, each rank's k one
+    head.  ``block``: gemma2-9b's smoke attention sub-block
+    (``layers.apply_attn``, ``kv_split`` = (2, model dim)) — its output
+    and the gradients of x, wk, wo, wq, wv against the mesh-less block,
+    at :data:`TOL`.  ``matmul``: ``sharding.matmul`` of a batch-split x
+    and a weight the model axis leaves whole (each rank one block of the
+    weight gradient's rows) — output, dx, dw against the plain product."""
+    assert kv_split[case].all(), kv_split[case]
+
+
+# ---------------------------------------------------------------------------
 # Trainer under a 1 × 1 mesh against the reference's
 # ---------------------------------------------------------------------------
 

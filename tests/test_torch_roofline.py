@@ -431,14 +431,18 @@ sys.exit(0 if rec["status"] == "ok" else 1)
 
 def test_dryrun_splits_the_mlp_and_projections_as_the_rules_say(tmp_path):
     """gemma2-9b at full width, cut to 2 layers, on the 16 × 16 mesh:
-    each rank runs the MLP's products at d_ff ÷ 16 and the query and
-    output projections' at (16 heads · 256) ÷ 16, on its 16th of the
-    batch — per device exactly the even split of the rules ("ff" and
-    "heads" on "model", the batch on "data"), remat "full" giving each
-    weight four products a microbatch (forward, recompute, input
-    gradient, weight gradient) — and no product holds either width
-    whole.  (A gradient reaching a layer's output partial on the model
-    axis ran these products on gathered weights at full width.)"""
+    each rank runs the MLP's products at d_ff ÷ 16 and the query, key,
+    value and output projections' at (16 heads · 256) ÷ 16 (the 8
+    key/value heads repeated to 16, one a rank beside its query head),
+    on its 16th of the batch — per device exactly the even split of the
+    rules ("ff" and "heads" on "model", the batch on "data"), remat
+    "full" giving each weight four products a microbatch (forward,
+    recompute, input gradient, weight gradient) — and no product holds
+    a width whole (the key/value heads' 8 · 256 neither); the attention
+    kernel's FLOPs a rank are the record's at the global shapes ÷ 256.
+    (A gradient reaching a layer's output partial on the model axis ran
+    these products on gathered weights at full width; the key/value
+    heads, replicated, ran every query head on every rank.)"""
     from repro_torch.core.opcost import product_flops
     proc = subprocess.run(
         [sys.executable, "-c", _FULL_WIDTH_CELL, str(tmp_path)],
@@ -448,10 +452,16 @@ def test_dryrun_splits_the_mlp_and_projections_as_the_rules_say(tmp_path):
     assert proc.returncode == 0, rec.get("traceback", proc.stderr[-3000:])
     ops = parse_ops(Path(rec["ops_path"]).read_text())
     tokens, d, layers, chips = 256 * 4096, 3584, 2, 256
-    for width, weights in ((14336, 3), (16 * 256, 2)):
+    for width, weights in ((14336, 3), (16 * 256, 4)):
         assert product_flops(ops, width) == 0
         assert product_flops(ops, width // 16) == \
             weights * 4 * 2 * tokens * d * width * layers / chips
+    assert product_flops(ops, 8 * 256) == 0
+    kernels = ("repro_torch.flash_attention",
+               "repro_torch.flash_attention_bwd")
+    walked = sum(e["flops"] for e in ops if e["op"] in kernels)
+    by_op = rec["cost"]["flops_by_op"]
+    assert walked * chips == sum(by_op[op] for op in kernels) > 0
 
 
 def test_smoke_dryrun_cell_gives_an_ok_row(tmp_path, monkeypatch):
