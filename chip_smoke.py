@@ -238,12 +238,16 @@ Phases, each fatal on failure:
    walked to exactly its FLOPs ÷ 8, its sum's all-reduce at the ring's
    wire bytes (:func:`walk_check_main`); (b) phase 18 (d)'s records
    priced by ``core.roofline.roofline_table`` — the three terms, the
-   dominant one, MFU at the roofline, HBM a device against the card's —
-   and ``python -m repro_torch.studies.run roofline`` over them; fatal
-   on a row not ``ok``, a ``.FAILED`` bench row, walked FLOPs a device
-   × devices below the record's, or a ``LAYOUT_CELLS`` cell whose MLP,
-   q / k / v / o projections or attention kernel do not run at the even
-   split (:func:`roofline_cells_path`).  One ``{"roofline": ...}`` line.
+   dominant one, MFU at the roofline, HBM a device against the card's,
+   the temporaries a device and the collective wire bytes a device by
+   kind — and ``python -m repro_torch.studies.run roofline`` over them;
+   fatal on a row not ``ok``, a ``.FAILED`` bench row, walked FLOPs a
+   device × devices below the record's, a ``LAYOUT_CELLS`` cell whose
+   MLP, q / k / v / o projections or attention kernel do not run at the
+   even split, or a ``LOGITS_CELLS`` cell that all-gathers a block of
+   the logits (the loss's logsumexp must reduce each rank's vocabulary
+   block, :func:`logits_gathers`) (:func:`roofline_cells_path`).  One
+   ``{"roofline": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -3298,6 +3302,9 @@ KERNEL_OPS = {
 #: phase 19 (b): the dry-run cells whose MLP, projections and attention
 #: kernel must run split over the mesh as the rules put them
 LAYOUT_CELLS = ("gemma2-9b__train_4k__single",)
+#: phase 19 (b): the dry-run cells whose training loss must keep the
+#: logits' batch on its ranks (:func:`logits_gathers`)
+LOGITS_CELLS = ("gemma2-9b__train_4k__single",)
 
 
 def launch_counters():
@@ -3487,6 +3494,23 @@ def roofline_step_path(counts, zero_counts, dev, tmp, *, arch, layers,
     return out
 
 
+def logits_gathers(entries, cfg, mesh_shape) -> list:
+    """Phase 19 (b)'s logits check of a dry-run cell's op program
+    ``entries``: its all-gathers of a block of the logits [batch, seq,
+    vocabulary] — the padded vocabulary whole or split over the model
+    axis — each of which would hold the logits of other ranks' batch
+    rows on every rank (DTensor's own logsumexp gathered the whole
+    microbatch so, 16.8 GB a device at gemma2-9b ``train_4k``, before
+    ``sharding.logsumexp``).  None is allowed."""
+    from repro_torch.core.opcost import collective_kind
+    from repro_torch.models.lm import padded_vocab
+    vocab = padded_vocab(cfg)
+    return [e for e in entries
+            if collective_kind(e["op"]) == "all-gather"
+            and len(e["in"][0][1]) == 3
+            and e["in"][0][1][-1] in (vocab, vocab // mesh_shape["model"])]
+
+
 def layout_split(entries, run, mesh_shape, record_flops=None) -> dict:
     """Phase 19 (b)'s layout check of a dry-run cell's op program
     ``entries`` (rank 0's; the run ``run``, its mesh ``mesh_shape``):
@@ -3549,9 +3573,12 @@ def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
     repro_torch.studies.run`` with ``bench_args`` run over them (from
     ``tmp``, whose ``runs/dryrun_torch`` they are).  Fails on a row whose
     status is not ``ok``, a ``.FAILED`` bench row, a missing cell's row,
-    walked FLOPs per device × chips below the record's ``cost.flops``, or
-    a :data:`LAYOUT_CELLS` cell whose MLP, projections or attention
-    kernel do not split as the rules say (:func:`layout_split`)."""
+    walked FLOPs per device × chips below the record's ``cost.flops``, a
+    :data:`LAYOUT_CELLS` cell whose MLP, projections or attention kernel
+    do not split as the rules say (:func:`layout_split`), or a
+    :data:`LOGITS_CELLS` cell with an all-gather of a logits block
+    (:func:`logits_gathers`).  Each cell's entry carries its temporaries
+    and its wire bytes by collective kind, a device."""
     import torch
 
     from repro_torch.core.opcost import parse_ops
@@ -3575,11 +3602,14 @@ def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
             raise SystemExit(f"roofline {key}: "
                              f"{'no row' if r is None else r.note}")
         walked = r.hlo_flops * r.chips
+        wire = {k: v["wire"] for k, v in r.coll_breakdown.items()}
         out[key] = {**r.as_dict(), "ops_count": rec["ops_count"],
                     "walked_flops_total": walked,
                     "record_flops": rec["cost"]["flops"],
                     "hbm_per_device_bytes":
                         rec["memory"]["total_per_device_bytes"],
+                    "temp_bytes": rec["memory"]["temp_bytes"],
+                    "wire_by_kind": wire,
                     "device_memory_bytes": total}
         log(f"roofline {key}: compute {r.t_compute:.4g} s, memory "
             f"{r.t_memory:.4g} s, collective {r.t_collective:.4g} s, "
@@ -3588,14 +3618,25 @@ def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
             f"device, walked {walked:.4g} FLOPs over {r.chips} devices "
             f"against the record's {rec['cost']['flops']:.4g}; HBM "
             f"{r.hbm_gb_per_chip:.2f} GiB a device of the card's "
-            f"{total / 2**30:.2f} GiB")
+            f"{total / 2**30:.2f} GiB, temporaries "
+            f"{rec['memory']['temp_bytes']:.6g} B; wire bytes a device "
+            f"by kind {wire}")
         if walked < rec["cost"]["flops"]:
             raise SystemExit(f"roofline {key}: the walk counts "
                              f"{walked:.6g} FLOPs, the record "
                              f"{rec['cost']['flops']:.6g}")
+        entries = parse_ops(
+            (dryrun_dir(tmp) / f"{key}.ops.json").read_text())
+        if key in LOGITS_CELLS:
+            gathers = logits_gathers(entries, make_run_config(arch, shape)
+                                     .model, rec["mesh_shape"])
+            out[key]["logits_gathers"] = len(gathers)
+            log(f"roofline {key}: {len(gathers)} all-gathers of a block "
+                f"of the logits")
+            if gathers:
+                raise SystemExit(f"roofline {key}: the loss gathers the "
+                                 f"logits: {gathers}")
         if key in LAYOUT_CELLS:
-            entries = parse_ops(
-                (dryrun_dir(tmp) / f"{key}.ops.json").read_text())
             split = layout_split(entries, make_run_config(arch, shape),
                                  rec["mesh_shape"],
                                  rec["cost"]["flops_by_op"])

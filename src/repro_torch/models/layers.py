@@ -396,6 +396,28 @@ def heads_repeat(heads: int) -> Optional[int]:
     return math.lcm(heads, n) // heads
 
 
+def idle_batch_axis(x: torch.Tensor) -> Optional[int]:
+    """Where ``x`` (a DTensor activation) splits its batch over none of
+    the mesh axes the rules put the batch on, though one of them has more
+    than one rank (a decode step of one sequence): the mesh dimension of
+    the largest such axis, which then holds nothing of the batch.  None
+    otherwise."""
+    mesh = current_mesh()
+    if mesh is None or not hasattr(x, "device_mesh"):
+        return None
+    shape = mesh_shape(mesh)
+    names = list(shape)
+    spec = logical_to_pspec(("batch",), mesh)
+    entry = spec[0] if spec else None
+    dp = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    if any(x.placements[names.index(a)].is_shard() for a in dp):
+        return None
+    idle = [a for a in dp if shape[a] > 1]
+    if not idle:
+        return None
+    return names.index(max(idle, key=lambda a: shape[a]))
+
+
 def kv_split(a: AttentionConfig) -> Optional[Tuple[int, int]]:
     """Under a mesh whose axis for "act_heads" splits the query heads but
     not the key/value heads: (times, mesh dimension), each key/value

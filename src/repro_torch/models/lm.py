@@ -36,8 +36,10 @@ from repro_torch.models.blocks import (BLOCKS, aux_keys, effective_pattern,
 from repro_torch.models.param import (ParamSpec, axes_tree, init_stacked,
                                       init_tree, stack_schema, torch_dtype,
                                       tree_map)
-from repro_torch.sharding import (embedding_lookup, gather_dp, shard_act,
+from repro_torch.sharding import (dp_placements, embedding_lookup,
+                                  gather_dp, logsumexp, shard_act,
                                   target_logits)
+from repro_torch.sharding.local import contiguous_strides
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -157,8 +159,13 @@ def zero_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = embedding_lookup(gather_dp(params["embed"]), tokens)  # gather [B,S,D]
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tokens' rows of the table (``table``: the table already
+    gathered over the batch axes)."""
+    if table is None:
+        table = gather_dp(params["embed"])
+    x = embedding_lookup(table, tokens)  # gather [B,S,D]
     if dict(cfg.extra).get("embed_scale", False):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -166,11 +173,17 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor,
-          decode: bool = False) -> torch.Tensor:
+          decode: bool = False,
+          table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The logits; a tied head takes ``table`` (the lookup's gathered
+    table) where the head's own gather would place it the same way."""
     step = x if decode else None
     if cfg.tie_embeddings:
-        logits = x @ gather_dp(params["embed"], step,
-                               transposed=True).to(x.dtype).T
+        w = params["embed"]
+        if not hasattr(table, "placements") or list(
+                table.placements) != dp_placements(w, step, transposed=True):
+            table = gather_dp(w, step, transposed=True)
+        logits = x @ table.to(x.dtype).T
     else:
         logits = x @ gather_dp(params["lm_head"], step).to(x.dtype)
     if cfg.final_logit_softcap:
@@ -208,10 +221,48 @@ class _Stacker:
                 and stacked.shape[1:] == new.shape:
             buf = stacked
         if buf is None:
-            buf = new.new_empty((self.num, *new.shape))
-        if buf[g].data_ptr() != new.data_ptr():
-            buf[g].copy_(new)
+            buf = _stack_buffer(new, self.num)
+        if not _same_view(buf[g], new):
+            _write(buf[g], new)
         return buf
+
+
+def _stack_buffer(t: torch.Tensor, num: int) -> torch.Tensor:
+    """An empty [num, *t.shape] buffer of ``t``'s dtype; a DTensor ``t``'s
+    laid out as ``t`` (its shards one dimension on), each rank its own
+    blocks (``new_empty`` of a DTensor is replicated: every rank the
+    whole global buffer)."""
+    if not hasattr(t, "to_local"):
+        return t.new_empty((num, *t.shape))
+    from torch.distributed.tensor import DTensor, Shard
+    local = t.to_local()
+    shape = (num, *t.shape)
+    return DTensor.from_local(
+        local.new_empty((num, *local.shape)), t.device_mesh,
+        [Shard(q.dim + 1) if q.is_shard() else q for q in t.placements],
+        run_check=False, shape=shape, stride=contiguous_strides(shape))
+
+
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` is moved to ``dst``'s
+    placements first and copied block by block (DTensor's own ``copy_``
+    may gather the batch of both to copy whole)."""
+    if not hasattr(dst, "to_local"):
+        dst.copy_(src)
+        return
+    src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
+def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` (a DTensor's: its local block) view the
+    same elements of one storage — a leaf its block updated in place.  A
+    DTensor's own ``data_ptr`` is its local block's offset alone, and a
+    ``meta`` tensor's is 0, so neither tells two buffers apart."""
+    a, b = (t.to_local() if hasattr(t, "to_local") else t for t in (a, b))
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset()
+            and a.shape == b.shape and a.stride() == b.stride())
 
 
 def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -320,7 +371,10 @@ def forward(
                        attn_impl=attn_impl, q_chunk=q_chunk,
                        kv_chunk=kv_chunk))
 
-    x = _embed(params, cfg, tokens)
+    # a decode step's lookup and tied head share one gather of the table
+    table = gather_dp(params["embed"]) \
+        if mode == "decode" and cfg.tie_embeddings else None
+    x = _embed(params, cfg, tokens, table)
     n_front = 0
     if cfg.frontend.kind != "none" and cfg.encdec is None and mode != "decode":
         fe = batch["frontend"]
@@ -387,7 +441,7 @@ def forward(
     x = layers.apply_norm(gather_dp(params["final_norm"]), cfg, x)
     if n_front and mode != "decode":
         x = x[:, n_front:]  # logits only over text positions
-    logits = _head(params, cfg, x, decode=mode == "decode")
+    logits = _head(params, cfg, x, decode=mode == "decode", table=table)
     return logits, aux, (new_cache or None)
 
 
@@ -398,7 +452,7 @@ def lm_loss(params, cfg: ModelConfig, batch, *, remat: str = "full",
                              attn_impl=attn_impl, moe_impl=moe_impl)
     targets = batch["targets"]
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
+    logz = logsumexp(lf)
     ll = target_logits(lf, targets)
     mask = batch.get("loss_mask")
     if mask is None:

@@ -33,7 +33,7 @@ from repro_torch.models import layers
 from repro_torch.models.param import ParamSpec
 from repro_torch.models.ssm import causal_conv, conv_step
 from repro_torch.sharding import (elementwise, local_blocks, matmul,
-                                  reshape, shard_act)
+                                  repeat_heads, reshape, shard_act)
 
 
 def _mdims(cfg: ModelConfig):
@@ -152,6 +152,35 @@ def _mlstm_state_step(C, k, v, fp, ip, q):
     return C, torch.einsum("bhd,bhde->bhe", q, C)
 
 
+def _idle_heads(heads: int, x: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """Where the batch axes hold nothing of ``x`` (a decode step of one
+    sequence): (times, mesh dimension), each of ``heads`` repeated
+    ``times`` over the largest batch axis so that it splits the repeats,
+    one repeat a rank (:func:`layers.idle_batch_axis`).  None otherwise."""
+    dim = layers.idle_batch_axis(x)
+    if dim is None:
+        return None
+    return math.lcm(heads, x.device_mesh.size(dim)) // heads, dim
+
+
+def _head_product(a: torch.Tensor, w: torch.Tensor, heads: int,
+                  rep) -> torch.Tensor:
+    """A decode step's ``a`` [B, 1, M] @ ``w`` [M, heads · dh] as
+    [B, heads, dh].  With ``rep`` (:func:`_idle_heads`) each rank
+    computes one repeat of one head, as XLA splits the mLSTM's q, k and
+    v over their outputs there; the heads are then gathered, one copy
+    each."""
+    B, m, width = a.shape[0], *w.shape
+    dh = width // heads
+    if not rep:
+        return reshape(a @ w, (B, heads, dh))
+    times, dim = rep
+    wr = repeat_heads(reshape(w, (m, heads, dh)), 1, times, dim)
+    y = reshape(a @ reshape(wr, (m, heads * times * dh)),
+                (B, heads * times, dh))
+    return layers.placed(y, dim, None)[:, ::times]
+
+
 def apply_mlstm(
     p: Dict, x: torch.Tensor, ctx: layers.Ctx, cache: Optional[Dict] = None
 ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
@@ -172,9 +201,9 @@ def apply_mlstm(
         # window is oldest-first; causal-conv tap k multiplies x[t-k]
         cx = conv_step(window, conv_w)
         cx = F.silu(cx.float()).to(dt_)
-        q = reshape(cx @ p["w_q"].to(dt_), (B, H, dh))
-        k = reshape(cx @ p["w_k"].to(dt_), (B, H, dh))
-        v = reshape(up @ p["w_v"].to(dt_), (B, H, dh))
+        rep = _idle_heads(H, x)
+        q, k, v = (_head_product(a, p[w].to(dt_), H, rep)
+                   for a, w in ((cx, "w_q"), (cx, "w_k"), (up, "w_v")))
         li = reshape(cx @ p["w_i"].to(dt_), (B, H)).float() \
             + p["b_i"].float()
         lf = _logsigmoid(reshape(cx @ p["w_f"].to(dt_), (B, H)).float()
@@ -186,8 +215,10 @@ def apply_mlstm(
         kf = k.float()
         qf = q.float() / math.sqrt(dh)
         vf = v.float()
-        axis = layers.heads_axis(H)
-        if axis is not None:   # each rank its columns of C, as XLA splits it
+        # each rank its columns of C, as XLA splits it: over the batch
+        # axis where it holds nothing, else over the heads' axis
+        axis = rep[1] if rep else layers.heads_axis(H)
+        if axis is not None:
             C, vf = layers.placed(C, axis, 3), layers.placed(vf, axis, 2)
         C, num = _mlstm_state_step(C, kf, vf, fp, ip, qf)
         n = n * fp[..., None] + ip[..., None] * kf
@@ -283,11 +314,47 @@ def slstm_cache_schema(cfg: ModelConfig, batch: int, seq: int) -> Dict:
     }
 
 
+def _gate_split(heads: int, x: torch.Tensor) -> Optional[int]:
+    """Where the batch axes hold nothing of ``x`` and the axis for
+    "act_heads" does not split ``heads`` (xlstm-125m's 4 over 16) but
+    splits the 4 · ``heads`` (gate, head) blocks: its mesh dimension,
+    over which XLA splits the sLSTM's gate products.  None otherwise."""
+    axis = layers.heads_axis(heads)
+    if axis is None or layers.idle_batch_axis(x) is None or \
+            4 * heads % x.device_mesh.size(axis):
+        return None
+    return axis
+
+
+def _row_split(w: torch.Tensor) -> int:
+    """The ranks a DTensor ``w``'s first dimension splits over."""
+    return math.prod(w.device_mesh.size(i) for i, p in
+                     enumerate(w.placements) if p.is_shard() and p.dim == 0)
+
+
+def _recurrent(h: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """einsum("bhd,hdge->bghe", h, r): the recurrent contribution to the
+    gates [B, 4, H, dh].  Where :func:`_gate_split` names an axis, each
+    rank there takes one (gate, head) block's product (the rows of ``h``
+    and the block of ``r`` cut from their whole copies), gathered
+    after."""
+    axis = _gate_split(h.shape[1], h)
+    if axis is None:
+        return torch.einsum("bhd,hdge->bghe", h, r)
+    B, H, dh = h.shape
+    hb = layers.placed(reshape(h[:, None].expand(B, 4, H, dh),
+                               (B, 4 * H, dh)), axis, 1)
+    rb = layers.placed(reshape(r.permute(2, 0, 1, 3), (4 * H, dh, dh)),
+                       axis, 0)
+    rec = torch.einsum("bkd,kde->bke", hb, rb)
+    return reshape(layers.placed(rec, axis, None), (B, 4, H, dh))
+
+
 def _slstm_step(p, state, g_in):
     """One sLSTM step, the reference's ``_slstm_cell``.  g_in: [B,4,H,dh]
     (input contribution to gates); state (c, n, m, h_prev)."""
     c, n, m, hprev = state
-    rec = torch.einsum("bhd,hdge->bghe", hprev, p["r_gates"].to(hprev.dtype))
+    rec = _recurrent(hprev, p["r_gates"].to(hprev.dtype))
     g = g_in.float() + rec.float() + p["b_gates"].float()[None]
     h_new, c_new, n_new, m_new = slstm_gate(g, c, n, m)
     return (c_new, n_new, m_new, h_new.to(hprev.dtype)), h_new
@@ -302,9 +369,15 @@ def apply_slstm(
     res = x
     h = layers.apply_norm(p["ln"], cfg, x)
     dt_ = h.dtype
-    wg = p["w_gates"].to(dt_)
-    g_in = reshape(matmul(h, reshape(wg, (D, 4 * H * dh))),
-                   (B, S, 4, H, dh))
+    wg = reshape(p["w_gates"].to(dt_), (D, 4 * H * dh))
+    axis = _gate_split(H, h)
+    if axis is not None and _row_split(wg) <= wg.device_mesh.size(axis):
+        # each rank its block of the outputs, whole again after (XLA
+        # keeps them whole where the rows split over more ranks: 2 × 16)
+        g_in = layers.placed(h @ layers.placed(wg, axis, 1), axis, None)
+    else:
+        g_in = matmul(h, wg)
+    g_in = reshape(g_in, (B, S, 4, H, dh))
 
     if ctx.mode == "decode":
         state = (cache["c"], cache["n"], cache["m"], cache["h"].to(dt_))

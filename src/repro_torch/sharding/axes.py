@@ -359,48 +359,55 @@ def gather_dp(tree: Any, meets: Optional[torch.Tensor] = None,
     together moves its shards onto that axis (a permutation of the
     blocks) instead of gathering them.  Subtrees under a key in
     ``leave`` are returned as they are: their layer gathers them."""
-    mesh = current_mesh()
-    if mesh is None:
+    if current_mesh() is None:
         return tree
-    from torch.distributed.tensor import DTensor, Replicate
-    shape = mesh_shape(mesh)
-    dp = _expand_virtual(current_rules().get("batch"), shape)
-    names = list(shape)
-    idle = isinstance(meets, DTensor) and all(
-        not meets.placements[names.index(a)].is_shard() for a in dp)
-    meets_local = meets.to_local().numel() if idle else 0
-    n_dp = _axis_size(mesh, dp)
+    from torch.distributed.tensor import DTensor
 
     def one(t):
         if isinstance(t, dict):
             return {k: v if k in leave else one(v) for k, v in t.items()}
         if not isinstance(t, DTensor):
             return t
-        held = {p.dim for i, p in enumerate(t.placements)
-                if names[i] in dp and p.is_shard()}
-        contracted = held == {t.ndim - 1} if transposed else \
-            bool(held) and t.ndim - 1 not in held
-        if isinstance(meets, DTensor) and contracted:
-            if idle:   # the leaf's elements on a rank once gathered
-                split = math.prod(shape[names[i]] for i, p in
-                                  enumerate(t.placements)
-                                  if names[i] not in dp and p.is_shard())
-                if t.numel() // split > meets_local:
-                    return t
-            free = [i for i, p in enumerate(t.placements)
-                    if names[i] not in dp and shape[names[i]] == n_dp
-                    and not p.is_shard()]
-            if not idle and len(held) == 1 and free:
-                want = [Replicate() if names[i] in dp else p
-                        for i, p in enumerate(t.placements)]
-                want[free[0]] = [p for i, p in enumerate(t.placements)
-                                 if names[i] in dp and p.is_shard()][0]
-                return t.redistribute(t.device_mesh, want)
-        want = [Replicate() if names[i] in dp and p.is_shard() else p
-                for i, p in enumerate(t.placements)]
+        want = dp_placements(t, meets, transposed)
         return t if want == list(t.placements) else \
             t.redistribute(t.device_mesh, want)
     return one(tree)
+
+
+def dp_placements(t, meets: Optional[torch.Tensor] = None,
+                  transposed: bool = False) -> list:
+    """The placements :func:`gather_dp` gives the DTensor leaf ``t`` (the
+    same ``meets`` and ``transposed``), under the current mesh and
+    rules."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = current_mesh()
+    shape = mesh_shape(mesh)
+    dp = _expand_virtual(current_rules().get("batch"), shape)
+    names = list(shape)
+    idle = isinstance(meets, DTensor) and all(
+        not meets.placements[names.index(a)].is_shard() for a in dp)
+    held = {p.dim for i, p in enumerate(t.placements)
+            if names[i] in dp and p.is_shard()}
+    contracted = held == {t.ndim - 1} if transposed else \
+        bool(held) and t.ndim - 1 not in held
+    if isinstance(meets, DTensor) and contracted:
+        if idle:   # the leaf's elements on a rank once gathered
+            split = math.prod(shape[names[i]] for i, p in
+                              enumerate(t.placements)
+                              if names[i] not in dp and p.is_shard())
+            if t.numel() // split > meets.to_local().numel():
+                return list(t.placements)
+        free = [i for i, p in enumerate(t.placements)
+                if names[i] not in dp and shape[names[i]] ==
+                _axis_size(mesh, dp) and not p.is_shard()]
+        if not idle and len(held) == 1 and free:
+            want = [Replicate() if names[i] in dp else p
+                    for i, p in enumerate(t.placements)]
+            want[free[0]] = [p for i, p in enumerate(t.placements)
+                             if names[i] in dp and p.is_shard()][0]
+            return want
+    return [Replicate() if names[i] in dp and p.is_shard() else p
+            for i, p in enumerate(t.placements)]
 
 
 def _is_axes(x) -> bool:

@@ -28,9 +28,9 @@ plain code:
 * :func:`write_position`: a decode step's write into a cache split on
   its positions, on the rank that holds the position (DTensor would
   gather the whole cache to write one slot).
-* :func:`embedding_lookup` and :func:`target_logits`: a row lookup and a
-  last-dimension gather on a vocabulary-sharded DTensor, each rank on its
-  own vocabulary block.
+* :func:`embedding_lookup`, :func:`target_logits` and :func:`logsumexp`:
+  a row lookup, a last-dimension gather and the loss's normalizer on a
+  vocabulary-sharded DTensor, each rank on its own vocabulary block.
 
 A way is taken only where it splits its dimensions evenly after the
 earlier mesh dimensions' choices, so every rank's block has the same
@@ -399,7 +399,7 @@ def write_position(buf: torch.Tensor, pos: int,
 
 
 # ---------------------------------------------------------------------------
-# The vocabulary-sharded lookup and gather
+# The vocabulary-sharded lookup, gather and logsumexp
 # ---------------------------------------------------------------------------
 
 
@@ -454,31 +454,67 @@ def embedding_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                               ).redistribute(mesh, rest)
 
 
+def _vocab_split(lf: torch.Tensor):
+    """(the mesh dims that shard the last dimension of a DTensor ``lf``,
+    ``lf``'s placements with those replicated)."""
+    from torch.distributed.tensor import Replicate
+    last = lf.ndim - 1
+    vocab = [i for i, p in enumerate(lf.placements)
+             if p.is_shard() and p.dim == last]
+    rest = [Replicate() if i in vocab else p
+            for i, p in enumerate(lf.placements)]
+    return vocab, rest
+
+
+def _over_vocab(local: torch.Tensor, lf: torch.Tensor, vocab, rest,
+                op: str = "sum") -> torch.Tensor:
+    """A rank's value at each of ``lf``'s positions from its own
+    vocabulary block, ``local``, reduced by ``op`` over the ranks of the
+    mesh dims ``vocab``: a DTensor laid out as ``rest``."""
+    from torch.distributed.tensor import DTensor, Partial
+    shape = tuple(lf.shape[:-1])
+    part = [Partial(op) if i in vocab else p for i, p in enumerate(rest)]
+    return DTensor.from_local(local, lf.device_mesh, part, run_check=False,
+                              shape=shape, stride=contiguous_strides(shape)
+                              ).redistribute(lf.device_mesh, rest)
+
+
 def target_logits(lf: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """``lf[..., targets]``: each position's logit of its target.  Logits
     that are a DTensor sharded on the vocabulary are read on each rank's
     own vocabulary block (the targets outside it give 0) and summed over
     those ranks, so no rank gathers the whole vocabulary."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
     if not is_dtensor(lf):
         return torch.gather(lf, -1, targets[..., None])[..., 0]
-    mesh, last = lf.device_mesh, lf.ndim - 1
-    vocab = [i for i, p in enumerate(lf.placements)
-             if p.is_shard() and p.dim == last]
-    rest = [Replicate() if i in vocab else p
-            for i, p in enumerate(lf.placements)]
-    targets = _as_dtensor(targets, mesh).redistribute(mesh, rest)
+    vocab, rest = _vocab_split(lf)
+    targets = _as_dtensor(targets, lf.device_mesh).redistribute(
+        lf.device_mesh, rest)
     if not vocab:
         return torch.gather(lf, -1, targets[..., None])[..., 0]
-    block, n = _vocab_block(mesh, vocab)
+    block, n = _vocab_block(lf.device_mesh, vocab)
     width = lf.shape[-1] // n
     local = targets.to_local() - block * width
     inside = (local >= 0) & (local < width)
     ll = torch.gather(lf.to_local(), -1,
                       local.clamp(0, width - 1)[..., None])[..., 0]
-    ll = ll * inside.to(ll.dtype)
-    part = [Partial() if i in vocab else p for i, p in enumerate(rest)]
-    return DTensor.from_local(ll, mesh, part, run_check=False,
-                              shape=targets.shape,
-                              stride=targets.stride()).redistribute(mesh,
-                                                                    rest)
+    return _over_vocab(ll * inside.to(ll.dtype), lf, vocab, rest)
+
+
+def logsumexp(lf: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(lf, dim=-1)``.  Logits that are a DTensor sharded
+    on the vocabulary keep their batch and sequence placements: each rank
+    takes the max of its own vocabulary block, the maxima are combined
+    over the vocabulary's ranks (and held out of the gradient), each rank
+    sums ``exp(lf - max)`` over its block, and the sums are combined over
+    those ranks — so no rank holds another rank's batch rows (DTensor's
+    own rule gathers the batch to reduce the vocabulary whole)."""
+    if not is_dtensor(lf):
+        return torch.logsumexp(lf, dim=-1)
+    vocab, rest = _vocab_split(lf)
+    if not vocab:
+        return torch.logsumexp(lf, dim=-1)
+    local = lf.to_local()
+    m = _over_vocab(local.detach().amax(-1), lf, vocab, rest, "max")
+    s = _over_vocab(torch.exp(local - m.to_local()[..., None]).sum(-1), lf,
+                    vocab, rest)
+    return torch.log(s) + m

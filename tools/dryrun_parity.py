@@ -13,9 +13,18 @@ each in a fresh process:
   ``repro_torch.core.opcost``.
 
 One JSON row a cell: both statuses (and errors), per-device walked FLOPs,
-per-device product FLOPs by class, collective wire bytes, and the ratio
-port ÷ reference of each.  Product classes are read by shape on both
-sides (as ``opcost.product_flops`` reads a width):
+per-device product FLOPs by class, memory (``temp_bytes``: temporaries),
+collective wire bytes in all and by kind, and the ratio port ÷
+reference of each (``ratio.wire_by_kind``: each kind's).  Each side also
+lists its collectives by signature — kind, group size, operand and
+result dtypes and shapes, and on the reference's side its
+``replica_groups``, ``dimensions`` and the tail of its ``op_name`` — with
+their summed wire bytes and count: the five largest by wire as
+``collectives``, all of them as ``all_collectives``.  The port's come
+from its ``.ops.json`` record (a gather along dimension d > 0 shows as
+DTensor's stack along dimension 0), the reference's from its HLO text.
+Product classes are read by shape on both sides (as
+``opcost.product_flops`` reads a width):
 
 * ``head`` — products with a dimension of the (padded) vocabulary, whole
   or split over the model axis;
@@ -60,6 +69,8 @@ ROOT = Path(__file__).resolve().parents[1]
 CLASSES = ("attention", "projections", "mlp", "head")
 #: HLO ops whose cost is their computations' (priced inside them)
 CONTAINERS = ("fusion", "while", "conditional", "call", "async-start")
+#: the collectives each side of a row lists first, the largest by wire
+TOP = 5
 
 
 def cut_layers(arch: str, layers: int) -> tuple:
@@ -150,6 +161,9 @@ if rec["status"] != "ok":
 n_dev = math.prod(rec["mesh_shape"].values())
 w = tool.widths(tool.port_config(arch, layers))
 dot_re = re.compile(r"(\w+)_contracting_dims=\{([\d,]*)\}")
+groups_re = re.compile(r"replica_groups=(\S+),\s")
+dims_re = re.compile(r"dimensions=\{([\d,]*)\}")
+name_re = re.compile(r'op_name="([^"]*)"')
 
 
 def dims(side, rest):
@@ -158,12 +172,23 @@ def dims(side, rest):
 
 
 class Walker(hlo.HloCostAnalyzer):
-    # the reference's walk, each op's FLOPs also by opcode and each dot's
-    # by class (carried as zero-wire collective entries, so loops
-    # multiply them)
+    # the reference's walk, each op's FLOPs also by opcode, each dot's by
+    # class and each collective's wire by its signature (carried as
+    # zero-wire collective entries, so loops multiply them)
 
     def _op_cost(self, op, comp, inside_fusion):
         c = super()._op_cost(op, comp, inside_fusion)
+        kind = op.opcode[:-6] if op.opcode.endswith("-start") else op.opcode
+        if kind in hlo.COLLECTIVES and not op.opcode.endswith("-done"):
+            key = "coll:" + json.dumps(tool.signature(
+                kind, hlo._group_size(op, n_dev),
+                [s for ss in hlo._operand_shapes(op, comp) for s in ss],
+                op.result, groups=groups_re.search(op.rest),
+                dimensions=dims_re.search(op.rest),
+                op_name=name_re.search(op.rest)))
+            c.coll_payload[key] = c.coll_wire[kind]
+            c.coll_wire[key], c.coll_count[key] = 0.0, 1.0
+            return c
         if op.opcode == "fusion":   # the walk keeps a fusion's FLOPs only
             m = hlo._CALLS_RE.search(op.rest)
             if m and m.group(1) in self.comps:
@@ -206,6 +231,9 @@ cost = Walker(data.decode(), num_devices=n_dev).entry_cost()
 row.update(tool.summary(cost.flops, cost.coll_wire, cost.coll_payload))
 row["flops_by_op"] = dict((k[3:], v) for k, v in cost.coll_payload.items()
                           if k.startswith("op:"))
+row.update(tool.collective_lists(
+    {**json.loads(k[5:]), "wire": v, "count": cost.coll_count[k]}
+    for k, v in cost.coll_payload.items() if k.startswith("coll:")))
 row["memory"] = rec["memory"]
 print(json.dumps(row))
 """
@@ -227,7 +255,8 @@ def port_config(arch: str, layers: int):
 
 
 def port_side(arch, shape, mesh, layers, out: Path) -> dict:
-    from repro_torch.core.opcost import OpCostAnalyzer, PRODUCTS, parse_ops
+    from repro_torch.core.opcost import (OpCostAnalyzer, PRODUCTS,
+                                         collective_kind, parse_ops)
     from repro_torch.launch import dryrun
 
     cfg = port_config(arch, layers)
@@ -256,23 +285,61 @@ def port_side(arch, shape, mesh, layers, out: Path) -> dict:
     row.update(summary(cost.flops, cost.coll_wire, by_class))
     row["flops_by_op"] = {k: v for k, v in walker.flop_breakdown.items()
                           if v}
+    row.update(collective_lists(
+        {**signature(kind, e.get("group") or n_dev, e["in"], e["out"]),
+         "wire": walker.op_cost(e).coll_wire[kind] * e["count"],
+         "count": e["count"]}
+        for e in ops for kind in [collective_kind(e["op"])] if kind))
     row["ops_path"] = rec["ops_path"]
     row["memory"] = rec["memory"]
     return row
 
 
 def summary(flops, wire, payload) -> dict:
-    """A side's FLOPs, product FLOPs by class and wire bytes."""
+    """A side's FLOPs, product FLOPs by class and wire bytes by
+    collective kind (the keys without a ``prefix:``)."""
     products = {c: float(payload.get("dot:" + c, 0.0)) for c in CLASSES}
+    by_kind = {k: float(v) for k, v in wire.items() if ":" not in k and v}
     return {
         "walked_flops": float(flops),
         "products": products,
         "product_flops": sum(products.values()),
-        "wire_bytes": float(sum(v for k, v in wire.items()
-                                if not k.startswith("dot:"))),
-        "wire_by_kind": {k: float(v) for k, v in wire.items()
-                         if not k.startswith("dot:") and v},
+        "wire_bytes": sum(by_kind.values()),
+        "wire_by_kind": by_kind,
     }
+
+
+def signature(kind, group, ins, outs, *, groups=None, dimensions=None,
+              op_name=None) -> dict:
+    """A collective as the rows list it: kind, group size, operand and
+    result (dtype, shape) pairs; the reference's also its
+    ``replica_groups``, ``dimensions`` and the tail of its ``op_name``
+    (regex matches, or None)."""
+    sig = {"kind": kind, "group": int(group),
+           "in": [[dt, list(d)] for dt, d in ins],
+           "out": [[dt, list(d)] for dt, d in outs]}
+    if groups:
+        sig["replica_groups"] = groups.group(1)[:80]
+    if dimensions:
+        sig["dimensions"] = dimensions.group(1)
+    if op_name:
+        sig["op_name"] = "/".join(op_name.group(1).split("/")[-3:])
+    return sig
+
+
+def collective_lists(items) -> dict:
+    """A side's collectives, those of one signature summed (wire bytes,
+    count): ``all_collectives``, every signature by wire, largest first;
+    ``collectives``, the first :data:`TOP` of them."""
+    out = {}
+    for it in items:
+        key = json.dumps({k: v for k, v in it.items()
+                          if k not in ("wire", "count")}, sort_keys=True)
+        have = out.setdefault(key, {**it, "wire": 0.0, "count": 0.0})
+        have["wire"] += float(it["wire"])
+        have["count"] += float(it["count"])
+    ranked = sorted(out.values(), key=lambda c: -c["wire"])
+    return {"collectives": ranked[:TOP], "all_collectives": ranked}
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +394,13 @@ def parity_row(arch, shape, mesh, layers, out: Path, timeout=1800) -> dict:
             **{c: _ratio(port["products"][c], ref["products"][c])
                for c in CLASSES},
             "wire_bytes": _ratio(port["wire_bytes"], ref["wire_bytes"]),
+            "temp_bytes": _ratio(port["memory"]["temp_bytes"],
+                                 ref["memory"]["temp_bytes"]),
+            "wire_by_kind": {
+                k: _ratio(port["wire_by_kind"].get(k, 0.0),
+                          ref["wire_by_kind"].get(k, 0.0))
+                for k in sorted({*port["wire_by_kind"],
+                                 *ref["wire_by_kind"]})},
         }
     return row
 
