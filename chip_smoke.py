@@ -244,9 +244,12 @@ Phases, each fatal on failure:
    fatal on a row not ``ok``, a ``.FAILED`` bench row, walked FLOPs a
    device × devices below the record's, a ``LAYOUT_CELLS`` cell whose
    MLP, q / k / v / o projections or attention kernel do not run at the
-   even split, or a ``LOGITS_CELLS`` cell that all-gathers a block of
+   even split, a ``LOGITS_CELLS`` cell that all-gathers a block of
    the logits (the loss's logsumexp must reduce each rank's vocabulary
-   block, :func:`logits_gathers`) (:func:`roofline_cells_path`).  One
+   block, :func:`logits_gathers`), or an ``EXPERT_CELLS`` cell that
+   moves an expert's weight or hidden over the model axis or gathers or
+   reduce-scatters an expert's hidden (each rank keeps its experts,
+   :func:`expert_moves`) (:func:`roofline_cells_path`).  One
    ``{"roofline": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
@@ -472,11 +475,14 @@ MOE_REL = 1e-4
 # process), started before (b) and collected after (c): gemma2-9b (phase
 # 15's served model, 8 key/value heads under a model axis of 16) trained,
 # prefilled and decoding on the 16 × 16 mesh, xlstm-125m trained on
-# 2 × 16 × 16
+# 2 × 16 × 16, arctic-480b's MoE training step on 16 × 16 (8 experts a
+# rank), cut to DRYRUN_LAYERS' depth at full width where a cell has one
 DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"),
                 ("xlstm-125m", "train_4k", "pod2"),
                 ("gemma2-9b", "prefill_32k", "single"),
-                ("gemma2-9b", "decode_32k", "single"))
+                ("gemma2-9b", "decode_32k", "single"),
+                ("arctic-480b", "train_4k", "single"))
+DRYRUN_LAYERS = {("arctic-480b", "train_4k", "single"): 2}
 DRYRUN_TIMEOUT_S = 600
 #: the kernels' custom ops each cell's FLOP count must hold (counted at
 #: the global shapes, ``launch/dryrun.py``); decode runs no kernel
@@ -486,7 +492,9 @@ DRYRUN_KERNEL_OPS = {
     ("gemma2-9b", "prefill_32k"): ("repro_torch.flash_attention",),
     ("gemma2-9b", "decode_32k"): (),
     ("xlstm-125m", "train_4k"): ("repro_torch.slstm_cell_traj",
-                                 "repro_torch.slstm_cell_bwd")}
+                                 "repro_torch.slstm_cell_bwd"),
+    ("arctic-480b", "train_4k"): ("repro_torch.flash_attention",
+                                  "repro_torch.flash_attention_bwd")}
 
 # phase 17 (a): the SSD and sLSTM backward kernels (through ops under
 # autograd) against the plain versions' autograd in float64, each
@@ -3250,13 +3258,16 @@ def dryrun_dir(tmp) -> Path:
 
 def start_dryruns(tmp) -> list:
     """Phase 18 (d): each ``DRYRUN_CELLS`` cell's dry-run in its own
-    process, started now; :func:`collect_dryruns` waits for them."""
+    process (at ``DRYRUN_LAYERS``' depth where a cell has one), started
+    now; :func:`collect_dryruns` waits for them."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     return [(cell, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          cell[0], "--shape", cell[1], "--mesh", cell[2], "--out",
-         str(dryrun_dir(tmp))], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT))
+         str(dryrun_dir(tmp)), *(["--num-layers", str(DRYRUN_LAYERS[cell])]
+                                 if cell in DRYRUN_LAYERS else [])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT))
         for cell in DRYRUN_CELLS]
 
 
@@ -3305,6 +3316,9 @@ LAYOUT_CELLS = ("gemma2-9b__train_4k__single",)
 #: phase 19 (b): the dry-run cells whose training loss must keep the
 #: logits' batch on its ranks (:func:`logits_gathers`)
 LOGITS_CELLS = ("gemma2-9b__train_4k__single",)
+#: phase 19 (b): the dry-run cells whose MoE experts must stay on their
+#: ranks (:func:`expert_moves`)
+EXPERT_CELLS = ("arctic-480b__train_4k__single",)
 
 
 def launch_counters():
@@ -3511,6 +3525,40 @@ def logits_gathers(entries, cfg, mesh_shape) -> list:
             and e["in"][0][1][-1] in (vocab, vocab // mesh_shape["model"])]
 
 
+def expert_moves(entries, cfg, mesh_shape) -> list:
+    """Phase 19 (b)'s expert check of a MoE dry-run cell's op program
+    ``entries``: the collectives the reference's expert-parallel layout
+    never makes — one over the model axis of a rank's experts' weight
+    block ([e, D or a block, F] / [e, F, D or a block]) or hidden ([e, C
+    or a block, F]), and an all-gather or reduce-scatter of such a
+    hidden on any axis (before ``sharding.gated_experts``, arctic-480b's
+    [8, 161, 4864] was all-gathered 64 and reduce-scattered 96 times a
+    step at 2 layers).  None is allowed."""
+    from repro_torch.core.opcost import collective_kind
+    e = cfg.moe.num_experts // mesh_shape["model"]
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+
+    def shapes(entry):
+        return [s for _, s in entry["in"] + entry["out"]]
+
+    def weight(entry):
+        return any(len(s) == 3 and s[0] == e and f in s[1:]
+                   and d % s[1 if s[2] == f else 2] == 0
+                   for s in shapes(entry))
+
+    def hidden(entry):
+        return any(len(s) == 3 and s[0] == e and s[2] == f and d % s[1]
+                   for s in shapes(entry))
+    out = []
+    for entry in entries:
+        kind = collective_kind(entry["op"])
+        if kind and (entry.get("axis") == "model" and (
+                weight(entry) or hidden(entry)) or kind in (
+                "all-gather", "reduce-scatter") and hidden(entry)):
+            out.append(entry)
+    return out
+
+
 def layout_split(entries, run, mesh_shape, record_flops=None) -> dict:
     """Phase 19 (b)'s layout check of a dry-run cell's op program
     ``entries`` (rank 0's; the run ``run``, its mesh ``mesh_shape``):
@@ -3577,8 +3625,10 @@ def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
     :data:`LAYOUT_CELLS` cell whose MLP, projections or attention kernel
     do not split as the rules say (:func:`layout_split`), or a
     :data:`LOGITS_CELLS` cell with an all-gather of a logits block
-    (:func:`logits_gathers`).  Each cell's entry carries its temporaries
-    and its wire bytes by collective kind, a device."""
+    (:func:`logits_gathers`), or an :data:`EXPERT_CELLS` cell whose
+    experts leave their ranks (:func:`expert_moves`).  Each cell's entry
+    carries its temporaries and its wire bytes by collective kind, a
+    device."""
     import torch
 
     from repro_torch.core.opcost import parse_ops
@@ -3636,6 +3686,15 @@ def roofline_cells_path(cells, tmp, dev, bench_args=("roofline",)) -> dict:
             if gathers:
                 raise SystemExit(f"roofline {key}: the loss gathers the "
                                  f"logits: {gathers}")
+        if key in EXPERT_CELLS:
+            moves = expert_moves(entries, make_run_config(arch, shape)
+                                 .model, rec["mesh_shape"])
+            out[key]["expert_moves"] = len(moves)
+            log(f"roofline {key}: {len(moves)} collectives move an "
+                f"expert's weight over the model axis or its hidden")
+            if moves:
+                raise SystemExit(f"roofline {key}: the experts leave "
+                                 f"their ranks: {moves}")
         if key in LAYOUT_CELLS:
             split = layout_split(entries, make_run_config(arch, shape),
                                  rec["mesh_shape"],

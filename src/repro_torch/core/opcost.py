@@ -6,8 +6,8 @@ the sequence of aten ops, custom ops and functional collectives that one
 rank dispatches on its local blocks.  :class:`OpRecorder`, a
 ``TorchDispatchMode``, records that sequence while a step runs, deduplicated
 as (op, operand and result dtypes and shapes, written operands, collective
-group) → calls, and serializes it as JSON (the saved HLO text's
-counterpart).  :class:`OpCostAnalyzer` then re-derives
+group and the mesh dimension it spans) → calls, and serializes it as JSON
+(the saved HLO text's counterpart).  :class:`OpCostAnalyzer` then re-derives
 
   * FLOPs            — every op that ``torch.utils.flop_counter``'s registry
                        knows by its formula (``mm``, ``bmm``, ``addmm``,
@@ -211,17 +211,22 @@ class _OpInfo:
         self.flop_formula = flop_registry.get(func._overloadpacket)
 
 
-def _group_size(args) -> Optional[int]:
+def _group(args) -> Tuple[Optional[int], Optional[str]]:
     """The size of the process group a functional collective names (its
-    last string argument), or None where it cannot be resolved."""
+    last string argument) and the mesh dimension it spans (a
+    ``DeviceMesh`` group's ``mesh_<name>`` description), each None where
+    it cannot be resolved."""
     names = [a for a in args if isinstance(a, str)]
     if not names:
-        return None
+        return None, None
     try:
         from torch.distributed.distributed_c10d import _resolve_process_group
-        return int(_resolve_process_group(names[-1]).size())
+        pg = _resolve_process_group(names[-1])
     except Exception:  # noqa: BLE001 — the analyzer takes num_devices
-        return None
+        return None, None
+    desc = getattr(pg, "group_desc", "") or ""
+    return int(pg.size()), (desc[len("mesh_"):] if desc.startswith("mesh_")
+                            and desc != "mesh_default" else None)
 
 
 def _is_fake(t) -> bool:
@@ -272,10 +277,10 @@ class OpRecorder(TorchDispatchMode):
         flops = None
         if info.flop_formula is not None:
             flops = float(info.flop_formula(*args, **kwargs, out_val=out))
-        group = (_group_size(args) if collective_kind(info.name)
-                 else None)
+        group, axis = (_group(args) if collective_kind(info.name)
+                       else (None, None))
         self._add((info.name, tuple(ins), tuple(outs), tuple(written), group,
-                   info.view, info.pointwise, info.reduction,
+                   axis, info.view, info.pointwise, info.reduction,
                    flops is not None), flops)
         return out
 
@@ -294,7 +299,7 @@ class OpRecorder(TorchDispatchMode):
         flops = (float(formula(*args, out_val=outputs))
                  if formula is not None else None)
         self._add((f"repro_torch.{op}", tuple(ins), tuple(outs), (), None,
-                   False, False, False, flops is not None), flops)
+                   None, False, False, False, flops is not None), flops)
 
     def _add(self, key: tuple, flops: Optional[float]) -> None:
         slot = self._record.get(key)
@@ -320,14 +325,16 @@ class OpRecorder(TorchDispatchMode):
         over those calls."""
         out = []
         for key, (count, flops) in self._record.items():
-            (name, ins, outs, written, group, view, pointwise, reduction,
-             has_flops) = key
+            (name, ins, outs, written, group, axis, view, pointwise,
+             reduction, has_flops) = key
             e = {"op": name, "in": [list(s) for s in ins],
                  "out": [list(s) for s in outs], "count": count}
             if written:
                 e["written"] = list(written)
             if group is not None:
                 e["group"] = group
+            if axis is not None:
+                e["axis"] = axis
             if view:
                 e["view"] = True
             if pointwise:

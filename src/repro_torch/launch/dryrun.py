@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import logging
 import time
@@ -232,18 +233,66 @@ def _leaves(tree: Any) -> list:
     return [tree]
 
 
+#: the buffers a record lists at the peak (``peak_buffers``)
+PEAK_BUFFERS = 12
+
+
 def _local_mem_tracker():
     """A ``MemTracker`` that counts the local blocks only: DTensor's
     sharding propagation runs each op once more on fake tensors of the
     global shapes, which some torch releases let the tracker see (the
-    local blocks here are ``meta`` tensors, never fake)."""
+    local blocks here are ``meta`` tensors, never fake).  It also keeps
+    the largest live buffers near its peak (:meth:`peak_buffers`): each
+    time the peak grows by a thousandth, the :data:`PEAK_BUFFERS` largest
+    storages alive with the op, dtype and shape that made each."""
     from torch._subclasses.fake_tensor import FakeTensor
     from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.weak import WeakIdKeyDictionary
 
     class LocalMemTracker(MemTracker):
+        def __init__(self):
+            super().__init__()
+            self._made = WeakIdKeyDictionary()
+            self._at, self._buffers = 0, []
+
         def _track(self, reftype, t):
             if not isinstance(t, FakeTensor):
                 super()._track(reftype, t)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = super().__torch_dispatch__(func, types, args, kwargs)
+            if res is NotImplemented:
+                return res
+            for t in tree_leaves(res):
+                if isinstance(t, torch.Tensor) and \
+                        not isinstance(t, FakeTensor):
+                    st = t.untyped_storage()
+                    if st not in self._made:
+                        self._made[st] = (str(func.overloadpacket),
+                                          str(t.dtype).split(".")[-1],
+                                          list(t.shape))
+            return res
+
+        def _update_peak_stats(self, peak_state) -> None:
+            super()._update_peak_stats(peak_state)
+            peak = max(getattr(self, "_peak_mem", {}).values(), default=0)
+            if peak <= self._at * 1.001:
+                return
+            self._at = peak
+            live = []
+            for st, (winfo, _) in list(getattr(self, "_WINFO", {}).items()):
+                op, dt, shape = self._made.get(st, (None, None, None))
+                live.append({"bytes": int(winfo.mem_consumed),
+                             "kind": winfo.reftype.name, "op": op,
+                             "dtype": dt, "shape": shape})
+            live.sort(key=lambda b: -b["bytes"])
+            self._buffers = live[:PEAK_BUFFERS]
+
+        def peak_buffers(self) -> list:
+            """The largest buffers alive when the peak last grew by a
+            thousandth, largest first."""
+            return self._buffers
     return LocalMemTracker()
 
 
@@ -302,6 +351,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
         mem["total_per_device_bytes"] = mem["argument_bytes"] + \
             mem["temp_bytes"]
         rec["memory"] = mem
+        rec["peak_buffers"] = mt.peak_buffers()
         if save_ops:
             ops_path = out_dir / \
                 f"{arch}__{shape_name}__{mesh_kind}.ops.json"
@@ -343,6 +393,8 @@ def main(argv=None):
                     help="do not record the per-device op program")
     ap.add_argument("--override", action="append", default=[],
                     help="key=value run-config overrides (repeatable)")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the model to this depth at full width")
     args = ap.parse_args(argv)
     overrides = {}
     for ov in args.override:
@@ -352,9 +404,14 @@ def main(argv=None):
         except json.JSONDecodeError:
             pass
         overrides[k] = v
+    model_config = None
+    if args.num_layers is not None:
+        from repro_torch.configs import get_config, get_smoke_config
+        base = (get_smoke_config if args.smoke else get_config)(args.arch)
+        model_config = dataclasses.replace(base, num_layers=args.num_layers)
     rec = run_cell(args.arch, args.shape, args.mesh, Path(args.out),
                    overrides=overrides or None, smoke=args.smoke,
-                   save_ops=not args.no_ops)
+                   save_ops=not args.no_ops, model_config=model_config)
     raise SystemExit(0 if rec["status"] == "ok" else 1)
 
 

@@ -113,13 +113,25 @@ def rmsnorm_simple(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _table_rows(positions: torch.Tensor) -> torch.Tensor:
+    """``positions`` [B, S], or its first row where every row is that
+    row (one row expanded over the batch, as a prompt's positions are): a
+    table over the positions is computed once and broadcast, not for
+    every row of the global batch on every rank."""
+    if positions.ndim == 2 and positions.shape[0] > 1 and \
+            positions.stride(0) == 0:
+        return positions[:1]
+    return positions
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [B, S, H, D] (D even), positions: [B, S] → rotated x."""
     half = x.shape[-1] // 2
     freqs = torch.exp(-math.log(theta) * torch.arange(
         0, half, dtype=torch.float32, device=x.device) / half)
-    angles = positions[..., None].float() * freqs     # [B, S, half]
+    # [B, S, half], or [1, S, half] broadcast over the batch
+    angles = _table_rows(positions)[..., None].float() * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -128,12 +140,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
-    """Whisper-style sinusoidal embeddings. positions: [B,S] → [B,S,d]."""
+    """Whisper-style sinusoidal embeddings. positions: [B,S] → [B,S,d]
+    ([1, S, d] where every row is the first: it broadcasts)."""
     half = d // 2
     freqs = torch.exp(-math.log(10_000.0) * torch.arange(
         half, dtype=torch.float32, device=positions.device)
         / max(half - 1, 1))
-    ang = positions[..., None].float() * freqs
+    ang = _table_rows(positions)[..., None].float() * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

@@ -37,8 +37,8 @@ from repro_torch.models.param import (ParamSpec, axes_tree, init_stacked,
                                       init_tree, stack_schema, torch_dtype,
                                       tree_map)
 from repro_torch.sharding import (dp_placements, embedding_lookup,
-                                  gather_dp, logsumexp, shard_act,
-                                  target_logits)
+                                  gather_dp, logsumexp, lookup_table,
+                                  shard_act, target_logits)
 from repro_torch.sharding.local import contiguous_strides
 
 
@@ -161,10 +161,10 @@ def zero_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Dict:
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The tokens' rows of the table (``table``: the table already
-    gathered over the batch axes)."""
+    """The tokens' rows of the table (``table``: the table already laid
+    out for the lookup, :func:`lookup_table`)."""
     if table is None:
-        table = gather_dp(params["embed"])
+        table = lookup_table(params["embed"], tokens)
     x = embedding_lookup(table, tokens)  # gather [B,S,D]
     if dict(cfg.extra).get("embed_scale", False):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -175,8 +175,8 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
 def _head(params, cfg: ModelConfig, x: torch.Tensor,
           decode: bool = False,
           table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The logits; a tied head takes ``table`` (the lookup's gathered
-    table) where the head's own gather would place it the same way."""
+    """The logits; a tied head takes ``table`` (the lookup's table) where
+    the head's own gather would place it the same way."""
     step = x if decode else None
     if cfg.tie_embeddings:
         w = params["embed"]
@@ -371,8 +371,8 @@ def forward(
                        attn_impl=attn_impl, q_chunk=q_chunk,
                        kv_chunk=kv_chunk))
 
-    # a decode step's lookup and tied head share one gather of the table
-    table = gather_dp(params["embed"]) \
+    # a decode step's lookup and tied head share one layout of the table
+    table = lookup_table(params["embed"], tokens) \
         if mode == "decode" and cfg.tie_embeddings else None
     x = _embed(params, cfg, tokens, table)
     n_front = 0
@@ -384,8 +384,8 @@ def forward(
 
     S = x.shape[1]
     if mode == "decode":
-        positions = torch.full((B, 1), int(cur_index), dtype=torch.long,
-                               device=dev)
+        positions = torch.full((1, 1), int(cur_index), dtype=torch.long,
+                               device=dev).expand(B, 1)
     else:
         positions = torch.arange(S, device=dev)[None].expand(B, S)
 

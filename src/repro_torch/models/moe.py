@@ -17,6 +17,7 @@ reference's, falls back to this scatter without a "model" mesh axis).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -25,10 +26,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers
 from repro_torch.models.param import ParamSpec
-from repro_torch.sharding import (gather_dp, local_blocks, matmul,
+from repro_torch.sharding import (gated_experts, gather_dp, local_blocks,
                                   searchsorted, shard_act)
 
-#: the experts' stacked weights, gathered by :func:`apply_moe` itself
+#: the experts' stacked weights, laid out by :func:`gated_experts` itself
 EXPERTS = ("w_gate", "w_up", "w_down")
 
 
@@ -139,16 +140,11 @@ def apply_moe(p: Dict, cfg: ModelConfig,
     buf = _dispatch(xf, slot, t_sorted, rows=E * C + 1)
     buf = buf[: E * C].reshape(E, C, D)
     buf = shard_act(buf, "experts", "expert_cap", "act_embed")
-    # where the capacity does not split over the batch axes, each rank
-    # keeps its block of d_model and contracts over it, as XLA does
-    experts = gather_dp(experts, buf)
 
-    # ----- expert computation (batched over E) -----------------------------
-    up = matmul(buf, experts["w_up"].to(x.dtype))
-    gate = layers._act(cfg.activation,
-                       matmul(buf, experts["w_gate"].to(x.dtype)))
-    h = shard_act(gate * up, "experts", "expert_cap", None)
-    out_buf = matmul(h, experts["w_down"].to(x.dtype))
+    # ----- expert computation (batched over E, each rank its experts) ----
+    out_buf = gated_experts(
+        buf, *(experts[k].to(x.dtype) for k in ("w_gate", "w_up", "w_down")),
+        functools.partial(layers._act, cfg.activation))
     out_buf = shard_act(out_buf, "experts", "expert_cap", "act_embed")
 
     # ----- combine ---------------------------------------------------------

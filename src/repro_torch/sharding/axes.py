@@ -346,7 +346,7 @@ def gather_dp(tree: Any, meets: Optional[torch.Tensor] = None,
     instead gather the activations' batch.  No-op without a mesh.
 
     ``meets``: the activation the leaves' products take (a decode
-    step's, a token a sequence; the MoE's dispatch buffer), where XLA's
+    step's, a token a sequence), where XLA's
     partitioner may move it rather than the weights.  This holds for a
     leaf whose batch-axes shards split the dimension a product contracts
     over: its first, or with ``transposed`` (``x @ w.T``) its last (a

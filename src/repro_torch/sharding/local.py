@@ -22,15 +22,18 @@ plain code:
 * :func:`repeat_heads`: a replicated weight's heads repeated and split
   over a mesh dimension, each rank building its own block.
 * :func:`searchsorted`: on whole operands (DTensor has no rule for it).
-* :func:`matmul`: ``x @ w`` whose weight gradient (over batch axes,
-  the input's too) is computed in blocks over the mesh axes that neither
+* :func:`matmul`: ``x @ w`` as one GEMM over x's leading dims, whose
+  weight gradient is computed in blocks over the mesh axes that neither
   operand splits (the product itself is repeated there), as XLA does.
 * :func:`write_position`: a decode step's write into a cache split on
   its positions, on the rank that holds the position (DTensor would
   gather the whole cache to write one slot).
 * :func:`embedding_lookup`, :func:`target_logits` and :func:`logsumexp`:
   a row lookup, a last-dimension gather and the loss's normalizer on a
-  vocabulary-sharded DTensor, each rank on its own vocabulary block.
+  vocabulary-sharded DTensor, each rank on its own vocabulary block
+  (:func:`lookup_table`: the table's layout for a lookup).
+* :func:`gated_experts`: the MoE experts' FFN on the reference's
+  expert-parallel layout.
 
 A way is taken only where it splits its dimensions evenly after the
 earlier mesh dimensions' choices, so every rank's block has the same
@@ -145,8 +148,7 @@ def run_local(ways: Sequence[Sequence], fn: Callable, args: Sequence):
         grad = [Partial() if isinstance(w, Replicate) and any(
                     not isinstance(o, Replicate) for o in row[0]) else w
                 for w, row in zip(want, chosen)]
-        if tuple(a.placements) != tuple(want):
-            a = a.redistribute(mesh, want)
+        a = redistribute(a, want)
         local.append(a.to_local(grad_placements=grad))
     outs, spec = tree_flatten(fn(*local))
     if len(outs) != len(chosen[0][0]):
@@ -314,24 +316,18 @@ def searchsorted(sorted_seq: torch.Tensor, values: torch.Tensor, *,
 class _BlockedWeightGrad(torch.autograd.Function):
     """``x @ w`` (``w`` [..., K, N], batch dims matching ``x``'s leading
     ones); the gradient of ``w`` computed in blocks of K rows, each rank
-    of the mesh dimensions ``dims`` its block, and ``x``'s in blocks of
-    its K columns over those of ``dims`` in ``x_dims`` (``x`` and the
-    output's gradient are whole there, so a block needs no collective)."""
+    of the mesh dimensions ``dims`` its block."""
 
     @staticmethod
-    def forward(ctx, x, w, dims, x_dims):
+    def forward(ctx, x, w, dims):
         ctx.save_for_backward(x, w)
-        ctx.dims, ctx.x_dims = dims, x_dims
+        ctx.dims = dims
         return x @ w
 
     @staticmethod
     def backward(ctx, g):
         from torch.distributed.tensor import Shard
         x, w = ctx.saved_tensors
-        want = list(w.placements)
-        for i in ctx.x_dims:
-            want[i] = Shard(w.ndim - 2)
-        gx = g @ w.redistribute(w.device_mesh, want).transpose(-2, -1)
         k, n = w.shape[-2:]
         lead = w.shape[:-2]
         x2 = x.reshape(*lead, -1, k)
@@ -340,19 +336,25 @@ class _BlockedWeightGrad(torch.autograd.Function):
         for i in ctx.dims:
             want[i] = Shard(x2.ndim - 1)
         x2 = x2.redistribute(x2.device_mesh, want)
-        return gx, x2.transpose(-2, -1) @ g2, None, None
+        return g @ w.transpose(-2, -1), x2.transpose(-2, -1) @ g2, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w``.  Where ``x`` and ``w`` are DTensors that some mesh
-    dimensions leave whole (both replicated: every rank there repeats
-    the product), each such rank computes one block of ``w``'s rows of
-    its gradient, the block its own, instead of the whole of it again;
-    where those are batch axes (``x``'s batch did not split there: the
-    MoE's dispatch buffer), so does ``x``'s gradient — as XLA's
-    partitioner splits them."""
+    """``x @ w``; a batch-sharded ``x`` of 3 or more dims against a 2-D
+    ``w`` as one GEMM over its leading dims.  Where ``x`` and ``w`` are
+    DTensors that some mesh dimensions leave whole (both replicated:
+    every rank there repeats the product), each such rank computes one
+    block of ``w``'s rows of its gradient, the block its own, instead of
+    the whole of it again, as XLA's partitioner splits it."""
     if not (is_dtensor(x) and is_dtensor(w)) or w.ndim < 2:
         return x @ w
+    if x.ndim >= 3 and w.ndim == 2 and all(
+            not p.is_shard() or p.dim == 0 for p in x.placements):
+        # one GEMM over x's leading dims: torch's matmul may instead
+        # expand w over them, and DTensor then splits that expanded
+        # weight by copying a block of it for every row
+        y = matmul(reshape(x, (-1, x.shape[-1])), w)
+        return reshape(y, (*x.shape[:-1], w.shape[-1]))
     k = w.shape[-2]
     dims, n = [], 1
     for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
@@ -363,13 +365,142 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not dims or not (x.requires_grad or w.requires_grad) or \
             not torch.is_grad_enabled():
         return x @ w
+    return _BlockedWeightGrad.apply(x, w, tuple(dims))
+
+
+def redistribute(t: torch.Tensor, placements: Sequence) -> torch.Tensor:
+    """``t.redistribute(t.device_mesh, placements)``; where that gathers
+    one dimension split over several mesh dims (or sums a value partial
+    over several), as one collective over those dims flattened — the
+    reference's one group across (pod, data) — instead of one a dim
+    (an all-reduce in two steps moves half as much again)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    want, cur = list(placements), list(t.placements)
+    if want == cur:
+        return t
+    mesh = t.device_mesh
+    moved = [i for i, (c, w) in enumerate(zip(cur, want)) if c != w]
+    kind = cur[moved[0]]
+    n = 1
+    for i in moved:
+        n *= mesh.size(i)
+    merge = (len(moved) > 1 and mesh.mesh_dim_names is not None
+             and all(want[i] == Replicate() and cur[i] == kind
+                     for i in moved)
+             and (type(kind) is Partial or type(kind) is Shard
+                  and [i for i, c in enumerate(cur) if c == kind] == moved
+                  and t.shape[kind.dim] % n == 0))
+    if not merge:
+        return t.redistribute(mesh, want)
+    flat = mesh[tuple(mesh.mesh_dim_names[i] for i in moved)]._flatten()
+    local = DTensor.from_local(t.to_local(), flat, [kind], run_check=False
+                               ).redistribute(flat, [Replicate()]).to_local()
+    return DTensor.from_local(local, mesh, want, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def _with(t, dims, placement):
+    """``t`` with ``placement`` on the mesh dims ``dims``
+    (:func:`redistribute`)."""
+    want = list(t.placements)
+    for i in dims:
+        want[i] = placement
+    return redistribute(t, want)
+
+
+class _GatedExperts(torch.autograd.Function):
+    """The experts' FFN on the reference's expert-parallel layout (see
+    :func:`gated_experts`); ``split`` / ``idle``: the batch axes' mesh
+    dims that do / do not split the capacity; ``gather``: gather the
+    weights over ``idle`` too (for the forward's products and ``dh``)."""
+
+    @staticmethod
+    def forward(ctx, buf, w_gate, w_up, w_down, act, split, idle, gather):
+        from torch.distributed.tensor import Replicate, Shard
+        R = Replicate()
+        # the buffer's and its gradient's d_model blocks where the
+        # weights' d_model is split and the capacity whole
+        blk = _with(buf, [i for i in idle if w_up.placements[i] == Shard(1)],
+                    Shard(2))
+        wg, wu = (_with(w, split, R) for w in (w_gate, w_up))
+        if gather:
+            gate = buf @ _with(wg, idle, R)
+            up = buf @ _with(wu, idle, R)
+        else:    # contract over the d_model blocks, sum the partials
+            gate = _with(blk @ wg, idle, R)
+            up = _with(blk @ wu, idle, R)
+        wd = _with(w_down, split + idle, R)
+        out = (act(gate) * up) @ wd
+        ctx.save_for_backward(blk, wg, wu, wd if gather else
+                              _with(w_down, split, R), gate, up)
+        ctx.act, ctx.idle, ctx.gather = act, idle, gather
+        ctx.buf_placements = list(buf.placements)
+        ctx.out_placements = list(out.placements)
+        ctx.w_placements = [list(w.placements)
+                            for w in (w_gate, w_up, w_down)]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate, Shard
+        R = Replicate()
+        blk, wg, wu, wd, gate, up = ctx.saved_tensors
+        idle = ctx.idle
+        g = redistribute(g, ctx.out_placements)
+        # w_down's gradient: each rank its own d_model block
+        g_blk = _with(g, [i for i in idle
+                          if ctx.w_placements[2][i] == Shard(2)], Shard(2))
+        with torch.enable_grad():
+            gate_ = gate.detach().requires_grad_()
+            up_ = up.detach().requires_grad_()
+            h = ctx.act(gate_) * up_
+            # gathered w_down, or its blocks' partial sums
+            dh = g @ wd.mT if ctx.gather else _with(g_blk @ wd.mT, idle, R)
+            dgate, dup = torch.autograd.grad(h, (gate_, up_), dh)
+        dwg, dwu, dwd = (
+            redistribute(a.mT @ b, p) for (a, b), p in zip(
+                ((blk, dgate), (blk, dup), (h.detach(), g_blk)),
+                ctx.w_placements))
+        dblk = dgate @ wg.mT + dup @ wu.mT
+        dbuf = redistribute(dblk, ctx.buf_placements)
+        return dbuf, dwg, dwu, dwd, None, None, None, None
+
+
+def gated_experts(buf: torch.Tensor, w_gate: torch.Tensor,
+                  w_up: torch.Tensor, w_down: torch.Tensor,
+                  act: Callable) -> torch.Tensor:
+    """The experts' gated FFN ``(act(buf @ w_gate) * (buf @ w_up)) @
+    w_down``, batched over the experts (``buf`` [E, C, D], ``w_gate`` and
+    ``w_up`` [E, D, F], ``w_down`` [E, F, D]).
+
+    With DTensors, on the reference's expert-parallel layout: each rank
+    keeps its own experts (split over the model axis) and nothing moves
+    an expert or its activations between the experts' ranks.  On the
+    batch axes that split the capacity, the weights are gathered over
+    their d_model shards and the products are local (the weights'
+    gradients reduce-scattered back).  On the batch axes that leave the
+    capacity whole (a capacity they do not divide), ``w_down`` is
+    gathered for the forward; ``w_gate`` and ``w_up`` are gathered too
+    where a weight is smaller than the hidden's all-reduce (d_model < 2 ×
+    capacity), else a rank contracts its d_model block of the buffer and
+    the hidden's partial sums are all-reduced, and ``dh`` likewise
+    (gathered ``w_down``, or its blocks' partial sums).  The weights'
+    gradients are each rank's own d_model blocks, and the buffer's
+    gradient comes in d_model blocks, all-gathered — XLA's program for
+    the reference's annotations.  Without DTensors, the plain
+    products."""
+    if not all(is_dtensor(t) for t in (buf, w_gate, w_up, w_down)):
+        return (act(buf @ w_gate) * (buf @ w_up)) @ w_down
     from repro_torch.sharding.axes import (_expand_virtual, current_rules,
                                            mesh_shape)
-    names = list(mesh_shape(w.device_mesh))
-    dp = _expand_virtual(current_rules().get("batch"),
-                         mesh_shape(w.device_mesh))
-    return _BlockedWeightGrad.apply(
-        x, w, tuple(dims), tuple(i for i in dims if names[i] in dp))
+    shape = mesh_shape(buf.device_mesh)
+    names = list(shape)
+    dp = [names.index(a) for a in _expand_virtual(
+        current_rules().get("batch"), shape) if shape[a] > 1]
+    split = [i for i in dp if buf.placements[i].is_shard()]
+    idle = [i for i in dp if i not in split]
+    return _GatedExperts.apply(buf, w_gate, w_up, w_down, act, split, idle,
+                               buf.shape[2] < 2 * buf.shape[1])
 
 
 def write_position(buf: torch.Tensor, pos: int,
@@ -421,22 +552,49 @@ def _as_dtensor(t, mesh):
                               run_check=False)
 
 
+def lookup_table(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The table ``w`` [V, D] as :func:`embedding_lookup` reads it for
+    ``tokens``: gathered over the batch axes that split its d_model
+    (FSDP), save where the tokens lie whole there and are fewer than a
+    rank's rows of the table — a decode step's token: each rank then
+    reads its own d_model block of the rows, and the row's blocks move
+    instead of the table's (as XLA's program does).  No-op without a
+    mesh."""
+    from repro_torch.sharding.axes import current_mesh, dp_placements
+    if current_mesh() is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    tok = tokens.placements if is_dtensor(tokens) else \
+        [Replicate()] * w.device_mesh.ndim
+    few = tokens.numel() <= w.to_local().shape[0]
+    want = dp_placements(w)
+    keep = [p if p.is_shard() and p.dim == 1 and few and not t.is_shard()
+            else q for p, q, t in zip(w.placements, want, tok)]
+    return w if keep == list(w.placements) else \
+        w.redistribute(w.device_mesh, keep)
+
+
 def embedding_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``w[tokens]``.  A DTensor table is read on each rank's own
     vocabulary block (the tokens outside it give 0) and summed over the
     ranks that split the vocabulary; the tokens keep their batch
     sharding, and a table replicated where they are sharded gets its
-    gradient summed there.  DTensor's own rules for indexing do not take
-    batch-sharded tokens in every torch release, and its embedding
-    rule's backward does not compose with the table's all-gather."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    gradient summed there.  Where the table's d_model is split (and the
+    tokens whole, :func:`lookup_table`), each rank reads its d_model
+    block and the rows stay split there.  DTensor's own rules for
+    indexing do not take batch-sharded tokens in every torch release, and
+    its embedding rule's backward does not compose with the table's
+    all-gather."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not is_dtensor(w):
         return w[tokens]
     mesh = w.device_mesh
     vocab = [i for i, p in enumerate(w.placements)
              if p.is_shard() and p.dim == 0]
+    cols = [i for i, p in enumerate(w.placements)
+            if p.is_shard() and p.dim == 1]
     tokens = _as_dtensor(tokens, mesh)
-    rest = [Replicate() if i in vocab else p
+    rest = [Replicate() if i in vocab + cols else p
             for i, p in enumerate(tokens.placements)]
     tokens = tokens.redistribute(mesh, rest)
     block, n = _vocab_block(mesh, vocab)
@@ -448,10 +606,12 @@ def embedding_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     rows = w.to_local(grad_placements=grads)[local.clamp(0, width - 1)]
     rows = rows * inside[..., None].to(rows.dtype)
     shape = (*tokens.shape, w.shape[1])
-    part = [Partial() if i in vocab else p for i, p in enumerate(rest)]
+    last = Shard(len(shape) - 1)
+    out = [last if i in cols else p for i, p in enumerate(rest)]
+    part = [Partial() if i in vocab else p for i, p in enumerate(out)]
     return DTensor.from_local(rows, mesh, part, run_check=False, shape=shape,
                               stride=contiguous_strides(shape)
-                              ).redistribute(mesh, rest)
+                              ).redistribute(mesh, out)
 
 
 def _vocab_split(lf: torch.Tensor):

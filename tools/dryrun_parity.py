@@ -17,12 +17,17 @@ per-device product FLOPs by class, memory (``temp_bytes``: temporaries),
 collective wire bytes in all and by kind, and the ratio port ÷
 reference of each (``ratio.wire_by_kind``: each kind's).  Each side also
 lists its collectives by signature — kind, group size, operand and
-result dtypes and shapes, and on the reference's side its
-``replica_groups``, ``dimensions`` and the tail of its ``op_name`` — with
+result dtypes and shapes, on the port's side the mesh axis its group
+spans (``axis``), and on the reference's side its ``replica_groups``,
+``dimensions`` and the tail of its ``op_name`` — with
 their summed wire bytes and count: the five largest by wire as
 ``collectives``, all of them as ``all_collectives``.  The port's come
 from its ``.ops.json`` record (a gather along dimension d > 0 shows as
 DTensor's stack along dimension 0), the reference's from its HLO text.
+Each side lists its largest temporaries as ``peak_buffers``: the port's
+from its dry-run record (the largest live storages near its peak), the
+reference's with ``--buffers`` (the largest values of the temporaries'
+allocation in the buffer assignment XLA dumps, one an offset).
 Product classes are read by shape on both sides (as
 ``opcost.product_flops`` reads a width):
 
@@ -59,6 +64,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -146,12 +152,16 @@ from repro.configs import get_config
 from repro.core import hlo
 import dryrun_parity as tool
 
-arch, shape, mesh, layers, out = sys.argv[1:]
+arch, shape, mesh, layers, out, buffers = sys.argv[1:]
 layers, out = int(layers), Path(out)
 cfg = dataclasses.replace(get_config(arch), num_layers=layers)
 make = dr.make_run_config
 dr.make_run_config = lambda a, s, overrides=None: make(
     a, s, overrides=overrides, model_config=cfg)
+dump = out / f"xla_dump_{arch}__{shape}__{mesh}"
+if buffers == "1":   # read at the backend's start, after the import's flags
+    import os
+    os.environ["XLA_FLAGS"] += f" --xla_dump_to={dump}"
 rec = dr.run_cell(arch, shape, mesh, out)
 row = {"status": rec["status"], "seconds": rec["total_s"]}
 if rec["status"] != "ok":
@@ -235,8 +245,45 @@ row.update(tool.collective_lists(
     {**json.loads(k[5:]), "wire": v, "count": cost.coll_count[k]}
     for k, v in cost.coll_payload.items() if k.startswith("coll:")))
 row["memory"] = rec["memory"]
+if buffers == "1":
+    import shutil
+    row["peak_buffers"] = tool.temp_values(dump)
+    shutil.rmtree(dump, ignore_errors=True)
 print(json.dumps(row))
 """
+
+#: a buffer assignment's value line: id, name, size, offset, shape
+_VALUE_RE = re.compile(r" value: <\d+ (\S+) @\d+> \(size=(\d+),"
+                       r"offset=(\d+)\): (.*)")
+
+
+def temp_values(dump: Path, top: int = 12) -> list:
+    """The reference's largest buffers: the values of the temporaries'
+    allocation (``preallocated-temp``) in the buffer assignment XLA dumped
+    under ``dump`` (the module with the largest such allocation), one a
+    distinct offset (the largest of those sharing it over time), largest
+    first."""
+    best, best_size = [], -1
+    for f in Path(dump).glob("*buffer-assignment.txt"):
+        values, size, inside = {}, 0, False
+        for line in f.read_text().splitlines():
+            if line.startswith("allocation "):
+                inside = "preallocated-temp" in line
+                if inside:
+                    size = int(line.split("size ")[1].split(",")[0])
+                continue
+            m = _VALUE_RE.match(line) if inside else None
+            if m:
+                name, nbytes, offset, shape = m.groups()
+                have = values.get(offset)
+                if have is None or int(nbytes) > have["bytes"]:
+                    values[offset] = {"bytes": int(nbytes), "op": name,
+                                      "shape": shape.split("{")[0]}
+        if size > best_size:
+            best_size = size
+            best = sorted(values.values(), key=lambda v: -v["bytes"])
+    return best[:top]
+
 
 #: the reference's sweep, (arch, shape) pairs in its order, as JSON
 REFERENCE_CELLS = r"""
@@ -286,12 +333,14 @@ def port_side(arch, shape, mesh, layers, out: Path) -> dict:
     row["flops_by_op"] = {k: v for k, v in walker.flop_breakdown.items()
                           if v}
     row.update(collective_lists(
-        {**signature(kind, e.get("group") or n_dev, e["in"], e["out"]),
+        {**signature(kind, e.get("group") or n_dev, e["in"], e["out"],
+                     axis=e.get("axis")),
          "wire": walker.op_cost(e).coll_wire[kind] * e["count"],
          "count": e["count"]}
         for e in ops for kind in [collective_kind(e["op"])] if kind))
     row["ops_path"] = rec["ops_path"]
     row["memory"] = rec["memory"]
+    row["peak_buffers"] = rec.get("peak_buffers", [])
     return row
 
 
@@ -310,14 +359,16 @@ def summary(flops, wire, payload) -> dict:
 
 
 def signature(kind, group, ins, outs, *, groups=None, dimensions=None,
-              op_name=None) -> dict:
+              op_name=None, axis=None) -> dict:
     """A collective as the rows list it: kind, group size, operand and
-    result (dtype, shape) pairs; the reference's also its
-    ``replica_groups``, ``dimensions`` and the tail of its ``op_name``
-    (regex matches, or None)."""
+    result (dtype, shape) pairs; the port's also the mesh ``axis`` its
+    group spans; the reference's its ``replica_groups``, ``dimensions``
+    and the tail of its ``op_name`` (regex matches, or None)."""
     sig = {"kind": kind, "group": int(group),
            "in": [[dt, list(d)] for dt, d in ins],
            "out": [[dt, list(d)] for dt, d in outs]}
+    if axis:
+        sig["axis"] = axis
     if groups:
         sig["replica_groups"] = groups.group(1)[:80]
     if dimensions:
@@ -347,13 +398,14 @@ def collective_lists(items) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _side(side, arch, shape, mesh, layers, out: Path, timeout) -> dict:
+def _side(side, arch, shape, mesh, layers, out: Path, timeout,
+          buffers=False) -> dict:
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         (str(ROOT / "src"), str(Path(__file__).resolve().parent))),
         "JAX_PLATFORMS": "cpu"}
     if side == "reference":
         cmd = [sys.executable, "-c", REFERENCE_PROGRAM, arch, shape, mesh,
-               str(layers), str(out / side)]
+               str(layers), str(out / side), str(int(buffers))]
     else:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--side",
                side, "--arch", arch, "--shape", shape, "--mesh", mesh,
@@ -375,11 +427,12 @@ def _ratio(p, r):
     return p / r if r else (None if p else 1.0)
 
 
-def parity_row(arch, shape, mesh, layers, out: Path, timeout=1800) -> dict:
+def parity_row(arch, shape, mesh, layers, out: Path, timeout=1800,
+               buffers=False) -> dict:
     n, note = cut_layers(arch, layers)
     with ThreadPoolExecutor(2) as pool:
         ref, port = pool.map(
-            lambda s: _side(s, arch, shape, mesh, n, out, timeout),
+            lambda s: _side(s, arch, shape, mesh, n, out, timeout, buffers),
             ("reference", "port"))
     row = {"arch": arch, "shape": shape, "mesh": mesh, "layers": n,
            "reference": ref, "port": port}
@@ -431,6 +484,9 @@ def main(argv=None):
                     help="cells at once (each runs two processes)")
     ap.add_argument("--timeout", type=int, default=1800)
     ap.add_argument("--out", default="runs/parity")
+    ap.add_argument("--buffers", action="store_true",
+                    help="the reference's largest temporaries too, from "
+                         "XLA's dumped buffer assignment (slower)")
     ap.add_argument("--side", choices=("port",), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     out = Path(args.out)
@@ -447,8 +503,8 @@ def main(argv=None):
     out.mkdir(parents=True, exist_ok=True)
     bad = 0
     with ThreadPoolExecutor(max(args.jobs, 1)) as pool:
-        for row in pool.map(lambda c: parity_row(*c, args.layers, out,
-                                                 args.timeout), cells):
+        for row in pool.map(lambda c: parity_row(
+                *c, args.layers, out, args.timeout, args.buffers), cells):
             print(json.dumps(row), flush=True)
             bad += row["reference"]["status"] == "ok" and \
                 row["port"]["status"] != "ok"
