@@ -10,8 +10,9 @@ Phases, each fatal on failure:
    ``matmul_tiled``, ``flash_attention`` (and its backward), ``dg_diff``,
    ``stream_strided``, ``slstm_cell`` and ``mamba2_ssd`` kernels (the
    SSD's passes) and both recurrent backward kernels to no register
-   spills (``NO_SPILLS``), fail if ptxas serialized any ``wgmma`` of the
-   attention backward's wgmma path,
+   spills (``NO_SPILLS``), fail if ptxas serialized any ``wgmma`` (the
+   attention forward's and backward's wgmma routes, the SSD backward's
+   chained scans),
    and hold the SASS (``cuobjdump -sass``) of
    ``madd_throughput``'s chain loop to 8 FFMAs per step, so the compiler
    folded nothing;
@@ -25,7 +26,10 @@ Phases, each fatal on failure:
    (softcap, window, GQA head map, carried state, recurrence) or carry
    the fault its design invites (the SSD's state one chunk late, the
    sLSTM's peers' h one step stale), which must fail the same check;
-   attention logs the kv tiles it visits per layer against a full sweep;
+   attention logs the kv tiles it visits per layer against a full sweep,
+   and every bf16 call takes the wgmma route and every f32 call the FMA
+   route, by the kernel's route counters; the bf16 cases also on the
+   mma.sync route (``flash_attention_mma_cuda``), variants and all;
    ``dg_diff`` also at the DG node counts N = 10, 20, 35, 56 (M = 3,
    K = 8192), which the kernel runs at its next instantiated width, each
    against its plain version, and N = 56 timed beside N = 64 at K = 8192
@@ -58,7 +62,12 @@ Phases, each fatal on failure:
    ``mamba2_ssd``'s three passes once at the real size, and log both
    kernels' time as a share of their bound (the sLSTM's also of its
    floor, the SSD's of its bytes' time) with the sLSTM's cluster plan;
-   log
+   hold the attention forward and its mma.sync route
+   (``flash_attention_mma_cuda``) against the plain version in f32 at
+   both gemma2-9b layers and at zamba2-7b's D = 112 layer (B 1, S
+   ``REAL_ATTN_S``, 32 / 32 heads, causal), then time it in turns with
+   that route and with ``flex_attention``, with each layer's MUFU floor
+   (logged only: it is computed, not measured); log
    ``matmul_tiled``'s, ``flash_attention``'s, ``dg_diff``'s and
    ``stream_strided``'s time ÷ their library call's, their TFLOP/s on
    the needed work and their share of the bound; print one
@@ -348,6 +357,9 @@ ZOO = ("lin_flop", "lin_flop_mem", "ovl_flop_mem")
 # H100 SXM dense bf16 and TF32 tensor-core peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
+# the SMs' special-function units (ex2, rcp): 16 operations an SM a
+# clock, 132 SMs, at the 1.83 GHz the 989 TFLOP/s assume
+MUFU_OPS_PER_S = 16 * 132 * 1.83e9
 # q scaled so the scores reach tens: with unit inputs softcap 50 moves a
 # score by ~1e-4 of itself and a kernel ignoring it would pass
 ATTN_Q_SCALE = 8.0
@@ -551,6 +563,11 @@ RECURRENT_STEP_SSD_ROUTES = {
     "zamba2-7b": {"chain": 9 * 8, "passes": 0},
     "xlstm-125m": {"chain": 0, "passes": 0},
 }
+# and the attention forward's (bf16 at D = 112: every call on wgmma)
+RECURRENT_STEP_ATTN_ROUTES = {
+    arch: {"attention_wgmma": n["flash_attention"], "attention_mma_sync": 0,
+           "attention_fma": 0}
+    for arch, n in RECURRENT_STEP_LAUNCHES.items()}
 
 # phase 10: kernels each figure times (calibration + test), as the
 # reference's tags select them (tests/test_torch_paper_figures.py)
@@ -832,6 +849,7 @@ def model_layer_sizes(configs) -> dict:
     port's gemma2-9b, zamba2-7b and xlstm-125m configs."""
     att = configs.get_config("gemma2-9b").attention
     zamba = configs.get_config("zamba2-7b")
+    zatt = zamba.attention
     xl = configs.get_config("xlstm-125m")
     batch, steps = REAL_SLSTM
     return {
@@ -841,6 +859,11 @@ def model_layer_sizes(configs) -> dict:
         "local": dict(causal=True, window=att.window,
                       softcap=att.logit_softcap),
         "global": dict(causal=True, softcap=att.logit_softcap),
+        # zamba2-7b's shared attention (D = 112), timed in turns only
+        "attention_d112": dict(B=1, S=REAL_ATTN_S, Hq=zatt.num_heads,
+                               Hkv=zatt.num_kv_heads, D=zatt.head_dim),
+        "d112": dict(causal=zatt.causal, window=zatt.window,
+                     softcap=zatt.logit_softcap),
         "ssd": dict(B=1, S=REAL_SSD_S, H=zamba.ssm.num_heads(zamba.d_model),
                     P=zamba.ssm.head_dim, N=zamba.ssm.d_state,
                     chunk=zamba.ssm.chunk_size),
@@ -879,6 +902,54 @@ def attention_f32(ref, kw, q, k, v):
     return ref.attention_ref(q.float(), k.float(), v.float(), **kw)
 
 
+def attention_f32_by_head(ref, kw, q, k, v):
+    """:func:`attention_f32` one kv head (with its query heads) at a time,
+    so that a real-size layer's f32 scores take one head's memory."""
+    import torch
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([attention_f32(ref, kw, q[:, :, h * g:(h + 1) * g],
+                                    k[:, :, h:h + 1], v[:, :, h:h + 1])
+                      for h in range(k.shape[2])], dim=2)
+
+
+def mma_route(fa, kw):
+    """The bf16 forward on its mma.sync route (``flash_attention_mma_cuda``)
+    with ``kw``'s options, the plain version's scale where ``kw`` has
+    none."""
+    def call(q, k, v):
+        scale = kw.get("scale")
+        return fa.flash_attention_mma_cuda(
+            q, k, v, kw.get("causal", True), kw.get("window"),
+            kw.get("softcap"), q.shape[3] ** -0.5 if scale is None else scale)
+    return call
+
+
+def attention_routes(dev):
+    """The attention forward's calls by route so far (the kernel's own
+    counters, ``flash_attention.routes``), or None off the card."""
+    if dev.type != "cuda":
+        return None
+    from repro_torch.kernels import flash_attention as fa
+    return fa.routes()
+
+
+def check_attention_routes(label, before, dev, want, calls=None):
+    """Fail unless every attention forward call since ``before`` (an
+    :func:`attention_routes` read) took route ``want`` — ``calls`` of
+    them where given, at least one otherwise; return the counts (None
+    off the card)."""
+    if before is None:
+        return None
+    taken = {r: n - before[r] for r, n in attention_routes(dev).items()}
+    if any(n for r, n in taken.items() if r != want) or not taken[want] \
+            or (calls is not None and taken[want] != calls):
+        raise SystemExit(f"{label}: attention forward routes {taken}, want "
+                         f"{'every' if calls is None else calls} call(s) on "
+                         f"{want}")
+    log(f"{label}: attention forward routes {taken}")
+    return taken
+
+
 def flex_library(kw, seq, dev):
     """One PyTorch call computing the same attention:
     ``torch.compile``'d ``flex_attention`` (the tanh softcap as its
@@ -908,6 +979,70 @@ def flex_library(kw, seq, dev):
                     block_mask=mask, scale=kw.get("scale"),
                     enable_gqa=True).transpose(1, 2)
     return call
+
+
+def attention_in_turns(fa, ref, sizes, dev) -> dict:
+    """Phase 9: the attention forward as the main path runs it (the
+    wgmma route) at gemma2-9b's local and global layers and zamba2-7b's
+    D = 112 layer, and its mma.sync route (``flash_attention_mma_cuda``,
+    the route it replaced on these shapes), each first held against the
+    plain version in f32 on the inputs it is timed on
+    (:data:`REAL_ATTN_F32_TOL`), then timed (:func:`time_ms`) beside
+    ``flex_attention`` and in turns with each (:func:`time_in_turns`);
+    the tensor bound on the visible pairs and the MUFU floor (one ex2 a
+    score, two more with a softcap).  Fails unless each route's calls
+    went where they were sent."""
+    import functools
+
+    import torch
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for layer, a in (("local", sizes["attention"]),
+                     ("global", sizes["attention"]),
+                     ("d112", sizes["attention_d112"])):
+        kw = {k: v for k, v in sizes[layer].items() if v is not None}
+        args = attn_inputs(gen, dev, torch.bfloat16, **a)
+        opts = dict(causal=kw["causal"], window=kw.get("window"),
+                    softcap=kw.get("softcap"), scale=a["D"] ** -0.5)
+        kernel = functools.partial(fa.flash_attention_cuda, block_q=128,
+                                   block_k=64, **opts)
+        mma = functools.partial(fa.flash_attention_mma_cuda, **opts)
+        library = flex_library(dict(kw, scale=opts["scale"]), a["S"], dev)
+        plain = functools.partial(attention_f32_by_head, ref,
+                                  dict(kw, scale=opts["scale"]))
+        before = fa.routes()
+        for route, fn in (("wgmma", kernel), ("mma.sync", mma)):
+            err = verify(fn, plain, args, **REAL_ATTN_F32_TOL)
+            log(f"flash_attention {layer} {route} route: max|err| "
+                f"{err:.3g} vs f32 ({REAL_ATTN_F32_TOL})")
+        row = {"ms": time_ms(kernel, *args),
+               "mma_sync_ms": time_ms(mma, *args)}
+        taken = {r: n - before[r] for r, n in fa.routes().items()}
+        if taken != {"wgmma": 13, "mma_sync": 13, "fma": 0}:
+            raise SystemExit(f"attention {layer} in turns: routes {taken}")
+        row["library_ms"] = time_ms(library, *args)
+        for tag, other in (("mma_sync", mma), ("library", library)):
+            turns = time_in_turns(kernel, other, args)
+            row[f"in_turns_vs_{tag}"] = turns["median"]
+            row[f"in_turns_vs_{tag}_rounds"] = turns["rounds"]
+        scores = a["B"] * a["Hq"] * visible_pairs(
+            a["S"], a["S"], kw["causal"], kw.get("window"))
+        row["bound_ms"] = 2 * scores * 2 * a["D"] / PEAK_BF16_FLOPS * 1e3
+        row["bound_by"] = "operations"
+        row["mufu_floor_ms"] = scores * (3 if kw.get("softcap") else 1) \
+            / MUFU_OPS_PER_S * 1e3
+        log(f"flash_attention {layer} {a} {kw}: wgmma route {row['ms']:.4g}"
+            f" ms ({row['bound_ms'] / row['ms']:.1%} of its bound "
+            f"{row['bound_ms']:.4g} ms, MUFU floor "
+            f"{row['mufu_floor_ms']:.4g} ms), mma.sync route "
+            f"{row['mma_sync_ms']:.4g} ms, flex_attention "
+            f"{row['library_ms']:.4g} ms; in turns wgmma ÷ mma.sync "
+            f"{row['in_turns_vs_mma_sync']:.4g}, ÷ flex_attention "
+            f"{row['in_turns_vs_library']:.4g} (medians of 5 rounds)")
+        out[layer] = row
+        del args
+        torch.cuda.empty_cache()
+    return out
 
 
 def ssd_variants(variants, chunk):
@@ -945,6 +1080,7 @@ def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
     gen = torch.Generator(device=dev).manual_seed(13)
     for dt, tdt in (("float32", torch.float32),
                     ("bfloat16", torch.bfloat16)):
+        before = attention_routes(dev)
         for kw in variants.ATTN_KW:
             for shape in variants.ATTN_SHAPES:
                 fa = functools.partial(ops.flash_attention, block_q=64,
@@ -959,6 +1095,30 @@ def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
                        variants.attention_variants_for(kw, shape[2],
                                                        shape[3]),
                        **TOL[dt])
+        check_attention_routes(
+            f"flash_attention {dt} at the reference shapes", before, dev,
+            "fma" if tdt == torch.float32 else "wgmma",
+            2 * len(variants.ATTN_KW) * len(variants.ATTN_SHAPES))
+    # the same bf16 cases on the mma.sync route, through its own entry:
+    # the model path sends these shapes to wgmma, but unaligned views and
+    # widths off a multiple of 8 still take mma.sync
+    from repro_torch.kernels import flash_attention as fa_module
+    before = attention_routes(dev)
+    for kw in variants.ATTN_KW:
+        for shape in variants.ATTN_SHAPES:
+            mma = mma_route(fa_module, kw)
+            plain = functools.partial(ref.attention_ref, **kw)
+            err = verify(mma, plain, attn_inputs(gen, dev, torch.bfloat16,
+                                                 *shape), **TOL["bfloat16"])
+            log(f"flash_attention mma.sync route {shape} {kw}: max|err| "
+                f"{err:.3g}; q×{ATTN_Q_SCALE}:")
+            verify(mma, plain, attn_inputs(gen, dev, torch.bfloat16, *shape,
+                                           q_scale=ATTN_Q_SCALE),
+                   variants.attention_variants_for(kw, shape[2], shape[3]),
+                   **TOL["bfloat16"])
+    check_attention_routes(
+        "flash_attention mma.sync route at the reference shapes", before,
+        dev, "mma_sync", 2 * len(variants.ATTN_KW) * len(variants.ATTN_SHAPES))
     for b, s, h, p, n, chunk in variants.SSD_SHAPES:
         err = verify(functools.partial(ops.mamba2_ssd, chunk=chunk),
                      ref.ssd_ref, ssd_inputs(gen, dev, b, s, h, p, n),
@@ -970,10 +1130,11 @@ def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
                      slstm_variants(variants), **TOL["float32"])
         log(f"slstm_cell {shape}: max|err| {err:.3g}")
 
-    from repro_torch.kernels import flash_attention as fa_module
     a = sizes["attention"]
     errs = {"flash_attention": 0.0}
-    tile_q = fa_module.TILE_Q[torch.bfloat16]
+    tile_q = fa_module.FWD_TILES[fa_module.route(torch.bfloat16, a["D"],
+                                                 a["D"])][0]
+    before = attention_routes(dev)
     for layer in ("local", "global"):
         kw = sizes[layer]
         heads = a["B"] * a["Hq"]
@@ -1005,6 +1166,8 @@ def check_model_kernels(ops, ref, variants, dev, sizes) -> dict:
         log(f"flash_attention bf16 {a} {layer} {kw} q×{ATTN_Q_SCALE}: "
             f"max|err| {err:.3g} ({REAL_ATTN_TOL})")
         torch.cuda.empty_cache()
+    check_attention_routes("flash_attention at gemma2-9b's layers", before,
+                           dev, "wgmma", 4)
     ssd = sizes["ssd"]
     errs["mamba2_ssd"] = verify(
         functools.partial(ops.mamba2_ssd, chunk=ssd["chunk"]), ref.ssd_ref,
@@ -1112,13 +1275,13 @@ def ptxas_report(text: str) -> dict:
 
 #: kernel functions held to no register spills, by name fragment
 NO_SPILLS = ("matmul_tiled_kernel", "flash_mma_kernel", "flash_kernel",
-             "bwd_mma_kernel", "bwd_kernel", "delta_kernel",
-             "bwd_wg_query_kernel", "bwd_wg_key_kernel", "wgmma_tile_kernel",
-             "dg_diff_kernel", "stream_kernel", "slstm_cluster_kernel",
-             "chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel",
-             "chunk_grad_kernel", "slstm_bwd_cluster_kernel",
-             "ssd_chain_state_kernel", "ssd_chain_grad_kernel",
-             "wgmma_tf32_tile_kernel")
+             "flash_wg_kernel", "wgmma_pv_tile_kernel", "bwd_mma_kernel",
+             "bwd_kernel", "delta_kernel", "bwd_wg_query_kernel",
+             "bwd_wg_key_kernel", "wgmma_tile_kernel", "dg_diff_kernel",
+             "stream_kernel", "slstm_cluster_kernel", "chunk_state_kernel",
+             "state_pass_kernel", "chunk_out_kernel", "chunk_grad_kernel",
+             "slstm_bwd_cluster_kernel", "ssd_chain_state_kernel",
+             "ssd_chain_grad_kernel", "wgmma_tf32_tile_kernel")
 
 
 #: and the instances each of these must have in the report: the sLSTM
@@ -1149,15 +1312,17 @@ def check_no_spills(text: str) -> None:
 def check_no_serialized_wgmma(text: str) -> None:
     """Fail if ptxas serialized a ``wgmma.mma_async`` anywhere (its
     warning names the function and the reason): a serialized warpgroup
-    product gives up the asynchronous issue the bf16 attention backward
-    is built on, without any other sign."""
+    product gives up the asynchronous issue the bf16 attention (both
+    directions) and the SSD backward's chained scans are built on,
+    without any other sign."""
     bad = [line.strip() for line in text.splitlines()
            if "wgmma.mma_async instructions are serialized" in line]
     if bad:
         raise SystemExit("ptxas serialized wgmma products:\n" +
                          "\n".join(bad))
     fns = sorted({m for m in ptxas_report(text) if "wgmma" in m
-                  or "bwd_wg_" in m or "ssd_chain_" in m})
+                  or "bwd_wg_" in m or "flash_wg_" in m
+                  or "ssd_chain_" in m})
     log(f"ptxas: no serialized wgmma in the {len(fns)} functions of the "
         f"wgmma path")
 
@@ -2343,11 +2508,16 @@ def lm_path(serve_main, lm, counting, InputShape, tree_map, configs, ops,
         if layers is not None:
             argv += ["--num-layers", str(layers)]
         zero_counts()
+        before = attention_routes(dev)
         with KernelRecorder(ops) as rec:
             rc, text, seconds = echo_run(serve_main, argv)
         total = launch_counts()
         if rc != 0:
             raise SystemExit(f"serve {arch} exited {rc}")
+        # bf16 weights: every attention call on the wgmma route
+        routes = check_attention_routes(
+            f"serve {arch}", before, dev, "wgmma",
+            total["flash_attention"]) if total["flash_attention"] else None
         res = json.loads(text.strip().splitlines()[-1])["serve"]
         want = LM_PREFILL_LAUNCHES[arch]
         if res["launches"]["prefill"] != want \
@@ -2360,6 +2530,7 @@ def lm_path(serve_main, lm, counting, InputShape, tree_map, configs, ops,
         if not res["logits_finite"]:
             raise SystemExit(f"{arch}: served logits not finite")
         res["launches_run"] = total   # warm-up and timed request
+        res["attention_routes"] = routes
         cfg = configs.get_config(arch)
         if layers is not None:
             cfg = cfg.replace(num_layers=layers)
@@ -4286,6 +4457,20 @@ def main() -> int:
             f"rounds: " + " ".join(f"{x:.4g}" for x in turns["rounds"])
             + ")")
     del zoo_cases, stream
+    # the attention forward in turns with its mma.sync route and with
+    # flex_attention; the kernels line carries them in its row (phase 8's
+    # ms and library_ms stay the row's own), zamba2-7b's layer as "d112"
+    turns = attention_in_turns(flash_attention, ref, sizes, dev)
+    for layer, row in (("local", measured["flash_attention"]),
+                       ("global", measured["flash_attention"]["global"])):
+        got = turns[layer]
+        row.update(turns_ms=got["ms"], turns_library_ms=got["library_ms"],
+                   mma_sync_ms=got["mma_sync_ms"],
+                   **{k: v for k, v in got.items()
+                      if k.startswith("in_turns_")})
+    # the MUFU floor is worked out, not measured: phase 9's log has it
+    measured["flash_attention"]["d112"] = {
+        k: v for k, v in turns["d112"].items() if k != "mufu_floor_ms"}
     recurrent = floor_and_passes(slstm_cell, mamba2_ssd, sizes, dev)
     sl, sd = measured["slstm_cell"], measured["mamba2_ssd"]
     sl["step_floor_ms"] = recurrent["step_floor_ms"]
@@ -4422,7 +4607,10 @@ def main() -> int:
                           OptimizerConfig, configs, lm_counting, tree_leaves,
                           counts, zero_counts, dev, tmp, arch=TRAIN_ARCH,
                           layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
-                          steps=TRAIN_STEPS, launches=TRAIN_STEP_LAUNCHES)
+                          steps=TRAIN_STEPS, launches=TRAIN_STEP_LAUNCHES,
+                          routes=(lambda: attention_routes(dev), {
+                              "wgmma": TRAIN_STEP_LAUNCHES["flash_attention"],
+                              "mma_sync": 0, "fma": 0}))
     log(f"phase 16 (b) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fault = fault_tolerance_path(Trainer, InputShape, OptimizerConfig,
@@ -4450,8 +4638,11 @@ def main() -> int:
         lm_counting, tree_leaves, counts, zero_counts, dev, tmp, arch=arch,
         layers=layers, batch=RECURRENT_BATCH, steps=RECURRENT_STEPS,
         launches=RECURRENT_STEP_LAUNCHES[arch],
-        routes=(lambda: dict(mamba2_ssd.bwd_route_launches),
-                RECURRENT_STEP_SSD_ROUTES[arch]))
+        routes=(lambda: {**mamba2_ssd.bwd_route_launches,
+                         **{f"attention_{r}": n for r, n in
+                            flash_attention.routes().items()}},
+                {**RECURRENT_STEP_SSD_ROUTES[arch],
+                 **RECURRENT_STEP_ATTN_ROUTES[arch]}))
         for arch, layers in RECURRENT_TRAIN}
     log(f"phase 17 (b) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

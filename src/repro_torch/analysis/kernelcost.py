@@ -37,10 +37,9 @@ from repro_torch.core.counting import (
     register_op_cost_rule,
 )
 from repro_torch.kernels.dg_diff import slab_width as dg_slab_width
-from repro_torch.kernels.flash_attention import TILE_K as FLASH_TILE_K
 from repro_torch.kernels.flash_attention import BWD_TILES as FLASH_BWD_TILES
-from repro_torch.kernels.flash_attention import TILE_Q as FLASH_TILE_Q
-from repro_torch.kernels.flash_attention import bwd_route as flash_bwd_route
+from repro_torch.kernels.flash_attention import FWD_TILES as FLASH_FWD_TILES
+from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.kernels.flash_attention import bwd_steps as flash_bwd_steps
 from repro_torch.kernels.flash_attention import kv_tiles_visited
 from repro_torch.kernels.mamba2_ssd import INNER_CHUNK as SSD_TILE
@@ -204,8 +203,12 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     divides acc by ``max(l, 1e-30)``.  K and V change block every kv
     step, so with more than one kv step they are fetched by every
     program; with one, once per (batch, kv head).  Only the port's
-    ``f_vmem_*`` staging term follows the CUDA kernel, which visits just
-    the kv tiles a query tile can see."""
+    ``f_vmem_*`` staging term follows the CUDA kernel on its route
+    (``flash_attention.route``, operands taken as aligned), which visits
+    just the kv tiles a query tile can see: per query tile Q once, per
+    visited kv tile K and V — on the bf16 routes (wgmma's TMA ring,
+    mma.sync's cp.async ring) as they are, P kept in registers, on the
+    f32 route also the probabilities."""
     b, sq, hq, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     nq, nk = sq // block_q, skv // block_k
@@ -234,14 +237,12 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _traffic(c, "in", k.dtype, block_k * d, kv_fetches)
     _traffic(c, "in", v.dtype, block_k * dv, kv_fetches)
     _traffic(c, "out", q.dtype, block_q * dv, qo_fetches)
-    # the CUDA kernel stages, per query tile, Q once and per kv tile it
-    # visits (only those its rows can see) the K and V tiles — in bf16
-    # (tensor cores) as they are, in f32 (FMA) also the probabilities
-    tq = FLASH_TILE_Q[q.dtype]
+    route = flash_route(q.dtype, d, dv)
+    tq, tk = FLASH_FWD_TILES[route]
     visited = b * hq * kv_tiles_visited(sq, skv, causal, window, tq)
-    staged = b * hq * -(-sq // tq) * tq * d + visited * FLASH_TILE_K * (d + dv)
-    if q.dtype == torch.float32:
-        staged += visited * tq * FLASH_TILE_K
+    staged = b * hq * -(-sq // tq) * tq * d + visited * tk * (d + dv)
+    if route == "fma":
+        staged += visited * tq * tk
     c.add(f"f_vmem_contig_{dtype_name(q.dtype)}_store", staged)
     c.add("f_sync_grid_programs", programs)
     return c
@@ -263,7 +264,7 @@ def flash_attention_bwd_cost(dout: torch.Tensor, q: torch.Tensor,
     scale of dq and dk once per row.  Reads q, k, v, dO and lse, writes
     dq, dk and dv, each block once per program that changes it, as the
     forward.  The staging term follows the CUDA kernel's passes on its
-    route (csrc/flash_attention_bwd.cu, ``flash_attention.bwd_route``,
+    route (csrc/flash_attention_bwd.cu, ``flash_attention.route``,
     which takes the operands as aligned):
     each pass stages its row tile once (queries' q and dO in Δ and dQ,
     keys' k and v in dK or the fused dK+dV, k alone in dV) and each
@@ -302,7 +303,7 @@ def flash_attention_bwd_cost(dout: torch.Tensor, q: torch.Tensor,
     _traffic(c, "out", q.dtype, block_q * d, qo_fetches)
     _traffic(c, "out", k.dtype, block_k * d, kv_fetches)
     _traffic(c, "out", v.dtype, block_k * dv, kv_fetches)
-    route = flash_bwd_route(q.dtype, d, dv)
+    route = flash_route(q.dtype, d, dv)
     rows, cols, fused = FLASH_BWD_TILES[route]
     dq_steps, dkv_steps = flash_bwd_steps(sq, skv, causal, window, route)
     q_rows = b * hq * -(-sq // rows) * rows

@@ -58,6 +58,13 @@ SIGNATURES: Dict[str, List] = {
     # causal, window
     "repro_flash_attention_f32": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _I, _P],
     "repro_flash_attention_bf16": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    # the bf16 forward on its mma.sync route whatever the operands
+    "repro_flash_attention_bf16_mma": [_P] * 5 + [_I] * 7
+    + [_F, _F, _I, _I, _P],
+    # host side, no stream: out[3], the forward's calls by route
+    "repro_flash_attention_routes": [ctypes.POINTER(ctypes.c_longlong)],
+    # the forward's P·V register-A check: q, k, v, c, n
+    "repro_wgmma_pv_tile_bf16": [_P, _P, _P, _P, _I, _P],
     # q, k, v, dout, lse, delta (scratch), dq, dk, dv, then as the forward
     # from B on
     "repro_flash_attention_bwd_f32": [_P] * 9 + [_I] * 7

@@ -26,32 +26,79 @@
 // the reference visits the other tiles too, but there every score is
 // masked to -1e30, so m_new = m_prev, corr = exp(0) = 1 and p = 0 (the
 // s <= -5e29 guard), and the tile adds nothing, bit for bit.  The element
-// mask runs only where a warp's rows straddle an edge (causal diagonal,
-// window edge, ragged Skv); a warp whose 16 rows see none of a tile skips
-// it, for the same reason.
+// mask runs only where a consumer's 64 rows (wgmma route) or a warp's 16
+// (mma.sync route) straddle an edge (causal diagonal, window edge, ragged
+// Skv); on the mma.sync route a warp whose 16 rows see none of a tile
+// skips it, for the same reason.
 //
-// bf16 (the timed path), FlashAttention-2 style on the tensor cores: a
-// 128-row query tile, eight warps of 16 rows each.  Q·Kᵀ and P·V are
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulation), fed by ldmatrix
-// (.trans for V).  The score fragment stays in registers: scale, softcap,
-// mask and the online softmax run on it, the row max by shuffles across
-// the 4 threads that share a row (the row sum l is kept per thread and
-// reduced once at the end).  p is rounded to bf16 in registers and used
-// directly as P·V's A operand — the C layout of two adjacent n8 score
-// tiles is the A layout of one k16 step — while l sums the unrounded p,
-// as the reference's p.astype(v.dtype) and sum(p) do.  K and V tiles are
-// staged with 16-byte cp.async into a two-stage ring (tile t+1 loads
-// while tile t is computed; one barrier per tile).  D and Dv are
-// zero-padded to a multiple of 16 in shared memory, and every row is
-// padded by 16 bytes, an odd number of 16-byte units, so the 8 rows an
-// ldmatrix reads fall on distinct bank groups (a 512-byte stride would put
-// them all on one).  Q, plus two stages of K and V, at D = Dv = 256 is
-// 198 KB, one block per SM.  The Dv = 256 accumulator is 128 f32
-// registers a thread; Q's fragments (64 more) do not fit beside it, so Q
-// stays in shared memory and is re-read by ldmatrix on every kv tile.
-// Blocks are ordered heads fastest — the G query heads of one kv head
-// adjacent, sharing K and V in L2 — and the latest (heaviest, under a
-// causal mask) query tiles first, to cut the tail.
+// Three routes, chosen from the operands (routes[] counts the calls of
+// each, repro_flash_attention_routes):
+//
+// bf16 where TMA tensor maps can describe q, k and v (D and Dv multiples
+// of 8, every operand 16-byte aligned: tma_takes_bf16, the rule the
+// backward's wgmma route follows too) — the main path: every attention
+// layer of gemma2-9b (D = 256) and zamba2-7b (D = 112), serving and
+// training — wg_path, Hopper's asynchronous tensor cores.  A block owns a
+// 128-row query tile of one (batch, head) and has three warpgroups:
+//  * the producer (warpgroup 0, setmaxnreg down to 24 registers): one
+//    thread issues TMA loads (one 64 × 64 box per 128-byte-swizzled slab,
+//    zero filled past Sq, Skv, D and Dv, so zamba2's D = 112 and
+//    deepseek's 192 / 128 need no copy) of Q once and of the kv tiles the
+//    rows can see, and only those (kv_tiles), into a ring of K stages and
+//    a ring of V stages, each stage with a full mbarrier (the load's
+//    bytes) and an empty one (both consumers' 256 threads);
+//  * two consumers (warpgroups 1 and 2, 240 registers each), 64 query
+//    rows each.  For kv tile j a consumer issues S_j = Q·K_jᵀ (m64n64k16,
+//    Q and K both K-major from shared memory) together with O +=
+//    P_{j-1}·V_{j-1} (m64nNk16, N = Dv rounded up to 64, V MN-major, P
+//    the A operand from registers: the score accumulator rounded to bf16
+//    is the A fragment of a k16 step), waits for S_j only, runs scale,
+//    softcap, mask and the online softmax on S_j in registers while its
+//    own P·V and the other consumer's products run, then rescales O by
+//    corr_j and packs P_j.  K_j is released once S_j is in, V_{j-1} once
+//    O is, so the producer's next K load starts a tile earlier than its
+//    V load needs to.
+// The two consumers take turns to issue (named barriers 1 and 2, handed
+// over right after the issue): one warpgroup's softmax — three MUFU
+// operations a score (the softcap's ex2 and rcp, exp's ex2), ~770 cycles
+// a 64 × 64 tile at 16 an SM a cycle — runs while the tensor cores work
+// on the other's products (~1000 cycles a tile at D = Dv = 256), which is
+// how the kernel gets below the serial sum of its tensor and MUFU floors.
+// Shared memory: Q plus the two rings, 1024-byte aligned slabs — at D =
+// Dv = 256 Q 64 KB and two stages of K and V 128 KB (193 KB), at 129–192
+// three stages (193 KB), at ≤ 128 four (161 KB at 128).  O's m64n256 f32
+// sum is 128 registers a thread, S 32 and P's fragments 16.  Each
+// consumer waits on every full barrier in order and arrives on every
+// empty one, tiles its rows see none of included (fully masked: they add
+// nothing), so both stay within a tile of each other and every parity
+// wait is exact.
+//
+// bf16 otherwise (Dk 100 / Dv 60, odd widths, views off a 16-byte
+// boundary), mma_path, FlashAttention-2 style (the main path's route until
+// the wgmma route took it; repro_flash_attention_bf16_mma runs it on any
+// bf16 operands, to time and check it): a 128-row query tile, eight warps
+// of 16 rows each.  Q·Kᵀ and P·V are mma.sync.m16n8k16 (bf16 operands,
+// f32 accumulation), fed by ldmatrix (.trans for V).  The score fragment
+// stays in registers: scale, softcap, mask and the online softmax run on
+// it, the row max by shuffles across the 4 threads that share a row (the
+// row sum l is kept per thread and reduced once at the end).  p is
+// rounded to bf16 in registers and used directly as P·V's A operand — the
+// C layout of two adjacent n8 score tiles is the A layout of one k16 step
+// — while l sums the unrounded p, as the reference's p.astype(v.dtype)
+// and sum(p) do.  K and V tiles are staged with 16-byte cp.async (or
+// element by element where D or Dv is not a multiple of 8 or an operand
+// is unaligned) into a two-stage ring (tile t+1 loads while tile t is
+// computed; one barrier per tile).  D and Dv are zero-padded to a
+// multiple of 16 in shared memory, and every row is padded by 16 bytes,
+// an odd number of 16-byte units, so the 8 rows an ldmatrix reads fall on
+// distinct bank groups.  The Dv = 256 accumulator is 128 f32 registers a
+// thread; Q's fragments do not fit beside it, so Q is re-read by
+// ldmatrix on every kv tile, and every warp reads the whole K and V tile.
+// Both bf16 routes order blocks heads fastest — the G query heads of one
+// kv head adjacent, sharing K and V in L2 — and the latest (heaviest,
+// under a causal mask) query tiles first, to cut the tail; both write
+// each row's lse in the same units and layout (the backward reads it);
+// neither uses atomics, so two runs agree bit for bit.
 //
 // exp is exp2 of arguments pre-scaled by log2 e (ex2.approx, relative
 // error ~2^-22).  The softcap c·tanh(s/c) is c·(1 - 2/(1 + e^{2s/c})):
@@ -59,10 +106,10 @@
 // 0 gives -1), absolute error ~1e-7·c — tanhf's long software sequence
 // would cost about as much as the bound at ~540 M scores a layer.
 //
-// f32 (not timed at real size) keeps the FMA design: a 64-row query tile,
-// scores and P·V as f32 FMA from shared memory with Q, one K-then-V buffer
-// and the probabilities staged there (TF32 would not hold rtol 2e-4
-// against float64), plus the same tile skip.
+// f32, fma_path (not timed at real size), keeps the FMA design: a 64-row
+// query tile, scores and P·V as f32 FMA from shared memory with Q, one
+// K-then-V buffer and the probabilities staged there (TF32 would not hold
+// rtol 2e-4 against float64), plus the same tile skip.
 //
 // The reference's order is kept throughout: scale, softcap, mask to -1e30
 // (not -inf: an all-masked row would compute -inf - -inf = NaN),
@@ -74,13 +121,14 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kTileK = 64;      // key/value rows per inner step (both paths)
+constexpr int kTileK = 64;      // key/value rows per inner step (every route)
 
 struct Params {
   const void* q;
@@ -601,7 +649,7 @@ int launch(const Params& p, const Shape& sh, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int run(const Params& p, int batch, cudaStream_t s) {
+Shape shape_of(const Params& p) {
   Shape sh;
   sh.d16 = (p.d + 15) & ~15;
   sh.dv16 = (p.dv + 15) & ~15;
@@ -612,6 +660,11 @@ int run(const Params& p, int batch, cudaStream_t s) {
   sh.scale_l = p.scale * kLog2e;
   sh.cap_k = p.softcap > 0.f ? 2.f * kLog2e * p.scale / p.softcap : 0.f;
   sh.cap_l = p.softcap * kLog2e;
+  return sh;
+}
+
+int run(const Params& p, int batch, cudaStream_t s) {
+  const Shape sh = shape_of(p);
   switch ((sh.dv16 + 63) / 64) {
     case 1: return launch<8>(p, sh, batch, s);
     case 2: return launch<16>(p, sh, batch, s);
@@ -621,6 +674,433 @@ int run(const Params& p, int batch, cudaStream_t s) {
 }
 
 }  // namespace mma_path
+
+// =========================================================================
+// bf16, the main path: warpgroup wgmma products on a TMA ring
+// =========================================================================
+namespace wg_path {
+
+constexpr int kRows = 64;   // query rows a consumer owns, key rows a tile
+constexpr int kWG = 128;    // threads of a warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+// named barrier kTurn + c: consumer c's turn to issue its products (id 0
+// is __syncthreads)
+constexpr int kTurn = 1;
+// the reference's -1e30 mask and -5e29 guard, in units of log2 e
+constexpr float kMaskedL = mma_path::kMaskedL;
+constexpr float kGuardL = mma_path::kGuardL;
+
+using mma_path::Shape;
+
+// Whether the route takes the problem: TMA tensor maps can describe q, k
+// and v (tma_takes_bf16), and there is a key to map
+bool takes(const Params& p) {
+  return p.skv > 0 &&
+         tma_takes_bf16(p.d, p.dv,
+                        (uintptr_t)p.q | (uintptr_t)p.k | (uintptr_t)p.v);
+}
+
+// The dynamic shared memory of a block: the query tile (two 64-row
+// tiles, one a consumer), a ring of kStages K tiles and one of kStages V
+// tiles, then the mbarriers (Q's, each K stage's full and empty, each V
+// stage's full and empty).  A tile is NS slabs of 64 rows × 128 bytes,
+// every tile 1024-byte aligned (the swizzle's period).
+template <int NS>
+struct Smem {
+  static constexpr int kStages = NS == 4 ? 2 : NS == 3 ? 3 : 4;
+  static constexpr int kTile = NS * kSlabBytes;
+  static constexpr int kTiles = 2 + 2 * kStages;
+  static constexpr int kBars = 8 * (1 + 4 * kStages);
+  static constexpr size_t kBytes = 1024 + (size_t)kTiles * kTile + kBars;
+
+  uint32_t base;        // shared address of tile 0
+  unsigned char* ptr;   // its generic address
+
+  __device__ explicit Smem(unsigned char* raw) {
+    const uint32_t a = smem_addr(raw);
+    base = (a + 1023) & ~1023u;
+    ptr = raw + (base - a);
+  }
+  __device__ uint32_t q(int c) const { return base + c * kTile; }
+  __device__ uint32_t k(int st) const { return base + (2 + st) * kTile; }
+  __device__ uint32_t v(int st) const {
+    return base + (2 + kStages + st) * kTile;
+  }
+  __device__ uint32_t q_full() const { return base + kTiles * kTile; }
+  __device__ uint32_t k_full(int st) const { return q_full() + 8 * (1 + st); }
+  __device__ uint32_t k_empty(int st) const {
+    return q_full() + 8 * (1 + kStages + st);
+  }
+  __device__ uint32_t v_full(int st) const {
+    return q_full() + 8 * (1 + 2 * kStages + st);
+  }
+  __device__ uint32_t v_empty(int st) const {
+    return q_full() + 8 * (1 + 3 * kStages + st);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// One kv tile of the online softmax on a 64 × 64 score fragment s (the
+// m64n64 accumulator layout: element i of this thread is row row_a + 8 ·
+// ((i / 2) % 2), key k0 + 8 · (i / 4) + col_t + (i % 2)), in the
+// reference's order and in log2 units: scale and softcap, the mask where
+// the tile straddles an edge (`edge`), the row max over the 4 threads of
+// a row, corr = exp(m_prev - m_new), then s := exp(s - m_new), zeroed
+// where s <= -5e29, and l := l · corr + Σ s (unrounded)
+__device__ __forceinline__ void softmax_tile(const Params& p, const Shape& sh,
+                                             float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int k0, int row_a, int col_t,
+                                             bool edge) {
+  float mx[2] = {kMaskedL, kMaskedL};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x = s[i];
+    if (p.softcap > 0.f)
+      x = fmaf(-2.f * sh.cap_l, rcp(1.f + ex2(x * sh.cap_k)), sh.cap_l);
+    else
+      x *= sh.scale_l;
+    if (edge) {
+      const int qpos = row_a + 8 * ((i / 2) % 2);
+      const int kpos = k0 + (i / 4) * 8 + col_t + (i % 2);
+      bool keep = kpos < p.skv;
+      if (p.causal) keep = keep && qpos >= kpos;
+      if (p.window >= 0) keep = keep && qpos - kpos < p.window;
+      if (!keep) x = kMaskedL;
+    }
+    s[i] = x;
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 2) % 2;
+    const float x = s[i];
+    const float pv = x <= kGuardL ? 0.f : ex2(x - m[r]);
+    l[r] += pv;
+    s[i] = pv;
+  }
+}
+
+// Kv tile `it` of consumer c (see flash_wg_kernel): wait for K_it (and
+// V_{it-1}), in its turn issue S = Q·K_itᵀ (and, kPV, O += P·V_{it-1}
+// from the last tile's P fragments pw), hand the turn over, release K_it
+// once S is in, the softmax, release V_{it-1} once O is in, rescale O by
+// corr and pack this tile's P into pw.  kPV is false for the first tile
+// only, so no product is issued under a runtime branch.
+template <int NS, bool kPV>
+__device__ __forceinline__ void consume_tile(
+    const Smem<NS>& sm, const Params& p, const Shape& sh, int c, int it,
+    int t_lo, int rq0, int wq1, int row_a, int col_t, float (&acc)[32 * NS],
+    float (&s)[32], uint32_t (&pw)[16], float (&m)[2], float (&l)[2]) {
+  constexpr int S = Smem<NS>::kStages;
+  const int st = it % S;
+  const int pst = (it + S - 1) % S;   // the last tile's stage
+  const int k0 = (t_lo + it) * kRows;
+  mbar_wait(sm.k_full(st), (it / S) & 1);
+  if (kPV) mbar_wait(sm.v_full(pst), ((it - 1) / S) & 1);
+  reg_fence(s);
+  reg_fence(acc);
+  bar_sync(kTurn + c, 2 * kWG);
+  wg_fence();
+  product_ss<NS>(s, sm.q(c), sm.k(st));   // S = Q·K_itᵀ
+  wg_commit();
+  if (kPV) {
+    product_rs<NS>(acc, pw, sm.v(pst));    // O += P·V_{it-1}
+    wg_commit();
+  }
+  bar_arrive(kTurn + (c ^ 1), 2 * kWG);
+  if (kPV)
+    wg_wait<1>();
+  else
+    wg_wait<0>();
+  reg_fence(s);
+  mbar_arrive(sm.k_empty(st));
+
+  const bool edge = k0 + kRows > p.skv ||
+                    (p.causal && k0 + kRows - 1 > rq0) ||
+                    (p.window >= 0 && wq1 - k0 >= p.window);
+  float corr[2];
+  softmax_tile(p, sh, s, m, l, corr, k0, row_a, col_t, edge);
+
+  if (kPV) {
+    wg_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(sm.v_empty(pst));
+  }
+#pragma unroll
+  for (int i = 0; i < 32 * NS; ++i) acc[i] *= corr[(i / 2) % 2];
+  pack_weights(s, pw);   // p rounded to bf16: the A fragments of P·V
+}
+
+// The block: one (q head, 128-row query tile, batch), heads fastest and
+// the latest query tiles first; warpgroup 0 the producer (one thread
+// issues every TMA load), warpgroups 1 and 2 the consumers of query rows
+// q0 .. q0 + 63 and q0 + 64 .. q0 + 127.  Each consumer, for kv tile j:
+//   S_j = Q·K_jᵀ (m64n64k16, both K-major from shared memory) and
+//   O += P_{j-1}·V_{j-1} (m64nNk16, P in registers, V MN-major) issued
+//   together in its turn, then the softmax of S_j while the products of
+//   the other consumer run, then O's rescale by corr_j and P_j packed to
+//   bf16 for the next tile; the last tile's P·V after the loop.
+template <int NS>
+__global__ void __launch_bounds__(3 * kWG, 1)
+flash_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, Params p,
+                Shape sh) {
+  using SM = Smem<NS>;
+  constexpr int S = SM::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SM sm(smem_raw);
+  const int na = (p.d + 63) / 64, nb = (p.dv + 63) / 64;
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 2 * kRows;  // latest first
+  const int b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  int t_lo, t_hi;
+  kv_tiles(p, q0, min(q0 + 2 * kRows, p.sq) - 1, &t_lo, &t_hi);
+  const int total = t_hi - t_lo;
+
+  // zero the slabs past D (Q, K) and Dv (V), which no load writes and
+  // the products read; the barriers: Q's and each full one complete on
+  // the loader's arrival and its bytes, each empty one on both
+  // consumers' 256 threads
+  for (int t = 0; t < SM::kTiles; ++t) {
+    const int n = t >= 2 + S ? nb : na;
+    uint4* z = reinterpret_cast<uint4*>(sm.ptr + t * SM::kTile +
+                                        n * kSlabBytes);
+    for (int i = threadIdx.x; i < (NS - n) * kSlabBytes / 16;
+         i += blockDim.x)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full(), 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(sm.k_full(st), 1);
+      mbar_init(sm.k_empty(st), 2 * kWG);
+      mbar_init(sm.v_full(st), 1);
+      mbar_init(sm.v_empty(st), 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG;
+  if (wg == 0) {   // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    // rows past Sq and columns past D are zero filled
+    mbar_arrive_expect_tx(sm.q_full(), 2 * na * kSlabBytes);
+    load_tile(sm.q(0), &mq, sm.q_full(), na, h, q0, b);
+    load_tile(sm.q(1), &mq, sm.q_full(), na, h, q0 + kRows, b);
+    // K of tile it waits for the consumers' S_{it-S}, V for their
+    // P_{it-S}·V_{it-S}, which they issue one tile later
+    for (int it = 0; it < total; ++it) {
+      const int st = it % S, parity = ((it / S) & 1) ^ 1;
+      const int k0 = (t_lo + it) * kRows;
+      mbar_wait(sm.k_empty(st), parity);
+      mbar_arrive_expect_tx(sm.k_full(st), na * kSlabBytes);
+      load_tile(sm.k(st), &mk, sm.k_full(st), na, hk, k0, b);
+      mbar_wait(sm.v_empty(st), parity);
+      mbar_arrive_expect_tx(sm.v_full(st), nb * kSlabBytes);
+      load_tile(sm.v(st), &mv, sm.v_full(st), nb, hk, k0, b);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // a consumer: rows rq0 .. rq0 + 63 (the valid ones up to wq1); this
+  // thread's rows row_a and row_a + 8, and its first column in each n8
+  // column group
+  const int c = wg - 1;
+  const int tid = threadIdx.x % kWG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rq0 = q0 + c * kRows;
+  const int wq1 = min(rq0 + kRows, p.sq) - 1;
+  const int row_a = rq0 + warp * 16 + lane / 4;
+  const int col_t = 2 * (lane % 4);
+
+  float acc[32 * NS];
+  zero(acc);
+  float m[2] = {kMaskedL, kMaskedL};   // running row max, log2 units
+  float l[2] = {0.f, 0.f};             // this thread's share of the row sums
+  float s[32];                         // the first k step overwrites
+  uint32_t pw[16];                     // P of the last tile, A fragments
+
+  // Every consumer waits on every full barrier, in order, and arrives on
+  // every empty one: a barrier is never two phases ahead of a waiter, so
+  // each parity wait is exact, and neither consumer can add a second
+  // arrival to an empty phase before the other's first.  Turns: consumer
+  // 0 issues first (consumer 1's arrival below), each hands the turn over
+  // right after issuing, and consumer 0 takes the last hand-over after its
+  // loop, so both named barriers end balanced.
+  mbar_wait(sm.q_full(), 0);
+  if (c == 1) bar_arrive(kTurn, 2 * kWG);
+  if (total > 0)
+    consume_tile<NS, false>(sm, p, sh, c, 0, t_lo, rq0, wq1, row_a, col_t,
+                            acc, s, pw, m, l);
+  for (int it = 1; it < total; ++it)
+    consume_tile<NS, true>(sm, p, sh, c, it, t_lo, rq0, wq1, row_a, col_t,
+                           acc, s, pw, m, l);
+  if (total > 0) {   // the last tile's P·V
+    const int pst = (total - 1) % S;
+    mbar_wait(sm.v_full(pst), ((total - 1) / S) & 1);
+    reg_fence(acc);
+    wg_fence();
+    product_rs<NS>(acc, pw, sm.v(pst));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
+  }
+  if (c == 0) bar_sync(kTurn, 2 * kWG);
+
+  // the row sums over the 4 threads of a row; out = acc / max(l, 1e-30)
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    denom[r] = fmaxf(lr, 1e-30f);
+  }
+  bf16* og = (bf16*)p.o + ((size_t)b * p.sq * p.hq + h) * p.dv;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row_a + 8 * r;
+    if (qpos >= p.sq) continue;
+    if (p.lse != nullptr && lane % 4 == 0)   // m and l in log2 units
+      p.lse[((size_t)b * p.hq + h) * p.sq + qpos] =
+          (m[r] + log2f(denom[r])) * kLn2;
+    bf16* orow = og + (size_t)qpos * p.hq * p.dv;
+#pragma unroll
+    for (int j = 0; j < 8 * NS; ++j) {
+      const int col = 8 * j + col_t;
+      if (col < p.dv)   // Dv a multiple of 8: whole aligned pairs
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom[r],
+                                  acc[4 * j + 2 * r + 1] / denom[r]);
+    }
+  }
+}
+
+template <int NS>
+int launch(const Params& p, const Shape& sh, int batch, const CUtensorMap& mq,
+           const CUtensorMap& mk, const CUtensorMap& mv,
+           cudaStream_t stream) {
+  const size_t bytes = Smem<NS>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wg_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.hq, (p.sq + 2 * kRows - 1) / (2 * kRows), batch);
+  flash_wg_kernel<NS><<<grid, 3 * kWG, bytes, stream>>>(mq, mk, mv, p, sh);
+  return (int)cudaGetLastError();
+}
+
+int run(const Params& p, int batch, cudaStream_t s) {
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, p.q, batch, p.sq, p.hq, p.d);
+  if (err == 0) err = make_map(&mk, p.k, batch, p.skv, p.hkv, p.d);
+  if (err == 0) err = make_map(&mv, p.v, batch, p.skv, p.hkv, p.dv);
+  if (err != 0) return err;
+  const Shape sh = mma_path::shape_of(p);
+  switch (((p.d > p.dv ? p.d : p.dv) + 63) / 64) {
+    case 1: return launch<1>(p, sh, batch, mq, mk, mv, s);
+    case 2: return launch<2>(p, sh, batch, mq, mk, mv, s);
+    case 3: return launch<3>(p, sh, batch, mq, mk, mv, s);
+    default: return launch<4>(p, sh, batch, mq, mk, mv, s);
+  }
+}
+
+// The register-A check of the P·V product: c[64, 64·NS] (f32) =
+// bf16(q · kᵀ) · v for q, k [64, 256] and v [64, 64·NS] bf16 — the
+// score product (both K-major from TMA-loaded tiles), its accumulator
+// rounded and packed as the A fragments (pack_weights), and the sum
+// product with v MN-major, exactly as flash_wg_kernel chains them
+template <int NS>
+__global__ void __launch_bounds__(kWG, 1)
+wgmma_pv_tile_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv, float* c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t bar;
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_tile = base, k_tile = base + 4 * kSlabBytes;
+  const uint32_t v_tile = base + 8 * kSlabBytes;
+  const uint32_t bar_addr = smem_addr(&bar);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_addr, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar_addr, (8 + NS) * kSlabBytes);
+    load_tile(q_tile, &mq, bar_addr, 4, 0, 0, 0);
+    load_tile(k_tile, &mk, bar_addr, 4, 0, 0, 0);
+    load_tile(v_tile, &mv, bar_addr, NS, 0, 0, 0);
+  }
+  mbar_wait(bar_addr, 0);
+  float s[32], acc[32 * NS];
+  uint32_t pw[16];
+  zero(acc);
+  wg_fence();
+  product_ss<4>(s, q_tile, k_tile);
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(s);
+  pack_weights(s, pw);
+  reg_fence(acc);
+  wg_fence();
+  product_rs<NS>(acc, pw, v_tile);
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 16 + lane / 4, col_t = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 32 * NS; ++i) {
+    const int row = row0 + 8 * ((i / 2) % 2);
+    const int col = (i / 4) * 8 + col_t + (i % 2);
+    c[row * 64 * NS + col] = acc[i];
+  }
+}
+
+template <int NS>
+int pv_tile(const void* q, const void* k, const void* v, float* c,
+            cudaStream_t s) {
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, q, 1, 64, 1, 256);
+  if (err == 0) err = make_map(&mk, k, 1, 64, 1, 256);
+  if (err == 0) err = make_map(&mv, v, 1, 64, 1, 64 * NS);
+  if (err != 0) return err;
+  const size_t bytes = 1024 + (8 + NS) * kSlabBytes;
+  const cudaError_t set = cudaFuncSetAttribute(
+      wgmma_pv_tile_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (set != cudaSuccess) return (int)set;
+  wgmma_pv_tile_kernel<NS><<<1, kWG, bytes, s>>>(mq, mk, mv, c);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg_path
+
+// calls of the forward by route: wg_path, mma_path (bf16), fma_path (f32)
+long long routes[3] = {0, 0, 0};
 
 int check(const Params& p, int batch) {
   if (p.d < 1 || p.d > 256 || p.dv < 1 || p.dv > 256 || p.hkv < 1 ||
@@ -645,9 +1125,12 @@ extern "C" int repro_flash_attention_f32(
                     softcap, causal, window};
   const int c = check(p, batch);
   if (c != 0) return c < 0 ? (int)cudaSuccess : c;
+  ++routes[2];
   return fma_path::run(p, batch, (cudaStream_t)stream);
 }
 
+// bf16: the wgmma route where TMA tensor maps can describe the operands
+// (wg_path::takes), else the mma.sync route
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int batch, int sq, int skv, int hq, int hkv, int d, int dv, float scale,
@@ -656,5 +1139,48 @@ extern "C" int repro_flash_attention_bf16(
                     softcap, causal, window};
   const int c = check(p, batch);
   if (c != 0) return c < 0 ? (int)cudaSuccess : c;
+  if (wg_path::takes(p)) {
+    ++routes[0];
+    return wg_path::run(p, batch, (cudaStream_t)stream);
+  }
+  ++routes[1];
   return mma_path::run(p, batch, (cudaStream_t)stream);
+}
+
+// The bf16 forward on the mma.sync route whatever the operands, to time
+// and check the route the dispatch above leaves to the shapes TMA cannot
+// describe; the same arguments
+extern "C" int repro_flash_attention_bf16_mma(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int batch, int sq, int skv, int hq, int hkv, int d, int dv, float scale,
+    float softcap, int causal, int window, void* stream) {
+  const Params p = {q, k, v, o, lse, sq, skv, hq, hkv, d, dv, scale,
+                    softcap, causal, window};
+  const int c = check(p, batch);
+  if (c != 0) return c < 0 ? (int)cudaSuccess : c;
+  ++routes[1];
+  return mma_path::run(p, batch, (cudaStream_t)stream);
+}
+
+// The forward's calls by route since the library loaded: out[0] wgmma,
+// out[1] mma.sync, out[2] FMA (f32)
+extern "C" int repro_flash_attention_routes(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = routes[i];
+  return 0;
+}
+
+// The register-A check of the forward's P·V (wg_path::wgmma_pv_tile_kernel):
+// c[64, n] f32 = bf16(q[64, 256] · k[64, 256]ᵀ) · v[64, n], n = 64, 128, 192
+// or 256, all contiguous bf16, 16-byte aligned
+extern "C" int repro_wgmma_pv_tile_bf16(const void* q, const void* k,
+                                        const void* v, float* c, int n,
+                                        void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+    case 64: return wg_path::pv_tile<1>(q, k, v, c, s);
+    case 128: return wg_path::pv_tile<2>(q, k, v, c, s);
+    case 192: return wg_path::pv_tile<3>(q, k, v, c, s);
+    case 256: return wg_path::pv_tile<4>(q, k, v, c, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

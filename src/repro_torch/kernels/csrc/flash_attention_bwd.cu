@@ -828,9 +828,9 @@ using mma_path::Shape;
 // Whether the path takes the problem: TMA needs 16-byte aligned operands
 // and row strides (D and Dv multiples of 8 bf16)
 bool takes(const Params& p) {
-  const uintptr_t addr = (uintptr_t)p.q | (uintptr_t)p.k | (uintptr_t)p.v |
-                         (uintptr_t)p.dout;
-  return p.d % 8 == 0 && p.dv % 8 == 0 && addr % 16 == 0;
+  return tma_takes_bf16(p.d, p.dv,
+                        (uintptr_t)p.q | (uintptr_t)p.k | (uintptr_t)p.v |
+                            (uintptr_t)p.dout);
 }
 
 // The dynamic shared memory of a block: the row tile's two operands, a
@@ -916,15 +916,6 @@ __device__ void setup(const Smem<NS, kKey>& sm, int na, int nb,
     mbar_fence_init();
   }
   __syncthreads();
-}
-
-// Load one 64-row tile (n slabs) of operand `map` at rows `r0` of head
-// `h`, batch `b`, into shared `dst`, completing on `bar`
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int n, int h, int r0,
-                                          int b) {
-  for (int s = 0; s < n; ++s)
-    tma_load_4d(dst + s * kSlabBytes, map, bar, 64 * s, h, r0, b);
 }
 
 // The probability of raw score x (q·k) in base 2, the forward's form; *t
@@ -1329,28 +1320,6 @@ bwd_wg_key_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // --- host side --------------------------------------------------------------
-
-// The tensor map of a contiguous bf16 [batch, rows, heads, width] operand:
-// a box of 64 columns (one 128-byte swizzled slab) × 64 rows of one head,
-// zero filled outside the tensor
-int make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
-             int heads, int width) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)width * 2,
-                                 (cuuint64_t)heads * width * 2,
-                                 (cuuint64_t)rows * heads * width * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kRows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 struct Maps {
   CUtensorMap q, k, v, o;

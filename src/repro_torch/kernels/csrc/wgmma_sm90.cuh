@@ -1,10 +1,11 @@
 // PTX helpers for Hopper's asynchronous tensor-core path (sm_90a), used by
-// the bf16 path of flash_attention_bwd.cu and the chained-scan route of
-// mamba2_ssd_bwd.cu: mbarriers, TMA tile loads (cp.async.bulk.tensor)
-// completing on an mbarrier, named barriers, the shared-memory matrix
-// descriptor of a 128-byte-swizzled tile, warpgroup wgmma.mma_async
-// products with f32 accumulators (bf16 and TF32 operands), and on the host
-// cuTensorMapEncodeTiled.
+// the bf16 wgmma routes of flash_attention.cu and flash_attention_bwd.cu
+// and the chained-scan route of mamba2_ssd_bwd.cu: mbarriers, TMA tile
+// loads (cp.async.bulk.tensor) completing on an mbarrier, named barriers,
+// the shared-memory matrix descriptor of a 128-byte-swizzled tile,
+// warpgroup wgmma.mma_async products with f32 accumulators (bf16 and TF32
+// operands), and on the host cuTensorMapEncodeTiled and the tensor maps
+// of the attention operands.
 //
 // The tile layout every helper assumes is the one a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and a box 128 bytes wide writes: a 64-row
@@ -385,6 +386,16 @@ __device__ __forceinline__ void pack_weights(const float (&c)[32],
   for (int i = 0; i < 16; ++i) w[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
 }
 
+// Load one 64-row tile (n slabs) of a [batch, rows, heads, width] bf16
+// operand `map` (make_map_bf16) at rows `r0` of head `h`, batch `b`, into
+// shared `dst`, completing on `bar`
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int n, int h, int r0,
+                                          int b) {
+  for (int s = 0; s < n; ++s)
+    tma_load_4d(dst + s * kSlabBytes, map, bar, 64 * s, h, r0, b);
+}
+
 // --- TF32 ------------------------------------------------------------------
 // An f32 tile of 64 rows × 64 columns under the 128-byte swizzle is two
 // slabs of 32 columns; byte offset of element (r, c) from the tile's start
@@ -473,6 +484,36 @@ inline int make_map_f32(CUtensorMap* map, const void* ptr, int rank,
       const_cast<void*>(ptr), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Whether TMA tensor maps can describe bf16 attention operands of head
+// dims d and dv whose addresses OR together to `addr`: 16-byte aligned
+// operands and row strides (d and dv multiples of 8 bf16).  Both
+// directions of the attention take their wgmma route exactly there.
+inline bool tma_takes_bf16(int d, int dv, uintptr_t addr) {
+  return d % 8 == 0 && dv % 8 == 0 && addr % 16 == 0;
+}
+
+// The tensor map of a contiguous bf16 [batch, rows, heads, width] operand:
+// a box of 64 columns (one 128-byte swizzled slab) × 64 rows of one head,
+// zero filled outside the tensor
+inline int make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
+                    int heads, int width) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)heads * width * 2,
+                                 (cuuint64_t)rows * heads * width * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

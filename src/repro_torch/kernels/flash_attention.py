@@ -12,7 +12,7 @@ log-sum-exp kept (``flash_attention_lse_cuda``) and its backward
 launches ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``:
 Δ = rowsum(P∘dP), then dQ, then dK and dV, no atomics; in bf16 three
 passes of warpgroup ``wgmma`` products on TMA-loaded tiles where the
-operands allow it (:func:`bwd_route`), else four ``mma.sync``
+operands allow it (:func:`route`), else four ``mma.sync``
 passes; in f32 four FMA passes).  On
 the host the custom op's autograd calls the custom op
 ``repro_torch::flash_attention_bwd``, whose CPU impl is the plain vjp
@@ -21,9 +21,13 @@ a training step.  The reference has no backward kernel: it
 differentiates its jnp attention.  One CUDA
 block owns a query tile of a (batch, head) and streams the keys in
 ``TILE_K``-row tiles with the softmax state in registers, visiting only
-the kv tiles its rows can see (:func:`kv_tile_range`): bf16 on the
-tensor cores (``mma.sync``) with 128-row query tiles, f32 as FMA with
-64-row ones (``TILE_Q``).
+the kv tiles its rows can see (:func:`kv_tile_range`), by one of three
+routes the kernel picks from the operands (:func:`route`, the rule the
+backward follows too; :func:`routes` counts them): bf16 that TMA tensor
+maps can describe on warpgroup ``wgmma`` products fed by a TMA ring (one
+producer warpgroup, two consumer warpgroups of 64 query rows), other
+bf16 on ``mma.sync``, both with 128-row query tiles; f32 as FMA with
+64-row ones (``FWD_TILES``).
 """
 from __future__ import annotations
 
@@ -41,10 +45,14 @@ launches = 0
 #: four kernels) in this process
 backward_launches = 0
 
-#: query rows a CUDA block owns, by operand dtype, and key rows per
-#: inner step (kTileQ of each path, and kTileK, in the source)
-TILE_Q = {torch.bfloat16: 128, torch.float32: 64}
+#: key rows per inner step of every forward route (kTileK in the source)
 TILE_K = 64
+#: the forward's routes (csrc/flash_attention.cu, :func:`route`): query
+#: rows a CUDA block owns and key rows a tile — the bf16 wgmma path
+#: (``wg_path``: two consumers of 64 rows), its mma.sync route
+#: (``mma_path``) and the f32 FMA path (``fma_path``)
+FWD_TILES = {"wgmma": (128, TILE_K), "mma_sync": (128, TILE_K),
+             "fma": (64, TILE_K)}
 #: largest head dimension (D and Dv) the kernel takes
 MAX_HEAD_DIM = 256
 #: the backward's routes (csrc/flash_attention_bwd.cu): rows a CUDA block
@@ -89,30 +97,43 @@ def q_tile_range(k_first: int, k_last: int, sq: int, causal: bool,
     return (t_lo, -(-hi // tile)) if lo < hi else (t_lo, t_lo)
 
 
-def bwd_route(dtype: torch.dtype, d: int, dv: int,
-              aligned: bool = True) -> str:
-    """The backward's route for operands of ``dtype`` and head dims ``d``,
-    ``dv``: bf16 takes the wgmma path where a TMA tensor map can describe
-    the operands (D and Dv multiples of 8, and q, k, v and dout all
-    16-byte aligned: ``aligned``), else the mma.sync fallback; f32 the FMA
-    path.  The kernel decides the same from the operands' addresses
-    (``wg_path::takes``).  The cost rule has shapes only and prices
-    operands as PyTorch allocates them, aligned: a view that starts off a
-    16-byte boundary runs the mma.sync passes but is priced as the
-    wgmma route's staging."""
+def route(dtype: torch.dtype, d: int, dv: int, aligned: bool = True) -> str:
+    """The route of either direction for operands of ``dtype`` and head
+    dims ``d``, ``dv``: bf16 takes the wgmma path where TMA tensor maps
+    can describe the operands (D and Dv multiples of 8, and every operand
+    — q, k, v, and dout in the backward — 16-byte aligned: ``aligned``),
+    else mma.sync; f32 the FMA path.  The kernels decide the same from
+    the operands' addresses (``tma_takes_bf16`` in
+    ``csrc/wgmma_sm90.cuh``; the forward also needs a key).  The cost
+    rules have shapes only and price operands as PyTorch allocates them,
+    aligned: a view that starts off a 16-byte boundary runs the mma.sync
+    route but is priced as the wgmma route's staging."""
     if dtype == torch.float32:
         return "fma"
     ok = aligned and d % 8 == 0 and dv % 8 == 0
     return "wgmma" if ok else "mma_sync"
 
 
+def _route_counts(entry: str, names: Tuple[str, ...]) -> dict:
+    import ctypes
+    out = (ctypes.c_longlong * len(names))()
+    getattr(_build.library(), entry)(out)
+    return dict(zip(names, out))
+
+
+def routes() -> dict:
+    """Calls of the forward kernel by route since the library loaded
+    (counted in the kernel's own dispatch; :func:`flash_attention_mma_cuda`
+    counts as ``mma_sync``)."""
+    return _route_counts("repro_flash_attention_routes",
+                         ("wgmma", "mma_sync", "fma"))
+
+
 def bwd_routes() -> dict:
     """Calls of the bf16 backward kernel by route since the library
     loaded (counted in the kernel's own dispatch)."""
-    import ctypes
-    out = (ctypes.c_longlong * 2)()
-    _build.library().repro_flash_attention_bwd_routes(out)
-    return {"wgmma": out[0], "mma_sync": out[1]}
+    return _route_counts("repro_flash_attention_bwd_routes",
+                         ("wgmma", "mma_sync"))
 
 
 def bwd_steps(sq: int, skv: int, causal: bool, window: Optional[int],
@@ -189,20 +210,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention operands must share one device")
 
 
-def _forward(q, k, v, causal, window, softcap, scale, lse: bool):
-    global launches
-    _check(q, k, v, window, softcap)
+def _launch(entry, q, k, v, causal, window, softcap, scale, lse: bool):
+    """Allocate the output (and lse) and launch the forward's C entry
+    ``entry`` on operands :func:`_check` has passed."""
     b, sq, hq, _ = q.shape
     out = torch.empty((b, sq, hq, v.shape[3]), dtype=q.dtype,
                       device=q.device)
     lse_t = torch.empty((b, hq, sq), dtype=torch.float32,
                         device=q.device) if lse else None
-    _build.launch_on(q.device, _ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
+    _build.launch_on(q.device, entry, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(),
                      0 if lse_t is None else lse_t.data_ptr(), b, sq,
                      k.shape[1], hq, k.shape[2], q.shape[3], v.shape[3],
                      scale, 0.0 if softcap is None else softcap,
                      int(causal), -1 if window is None else window)
+    return out, lse_t
+
+
+def _forward(q, k, v, causal, window, softcap, scale, lse: bool):
+    global launches
+    _check(q, k, v, window, softcap)
+    out, lse_t = _launch(_ENTRY[q.dtype], q, k, v, causal, window, softcap,
+                         scale, lse)
     launches += 1
     _observe.launched("flash_attention", (q, k, v), (out, lse_t))
     return out, lse_t
@@ -226,6 +255,23 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     log-sum-exp of its scores, lse [B, Hq, Sq] float32 (natural log), for
     the backward."""
     return _forward(q, k, v, causal, window, softcap, scale, True)
+
+
+def flash_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool,
+                             window: Optional[int], softcap: Optional[float],
+                             scale: float) -> torch.Tensor:
+    """The bf16 forward on its mma.sync route whatever the operands
+    (``repro_flash_attention_bf16_mma``), for timing and checking that
+    route beside the wgmma one at the same shapes; the model path never
+    calls it, and it counts in :func:`routes` only, not in
+    ``launches``."""
+    _check(q, k, v, window, softcap)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_mma_cuda takes bfloat16, got "
+                        f"{q.dtype}")
+    return _launch("repro_flash_attention_bf16_mma", q, k, v, causal,
+                   window, softcap, scale, False)[0]
 
 
 def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
@@ -287,6 +333,34 @@ def wgmma_tile_product(a: torch.Tensor, b: torch.Tensor,
     c = torch.empty((64, n), dtype=torch.float32, device=a.device)
     _build.launch_on(a.device, "repro_wgmma_tile_bf16", a.data_ptr(),
                      b.data_ptr(), c.data_ptr(), n, int(mn_major))
+    return c
+
+
+def wgmma_pv_tile(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """The forward's P·V check: ``bf16(q · kᵀ) · v`` for ``q``, ``k`` [64,
+    256] and ``v`` [64, N], N a multiple of 64 up to 256, as an f32 [64,
+    N] from one warpgroup on the card — the score product from
+    TMA-loaded swizzled tiles, its accumulator rounded and packed as the
+    register A operand, the sum product with ``v`` read MN-major, the
+    chain the wgmma route runs each kv tile; the plain product on the
+    host."""
+    if q.shape != (64, 256) or k.shape != (64, 256) or v.shape[0] != 64 \
+            or v.shape[1] not in (64, 128, 192, 256) \
+            or any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError(f"wgmma_pv_tile: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"({q.dtype}, {k.dtype}, {v.dtype})")
+    if q.device.type == "cpu":
+        p = (q.float() @ k.float().T).to(torch.bfloat16)
+        return p.float() @ v.float()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("wgmma_pv_tile: TMA takes 16-byte aligned "
+                         "operands")
+    c = torch.empty((64, v.shape[1]), dtype=torch.float32, device=q.device)
+    _build.launch_on(q.device, "repro_wgmma_pv_tile_bf16", q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), c.data_ptr(), v.shape[1])
     return c
 
 

@@ -368,6 +368,11 @@ def test_flash_attention_check_rejects_wrong_variants(cuda, dt, kw, B, S,
     (160, 160, 64, 64, dict(causal=True)),
     (96, 96, 128, 128, dict(causal=False, softcap=30.0)),
     (96, 160, 64, 64, dict(causal=True, window=40)),
+    # zamba2-7b's D = 112 (TMA zero fills the slab past it), deepseek's
+    # Dk 192 / Dv 128 with Sq != Skv, and a window inside one kv tile
+    (160, 160, 112, 112, dict(causal=True)),
+    (96, 160, 192, 128, dict(causal=False)),
+    (192, 192, 112, 112, dict(causal=True, window=10, softcap=30.0)),
 ])
 def test_flash_attention_kernel_edges_on_card(cuda, dt, Sq, Skv, D, Dv, kw):
     """The tile skip, the padding of D and the ragged edges: q × 8 (scores
@@ -386,6 +391,148 @@ def test_flash_attention_kernel_edges_on_card(cuda, dt, Sq, Skv, D, Dv, kw):
     _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v, dt=dt)
     for _, wrong in variants.attention_variants_for(kw, Hq, Hkv):
         _reject(got, wrong, q, k, v, dt=dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,D,Dv,offset", [
+    ("bfloat16", 256, 256, 0), ("bfloat16", 112, 112, 0),
+    ("bfloat16", 192, 128, 0), ("bfloat16", 8, 8, 0),
+    ("bfloat16", 64, 64, 1), ("bfloat16", 100, 60, 0),
+    ("bfloat16", 20, 20, 0), ("float32", 112, 112, 0)])
+def test_flash_attention_forward_route_on_card(cuda, dt, D, Dv, offset):
+    """The forward takes the route ``route`` says, by the kernel's own
+    counters: aligned bf16 with D and Dv multiples of 8 the wgmma route,
+    a view one element off a 16-byte boundary (``offset``) or Dk 100 /
+    Dv 60 mma.sync, f32 FMA; each gives the plain version's output."""
+    tdt = DTYPES[dt]
+    B, S, Hq, Hkv = 1, 160, 4, 2
+
+    def on_card(seed, *shape, factor=1.0):
+        flat = torch.from_numpy(rn(seed, int(np.prod(shape)) + offset)
+                                * factor)
+        return flat.to(cuda, tdt)[offset:].view(*shape)
+
+    q = on_card(80, B, S, Hq, D, factor=8.0)
+    k, v = on_card(81, B, S, Hkv, D), on_card(82, B, S, Hkv, Dv)
+    assert (q.data_ptr() % 16 != 0) == bool(offset)
+    kw = dict(causal=True, window=48, softcap=30.0)
+    before = tfa.routes()
+    got = tops.flash_attention(q, k, v, block_q=32, block_k=32, **kw)
+    taken = {r: n - before[r] for r, n in tfa.routes().items()}
+    route = tfa.route(tdt, D, Dv, aligned=not offset)
+    assert taken == {r: int(r == route) for r in taken}
+    _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v, dt=dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", ATTN_KW)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", ATTN_SHAPES)
+def test_flash_attention_mma_route_on_card(cuda, kw, B, S, Hq, Hkv, D):
+    """The mma.sync route at the shapes the wgmma route now takes
+    (``flash_attention_mma_cuda``): q × 8, the plain version passes and
+    every plain variant fails, as before the wgmma route; it counts as
+    mma_sync and not as a launch of the model path."""
+    q, k, v = _attention_inputs(cuda, "bfloat16", B, S, Hq, Hkv, D,
+                                q_scale=8.0)
+    before, launches = tfa.routes(), tfa.launches
+    got = tfa.flash_attention_mma_cuda(
+        q, k, v, kw.get("causal", True), kw.get("window"),
+        kw.get("softcap"), D ** -0.5)
+    taken = {r: n - before[r] for r, n in tfa.routes().items()}
+    assert taken == {"wgmma": 0, "mma_sync": 1, "fma": 0}
+    assert tfa.launches == launches
+    _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v,
+           dt="bfloat16")
+    for _, wrong in variants.attention_variants_for(kw, Hq, Hkv):
+        _reject(got, wrong, q, k, v, dt="bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 112, 256])
+def test_flash_attention_forward_is_bit_for_bit_repeatable(cuda, D):
+    """No atomics on the wgmma route: forward runs (and their lse) on the
+    same inputs agree bit for bit, at each ring depth (four stages at D
+    64 and 112, two at 256)."""
+    q, k, v = _attention_inputs(cuda, "bfloat16", 2, 320, 8, 2, D,
+                                q_scale=8.0)
+    args = (True, 100, 50.0, D ** -0.5)
+    before = tfa.routes()["wgmma"]
+    first = tfa.flash_attention_lse_cuda(q, k, v, *args)
+    for _ in range(3):
+        again = tfa.flash_attention_lse_cuda(q, k, v, *args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert tfa.routes()["wgmma"] == before + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Skv,D,kw", [
+    (256, 256, 112, dict(causal=True, window=40, softcap=30.0)),
+    (256, 256, 256, dict(causal=True)),
+    # rows 95.. see no key: the second query tile visits no kv tile, the
+    # first's rows 95..127 only masked ones
+    (256, 64, 64, dict(causal=True, window=32)),
+    # no row sees a key (causal, window 0): no kv tile at all
+    (192, 192, 64, dict(causal=True, window=0)),
+])
+def test_flash_attention_lse_on_the_wgmma_route(cuda, Sq, Skv, D, kw):
+    """The wgmma route's lse: each row's log-sum-exp of its scaled,
+    capped, masked scores; rows that see no key give output 0 and lse
+    about -1e30, as the mma.sync route does."""
+    B, Hq, Hkv = 1, 4, 2
+    q = torch.from_numpy(rn(90, B, Sq, Hq, D) * 8.0).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(rn(91, B, Skv, Hkv, D)).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(rn(92, B, Skv, Hkv, D)).to(cuda, torch.bfloat16)
+    scale, cap, window = D ** -0.5, kw.get("softcap"), kw.get("window")
+    before = tfa.routes()["wgmma"]
+    out, lse = tfa.flash_attention_lse_cuda(q, k, v, True, window, cap,
+                                            scale)
+    assert tfa.routes()["wgmma"] == before + 1
+    qd, kd = q.double(), k.double().repeat_interleave(Hq // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    i, j = torch.arange(Sq, device=cuda), torch.arange(Skv, device=cuda)
+    mask = i[:, None] >= j[None]
+    if window is not None:
+        mask &= i[:, None] - j[None] < window
+    sees = mask.any(dim=-1)
+    want = torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)
+    seen = (lse.double() - want)[..., sees]
+    assert seen.numel() == 0 or float(seen.abs().max()) < 1e-4
+    assert bool((lse[..., ~sees] < -1e29).all())
+    assert bool((out[:, ~sees] == 0).all())
+    # the plain version's rows that see no key are NaN (a softmax of -inf
+    # alone): it is held on the others
+    _check(out[:, sees],
+           lambda *a: tref.attention_ref(*a, scale=scale, **kw)[:, sees],
+           q, k, v, dt="bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 128, 192, 256])
+def test_wgmma_pv_tile_on_card(cuda, n):
+    """The forward's P as the register A operand: bf16(q·kᵀ)·v from one
+    warpgroup, the chain the wgmma route runs each kv tile, against the
+    plain version — bit for bit on integer inputs in {-1, 0, 1} (every
+    step exact, so a fragment out of place shows), and on unit normal
+    inputs within f32 summation order of the same bf16 P."""
+    rng = np.random.default_rng(n)
+    ints = [torch.from_numpy(rng.integers(-1, 2, shape).astype(np.float32))
+            .to(cuda, torch.bfloat16) for shape in ((64, 256), (64, 256),
+                                                    (64, n))]
+    got = tfa.wgmma_pv_tile(*ints)
+    assert torch.equal(got, tfa.wgmma_pv_tile(*(t.cpu() for t in ints))
+                       .to(cuda))
+    q = torch.from_numpy(rn(93, 64, 256) / 16).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(rn(94, 64, 256)).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(rn(95, 64, n)).to(cuda, torch.bfloat16)
+    got = tfa.wgmma_pv_tile(q, k, v)
+    s = q.float() @ k.float().T
+    p = s.to(torch.bfloat16).float()
+    # the card's score sums may round to the neighbouring bf16 value
+    # where the exact sum lies near a rounding boundary
+    slack = (s.abs() * 2.0 ** -8).clamp(min=1e-6) @ v.float().abs()
+    assert bool(((got - p @ v.float()).abs() <= 1e-4 + slack).all())
 
 
 @pytest.mark.gpu
@@ -759,7 +906,7 @@ def test_wgmma_descriptors_and_swizzle_on_card(cuda, mn_major, n):
     (20, 20, 0), (64, 64, 1)])
 def test_flash_attention_backward_route_on_card(cuda, D, Dv, offset):
     """The bf16 backward takes the wgmma route exactly where
-    ``bwd_route`` says and every operand is 16-byte aligned (``offset``
+    ``route`` says and every operand is 16-byte aligned (``offset``
     1 shifts q, k, v and dout by one element), else the mma.sync route,
     and both give the plain version's gradients."""
     B, S, Hq, Hkv = 1, 160, 4, 2
@@ -781,7 +928,7 @@ def test_flash_attention_backward_route_on_card(cuda, D, Dv, offset):
     got = tfa.flash_attention_bwd_cuda(dout, q, k, v, lse, True, 48, 30.0,
                                        scale)
     taken = {r: n - before[r] for r, n in tfa.bwd_routes().items()}
-    route = tfa.bwd_route(torch.bfloat16, D, Dv, aligned=not offset)
+    route = tfa.route(torch.bfloat16, D, Dv, aligned=not offset)
     assert taken == {r: int(r == route) for r in taken}
     wide = [t.double().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(tref.attention_ref(*wide, scale=scale, **kw),

@@ -156,6 +156,69 @@ _bf16 = functools.partial(torch.empty, dtype=torch.bfloat16, device="meta")
 #: kernels' features (madds, traffic, transcendentals, grid programs,
 #: ...), which no design of the CUDA kernels may move
 REFERENCE_FEATURES = {
+    "flash bf16 D 112 causal (route wgmma)": (
+        functools.partial(tops.flash_attention, causal=True, block_q=32,
+                          block_k=32),
+        (_bf16(1, 160, 4, 112), _bf16(1, 160, 2, 112),
+         _bf16(1, 160, 2, 112)),
+        {"f_mem_contig_bfloat16_load": 788480,
+         "f_mem_contig_bfloat16_store": 71680,
+         "f_mem_hbm_bytes_in": 1576960, "f_mem_hbm_bytes_out": 143360,
+         "f_op_float32_add": 569600, "f_op_float32_cmp": 106240,
+         "f_op_float32_div": 71680, "f_op_float32_madd": 22937600,
+         "f_op_float32_mul": 464000, "f_op_float32_transc": 105600,
+         "f_op_int32_add": 204800, "f_op_int32_mul": 200,
+         "f_sync_grid_programs": 100, "f_sync_launch_kernel": 1}),
+    "flash bf16 Dk 192 Dv 128 Sq 96 Skv 160 (route wgmma)": (
+        functools.partial(tops.flash_attention, causal=False, block_q=32,
+                          block_k=32),
+        (_bf16(1, 96, 8, 192), _bf16(1, 160, 1, 192),
+         _bf16(1, 160, 1, 128)),
+        {"f_mem_contig_bfloat16_load": 1376256,
+         "f_mem_contig_bfloat16_store": 98304,
+         "f_mem_hbm_bytes_in": 2752512, "f_mem_hbm_bytes_out": 196608,
+         "f_op_float32_add": 744960, "f_op_float32_cmp": 127488,
+         "f_op_float32_div": 98304, "f_op_float32_madd": 39321600,
+         "f_op_float32_mul": 618240, "f_op_float32_transc": 126720,
+         "f_op_int32_add": 245760, "f_op_int32_mul": 240,
+         "f_sync_grid_programs": 120, "f_sync_launch_kernel": 1}),
+    "flash bf16 Dk 100 Dv 60 window 48 softcap 30 (route mma_sync)": (
+        functools.partial(tops.flash_attention, causal=True, window=48,
+                          softcap=30.0, block_q=64, block_k=64),
+        (_bf16(1, 128, 4, 100), _bf16(1, 128, 2, 100),
+         _bf16(1, 128, 2, 60)),
+        {"f_mem_contig_bfloat16_load": 215040,
+         "f_mem_contig_bfloat16_store": 30720,
+         "f_mem_hbm_bytes_in": 430080, "f_mem_hbm_bytes_out": 61440,
+         "f_op_float32_add": 194560, "f_op_float32_cmp": 67072,
+         "f_op_float32_div": 96256, "f_op_float32_madd": 10485760,
+         "f_op_float32_mul": 193536, "f_op_float32_transc": 132096,
+         "f_op_int32_add": 196608, "f_op_int32_mul": 32,
+         "f_sync_grid_programs": 16, "f_sync_launch_kernel": 1}),
+    "flash bf16 D 8 softcap 50 (route wgmma)": (
+        functools.partial(tops.flash_attention, causal=True, softcap=50.0,
+                          block_q=32, block_k=32),
+        (_bf16(2, 64, 2, 8), _bf16(2, 64, 1, 8), _bf16(2, 64, 1, 8)),
+        {"f_mem_contig_bfloat16_load": 10240,
+         "f_mem_contig_bfloat16_store": 2048,
+         "f_mem_hbm_bytes_in": 20480, "f_mem_hbm_bytes_out": 4096,
+         "f_op_float32_add": 37888, "f_op_float32_cmp": 17152,
+         "f_op_float32_div": 18432, "f_op_float32_madd": 262144,
+         "f_op_float32_mul": 37376, "f_op_float32_transc": 33280,
+         "f_op_int32_add": 32768, "f_op_int32_mul": 32,
+         "f_sync_grid_programs": 16, "f_sync_launch_kernel": 1}),
+    "flash f32 D 112 window 40 (route fma)": (
+        functools.partial(tops.flash_attention, causal=True, window=40,
+                          block_q=64, block_k=64),
+        (f32(1, 128, 4, 112), f32(1, 128, 2, 112), f32(1, 128, 2, 112)),
+        {"f_mem_contig_float32_load": 286720,
+         "f_mem_contig_float32_store": 57344,
+         "f_mem_hbm_bytes_in": 1146880, "f_mem_hbm_bytes_out": 229376,
+         "f_op_float32_add": 247808, "f_op_float32_cmp": 67072,
+         "f_op_float32_div": 57344, "f_op_float32_madd": 14680064,
+         "f_op_float32_mul": 181248, "f_op_float32_transc": 66560,
+         "f_op_int32_add": 196608, "f_op_int32_mul": 32,
+         "f_sync_grid_programs": 16, "f_sync_launch_kernel": 1}),
     "flash f32 (2, 256, 8, 2, 64) causal blocks 64": (
         functools.partial(tops.flash_attention, causal=True, block_q=64,
                           block_k=64),

@@ -339,7 +339,7 @@ def test_flash_attention_staging_term_counts_visited_tiles(
     (data elements, padding not counted); bf16 staged as bf16 with no
     probability buffer, f32 as f32 with the 64 × 64 probabilities."""
     tdt = DTYPES[dt][1]
-    tq = tfa.TILE_Q[tdt]
+    tq = tfa.FWD_TILES[tfa.route(tdt, D, Dv)][0]
     bk = 32
     meta = functools.partial(torch.empty, dtype=tdt, device="meta")
     c = count_fn(functools.partial(tops.flash_attention, block_q=32,
@@ -395,7 +395,7 @@ def test_flash_attention_bwd_staging_term_counts_visited_tiles(
         rows, cols, fused = 64, 64, True
     else:
         rows, cols, fused = 64, 32, False
-    assert tfa.bwd_route(tdt, D, Dv) == (
+    assert tfa.route(tdt, D, Dv) == (
         "fma" if dt == "float32" else "wgmma" if fused else "mma_sync")
     meta = functools.partial(torch.empty, dtype=tdt, device="meta")
     options = dict(dict(window=None, softcap=None), **kw)

@@ -29,7 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 #: substrings of device kernel names, by class (checked in this order)
 CLASSES = (
-    ("flash_attention", ("flash_mma_kernel", "flash_kernel")),
+    ("flash_attention", ("flash_wg_kernel", "flash_mma_kernel",
+                         "flash_kernel")),
     ("mamba2_ssd", ("chunk_state_kernel", "state_pass_kernel",
                     "chunk_out_kernel")),
     ("slstm_cell", ("slstm_cluster_kernel",)),

@@ -16,7 +16,8 @@ Every device kernel's time is put in a class: the sLSTM's forward and
 backward kernels, the SSD's (the backward's own passes: the chained
 scans' two, or the five passes' last three, whose recompute of the
 forward's first two counts as forward),
-the attention forward kernel (``flash_mma_kernel``) and its backward
+the attention forward kernel (``flash_wg_kernel``; ``flash_mma_kernel``
+on the mma.sync route) and its backward
 (``bwd_wg_query_kernel`` and ``bwd_wg_key_kernel``; ``bwd_mma_kernel`` on
 the fallback route), the GEMMs of ``torch.matmul``, and the rest (f32
 norms, softcaps, the conv, the chunked mLSTM, the embedding gradient,
@@ -49,7 +50,8 @@ CLASSES = (
                      "state_pass_kernel")),
     ("attention_backward", ("bwd_wg_query_kernel", "bwd_wg_key_kernel",
                             "bwd_mma_kernel", "bwd_kernel")),
-    ("attention_forward", ("flash_mma_kernel", "flash_kernel")),
+    ("attention_forward", ("flash_wg_kernel", "flash_mma_kernel",
+                           "flash_kernel")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "ampere_",
               "splitK")),
 )
