@@ -15,8 +15,9 @@ events (host clock on the CPU).  On the card, attention in prefill runs
 ``flash_attention``, the Mamba-2 scan ``mamba2_ssd`` and the sLSTM
 ``slstm_cell``; decode runs none of them.  The last line of output is a
 JSON object ``{"serve": {...}}`` with the times, tokens per second, the
-device's peak memory and the hand kernels' launches in prefill and in
-decode.
+device's peak memory (of the init, and of the timed request) and the
+hand kernels' launches in prefill and in decode (a prefill's are
+:func:`prefill_launches`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention, mamba2_ssd, slstm_cell
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
+from repro_torch.models.blocks import effective_pattern, effective_prefix
 from repro_torch.models.param import param_count, tree_leaves
 from repro_torch.sharding import mesh_shape, use_mesh
 
@@ -41,8 +43,46 @@ KERNELS = {"flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd,
            "slstm_cell": slstm_cell}
 
 
+#: the hand-kernel launches of one prefill through a block, by block id
+BLOCK_LAUNCHES = {
+    "attn_mlp": {"flash_attention": 1},
+    "local_attn_mlp": {"flash_attention": 1},
+    "bidir_attn_mlp": {"flash_attention": 1},
+    "moe_layer": {"flash_attention": 1},
+    "xattn_layer": {"flash_attention": 2},     # self- and cross-attention
+    "mamba2": {"mamba2_ssd": 1},
+    "slstm": {"slstm_cell": 1},
+    "mlstm": {},                               # the plain chunked form
+}
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def front_positions(cfg) -> int:
+    """Positions a decoder-only model's frontend prepends to the prompt
+    (internvl2's patch embeddings); whisper's frames go to its encoder."""
+    return cfg.frontend.num_positions \
+        if cfg.frontend.kind != "none" and cfg.encdec is None else 0
+
+
+def prefill_launches(cfg) -> Dict[str, int]:
+    """The hand kernels' launches one prefill at ``cfg`` makes on the
+    card: each block's (:data:`BLOCK_LAUNCHES`) over the prefix and every
+    group of the body, zamba2's shared attention once a group, and an
+    encoder-decoder's encoder layers."""
+    out = dict.fromkeys(KERNELS, 0)
+    blocks = list(effective_prefix(cfg)) \
+        + list(effective_pattern(cfg)) * cfg.num_groups
+    if cfg.shared_attn_every:
+        blocks += ["attn_mlp"] * cfg.num_groups
+    if cfg.encdec is not None:
+        blocks += ["bidir_attn_mlp"] * cfg.encdec.num_encoder_layers
+    for block in blocks:
+        for name, n in BLOCK_LAUNCHES[block].items():
+            out[name] += n
+    return out
 
 
 class _Clock:
@@ -86,8 +126,7 @@ def generate(params, cfg, request: Dict[str, torch.Tensor], tokens: int,
     prompt = request["tokens"]
     B, P = prompt.shape
     dev = prompt.device
-    n_front = cfg.frontend.num_positions \
-        if cfg.frontend.kind != "none" and cfg.encdec is None else 0
+    n_front = front_positions(cfg)
     cache = lm.zero_cache(cfg, B, P + n_front + tokens, dev)
     stats = {}
     before = launch_counts()
@@ -124,16 +163,20 @@ def serve(cfg, *, batch: int, prompt_len: int, tokens: int, device
     warm-up request); returns the measurements."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with torch.inference_mode():
         params = lm.init(gen, cfg, dev)
         request = make_request(cfg, batch, prompt_len, gen, dev)
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(dev)
+            init_peak = torch.cuda.max_memory_allocated(dev)
         init_s = time.perf_counter() - t0
         clock = _Clock(dev)
         generate(params, cfg, request, min(tokens, 3))
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         out, stats = generate(params, cfg, request, tokens, clock)
@@ -154,8 +197,9 @@ def serve(cfg, *, batch: int, prompt_len: int, tokens: int, device
         "logits_finite": stats["finite"],
         "generated": out.tolist(),
     }
-    if dev.type == "cuda":
+    if cuda:
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        res["init_max_memory_allocated"] = init_peak
     return res
 
 

@@ -183,12 +183,17 @@ def blockwise_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Softmax attention through the hand kernel.  q: [B, Sq, Hq, Dk];
-    k: [B, Skv, Hkv, Dk]; v: [B, Skv, Hkv, Dv]; GQA Hq = G·Hkv.  Returns
-    [B, Sq, Hq, Dv] in q's dtype.  ``impl``, ``q_chunk`` and ``kv_chunk``
-    are the reference's lowering choices: checked, not followed."""
+    k: [B, Skv, Hkv, Dk]; v: [B, Skv, Hkv, Dv]; GQA Hq = G·Hkv.  Operands
+    of mixed dtypes (whisper's bf16 queries against its f32 encoder's
+    keys and values) are promoted to one, as the reference's einsums
+    promote them; returns [B, Sq, Hq, Dv] in that dtype.  ``impl``,
+    ``q_chunk`` and ``kv_chunk`` are the reference's lowering choices:
+    checked, not followed."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; known: "
                          f"{ATTN_IMPLS}")
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    q, k, v = (t.to(dt) for t in (q, k, v))
     sq, skv = q.shape[1], k.shape[1]
     return ops.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,

@@ -59,8 +59,34 @@ def _is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
-def _leaf_init(spec: ParamSpec, shape, gen: torch.Generator, dtype,
-               device) -> torch.Tensor:
+#: the most elements one draw takes: a larger leaf is drawn a slice of
+#: its leading axis at a time (a stacked leaf one layer at a time, an
+#: expert bank one expert at a time), so the f32 draw beside the weights
+#: stays at 256 MB however large the leaf
+DRAW_ELEMENTS = 1 << 26
+
+
+def _fill(out: torch.Tensor, gen: torch.Generator, scale: float) -> None:
+    """Draw ``out`` (any dtype) as N(0, scale²) from ``gen`` in f32,
+    rounded to ``out``'s dtype; a leaf of more than ``DRAW_ELEMENTS``
+    elements slice by slice along its leading axis, each slice (or block
+    of slices) one draw."""
+    if out.numel() <= DRAW_ELEMENTS or out.dim() <= 1:
+        out.copy_(torch.randn(out.shape, generator=gen, dtype=torch.float32,
+                              device=out.device).mul_(scale))
+        return
+    per = out[0].numel()
+    rows = max(1, DRAW_ELEMENTS // per)
+    for i in range(0, out.shape[0], rows):
+        part = out[i:i + rows]
+        _fill(part[0] if rows == 1 else part, gen, scale)
+
+
+def _leaf_init(spec: ParamSpec, gen: torch.Generator, dtype, device,
+               num: Optional[int] = None) -> torch.Tensor:
+    """``spec``'s tensor, or ``num`` stacked copies of it drawn one copy
+    at a time (each scaled by the spec's own fan-in)."""
+    shape = spec.shape if num is None else (num, *spec.shape)
     if spec.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
@@ -70,8 +96,10 @@ def _leaf_init(spec: ParamSpec, shape, gen: torch.Generator, dtype,
         else 1.0 / np.sqrt(max(fan_in, 1))
     if spec.init == "small_normal":
         scale = 0.02
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for copy in (out,) if num is None else out:
+        _fill(copy, gen, float(scale))
+    return out
 
 
 def init_tree(gen: torch.Generator, schema: Any, dtype: DTypeLike,
@@ -79,18 +107,18 @@ def init_tree(gen: torch.Generator, schema: Any, dtype: DTypeLike,
     """Materialize a schema into parameters, drawing from ``gen`` on
     ``device`` (the generator's own device when ``None``)."""
     dtype, device = torch_dtype(dtype), device or gen.device
-    return tree_map(lambda s: _leaf_init(s, s.shape, gen, dtype, device),
+    return tree_map(lambda s: _leaf_init(s, gen, dtype, device),
                     schema, is_leaf=_is_spec)
 
 
 def init_stacked(gen: torch.Generator, schema: Any, num: int,
                  dtype: DTypeLike, device=None) -> Any:
-    """``num`` stacked copies of ``schema`` (leading "layers" axis); each
-    copy is scaled by its own fan-in, as the reference's vmapped init."""
+    """``num`` stacked copies of ``schema`` (leading "layers" axis), each
+    leaf drawn one copy at a time; each copy is scaled by its own fan-in,
+    as the reference's vmapped init."""
     dtype, device = torch_dtype(dtype), device or gen.device
-    return tree_map(
-        lambda s: _leaf_init(s, (num, *s.shape), gen, dtype, device),
-        schema, is_leaf=_is_spec)
+    return tree_map(lambda s: _leaf_init(s, gen, dtype, device, num),
+                    schema, is_leaf=_is_spec)
 
 
 def axes_tree(schema: Any) -> Any:

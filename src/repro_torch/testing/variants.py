@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.flash_attention import TILE_K
 from repro_torch.kernels.ref import (_wide, attention_ref,
                                      slstm_cell_bwd_ref, slstm_cell_ref,
                                      slstm_gate, ssd_bwd_ref, ssd_ref)
@@ -34,6 +35,18 @@ ATTN_KW = [dict(causal=True), dict(causal=False),
 ATTN_SHAPES = [(2, 256, 8, 2, 64),     # GQA 4:1
                (1, 128, 4, 4, 128),    # MHA
                (2, 512, 8, 1, 64)]     # MQA
+# the served models' head maps and shapes the cases above miss, each
+# (dtypes, B, Sq, Skv, Hq, Hkv, D, Dv, kw): GQA groups 6 and 7 at D 128
+# (nemotron-4-15b's 48 / 8 and arctic-480b's 56 / 8 heads), and
+# whisper-tiny's f32 cross-attention (224 decoder rows against its 1500
+# encoder frames: a ragged last kv tile of 28 keys)
+ATTN_SERVED_CASES = [
+    (("float32", "bfloat16"), 1, 256, 256, 12, 2, 128, 128,
+     dict(causal=True)),
+    (("float32", "bfloat16"), 1, 256, 256, 14, 2, 128, 128,
+     dict(causal=True)),
+    (("float32",), 2, 224, 1500, 6, 6, 64, 64, dict(causal=False)),
+]
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64),
               (2, 64, 8, 16, 32, 16)]
 SLSTM_SHAPES = [(2, 24, 4, 16), (1, 48, 2, 32),
@@ -68,10 +81,15 @@ def attention_skip_last_kv_tile(q, k, v, *, block_k, **kw):
     return attention_ref(q, k[:, :keep], v[:, :keep], **kw)
 
 
-def attention_variants_for(kw, hq, hkv):
+def attention_variants_for(kw, hq, hkv, skv=None):
     """(label, fn) for each plain variant that differs from the kernel
-    under options ``kw`` at head counts (hq, hkv), with ``kw`` bound."""
+    under options ``kw`` at head counts (hq, hkv), with ``kw`` bound; with
+    ``skv`` keys off a multiple of the kernel's kv tile (``TILE_K``), also
+    the variant that never visits the ragged last tile's keys."""
     wrongs = []
+    if skv is not None and skv % TILE_K:
+        wrongs.append(("ragged last kv tile skipped", functools.partial(
+            attention_skip_last_kv_tile, block_k=skv % TILE_K)))
     if kw.get("softcap") is not None:
         wrongs.append(("no softcap", attention_without_softcap))
     if kw.get("window") is not None:

@@ -394,6 +394,34 @@ def test_flash_attention_kernel_edges_on_card(cuda, dt, Sq, Skv, D, Dv, kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt,B,Sq,Skv,Hq,Hkv,D,Dv,kw", [
+    (dt, *case[1:]) for case in variants.ATTN_SERVED_CASES
+    for dt in case[0]])
+def test_flash_attention_served_shapes_on_card(cuda, dt, B, Sq, Skv, Hq,
+                                               Hkv, D, Dv, kw):
+    """The served models' GQA groups 6 and 7 (Hq 12 and 14 on 2 kv heads)
+    and whisper-tiny's f32 cross-attention (Sq 224 on 1500 keys, a
+    ragged last kv tile): q × 8, the plain version at the reference
+    tolerance, the call on the route ``route`` names, and each plain
+    variant (the head map h % Hkv, the ragged tile skipped) fails."""
+    tdt = DTYPES[dt]
+    q = torch.from_numpy(rn(60, B, Sq, Hq, D) * 8.0).to(cuda, tdt)
+    k = torch.from_numpy(rn(61, B, Skv, Hkv, D)).to(cuda, tdt)
+    v = torch.from_numpy(rn(62, B, Skv, Hkv, Dv)).to(cuda, tdt)
+    before, routes = tfa.launches, tfa.routes()
+    got = tops.flash_attention(q, k, v, block_q=Sq, block_k=Skv, **kw)
+    assert tfa.launches == before + 1
+    taken = {r: n - routes[r] for r, n in tfa.routes().items()}
+    assert taken == {r: int(r == tfa.route(tdt, D, Dv)) for r in taken}
+    assert got.shape == (B, Sq, Hq, Dv)
+    _check(got, lambda *a: tref.attention_ref(*a, **kw), q, k, v, dt=dt)
+    wrongs = variants.attention_variants_for(kw, Hq, Hkv, Skv)
+    assert wrongs
+    for _, wrong in wrongs:
+        _reject(got, wrong, q, k, v, dt=dt)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dt,D,Dv,offset", [
     ("bfloat16", 256, 256, 0), ("bfloat16", 112, 112, 0),
     ("bfloat16", 192, 128, 0), ("bfloat16", 8, 8, 0),

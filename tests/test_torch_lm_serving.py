@@ -222,7 +222,7 @@ def test_ring_slot_position_recovery(cur):
     assert np.all((abs_pos[valid] % W) == slots[valid])
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-7b", "xlstm-125m"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_serve_launcher_on_the_host(arch):
     before = serve.launch_counts()
     res = serve.serve(get_smoke_config(arch), batch=2, prompt_len=20,

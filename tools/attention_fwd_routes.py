@@ -6,9 +6,12 @@
     python3 tools/attention_fwd_routes.py
 
 ``chip_smoke.attention_in_turns`` (phase 9's check and timing) at
-gemma2-9b's local and global layers (B 1, S 8192, 16 / 8 heads × 256,
-softcap 50, the local with window 4096) and zamba2-7b's (B 1, S 8192,
-32 / 32 × 112, causal): each route held against the plain version, its
+its layers (``chip_smoke.TURNS_LAYERS``): gemma2-9b's local and global
+(B 1, S 8192, 16 / 8 heads × 256, softcap 50, the local with window
+4096), zamba2-7b's (B 1, S 8192, 32 / 32 × 112, causal), and the served
+yi-6b, deepseek-v2-236b MLA and whisper-tiny f32 encoder layers (the
+last on the FMA route, beside ``flex_attention`` only): each route held
+against the plain version, its
 ms, the tensor bound, the MUFU floor, and the wgmma route in turns with
 the mma.sync route and with ``flex_attention``; then a split of the
 wgmma route's time at gemma2-9b's layers: the same call without the

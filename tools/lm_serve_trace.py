@@ -5,7 +5,9 @@
         [--prompt-len 4608] [--num-layers N]
 
 The port's language model at the architecture's published config (or
-cut to ``--num-layers``), random bf16 weights from seed 0.  Prefill: one
+cut to ``--num-layers``), random bf16 weights from seed 0, and the
+frontend's inputs where it has one (internvl2's patch embeddings,
+whisper's frames, in f32 as the serving launcher draws them).  Prefill: one
 warm-up, then one between CUDA events and one under ``torch.profiler``.
 Decode: after that prefill, three warm-up steps, then one step between
 CUDA events and one under the profiler.  Every device kernel's time is
@@ -89,20 +91,22 @@ def main(argv=None) -> int:
         print("lm_serve_trace: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import make_request
+    from repro_torch.launch.serve import front_positions, make_request
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
     if args.num_layers is not None:
         cfg = cfg.replace(num_layers=args.num_layers)
+    front = front_positions(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
         params = lm.init(gen, cfg, dev)
         req = make_request(cfg, args.batch, args.prompt_len, gen, dev)
 
         def prefill():
-            cache = lm.zero_cache(cfg, args.batch, args.prompt_len + 1, dev)
+            cache = lm.zero_cache(cfg, args.batch,
+                                  front + args.prompt_len + 1, dev)
             return lm.prefill(params, cfg, cache, req)[1]
 
         prefill()
@@ -120,10 +124,11 @@ def main(argv=None) -> int:
         prefill_trace = summary(prof, wall_ms, 25)
 
         # decode, after a prefill into a cache with room for the steps
-        cache = lm.zero_cache(cfg, args.batch, args.prompt_len + 8, dev)
+        cache = lm.zero_cache(cfg, args.batch, front + args.prompt_len + 8,
+                              dev)
         cache, logits = lm.prefill(params, cfg, cache, req)
         tok = logits.argmax(-1)
-        pos = args.prompt_len
+        pos = front + args.prompt_len
 
         def step():
             nonlocal cache, tok, pos
