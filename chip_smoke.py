@@ -177,18 +177,24 @@ Phases, each fatal on failure:
    plain version's autograd in float64 at ``ATTN_BWD_CASES`` (gemma2-9b's
    global and local layers at seq 4096, a window of 128, yi-6b's G = 8,
    Dk 192 / Dv 128 non-causal with Sq ≠ Skv, head dims 100 / 60 on the
-   bf16 mma.sync route, the rest on its wgmma route), f32 and bf16, each
-   run twice bit for bit, then timed at gemma2-9b's global layer, each
-   pass's kernel from a ``torch.profiler`` trace of full calls, beside
-   the forward with lse, the plain vjp,
+   bf16 mma.sync route, the rest on its wgmma route; GQA groups 4, 6 and
+   7 at D 128, MLA causal at Dk 192 / Dv 128, whisper-tiny's encoder,
+   cross-attention and decoder), f32 and bf16, each
+   run twice bit for bit (:func:`check_attention_backward`), then timed
+   at ``ATTN_BWD_TIMED``'s layers (gemma2-9b's global layer, each pass's
+   kernel from a ``torch.profiler`` trace of full calls, the forward
+   with lse and the plain vjp beside it; deepseek-v2-236b's MLA,
+   whisper-tiny's f32 encoder) beside their bounds, TFLOP/s and
    ``torch.compile``'d ``flex_attention`` forward alone and forward +
-   backward, its bound and its TFLOP/s
-   (:func:`check_attention_backward`); (b) gemma2-9b at full width
+   backward, each compiled afresh (:func:`time_backward_layer`); (b)
+   gemma2-9b at
+   its ``LM_TRAINED`` cut
    (8 layers, seq 4096, batch 4 in 4 microbatches, bf16, remat full)
    trained 6 steps through ``Trainer.train``: per step s, tokens/s,
    loss (falling), grad_norm, lr, share of the bound, and peak memory,
-   the counters set to 0 before and read after, exactly 64 forward and 32
-   backward attention launches a step (:func:`train_path`); (c) the
+   the counters set to 0 before and read after, exactly
+   ``launch.train.step_launches`` a step (64 forward and 32 backward
+   attention launches), each on its route (:func:`train_path`); (c) the
    failure injected after step 5 at the smoke width, restored from step
    4 and replayed, bit for bit against an uninterrupted run
    (:func:`fault_tolerance_path`); (d) one train step of the whole model
@@ -219,8 +225,8 @@ Phases, each fatal on failure:
    layers) and xlstm-125m as published trained 4 steps each through
    ``Trainer.train`` (seq 4096, batch 8, bf16, remat full): per step s,
    tokens/s, loss (falling), share of the bound, peak memory, and
-   exactly ``RECURRENT_STEP_LAUNCHES`` a step, the SSD backward's
-   calls each on its ``RECURRENT_STEP_SSD_ROUTES`` route
+   exactly ``launch.train.step_launches`` a step, the SSD backward's
+   calls all on the chained scans
    (:func:`train_path`); (c)
    one step of each at full width, f32, the smallest depth with every
    block kind, card against host (:func:`recurrent_whole_check`).  One
@@ -230,7 +236,7 @@ Phases, each fatal on failure:
    phase 16 (b)'s gemma2-9b run for ``MESH_STEPS`` steps without a mesh
    and under ``make_host_mesh()``'s 1 × 1 mesh on a one-rank NCCL group
    (parameters and moments DTensors), the counters set to 0 before each
-   and read after: exactly ``TRAIN_STEP_LAUNCHES`` a step in both, every
+   and read after: exactly :func:`trained_launches` a step in both, every
    loss within ``MESH_LOSS_REL``, the step times side by side
    (:func:`mesh_train_path`); (b) at the smoke width, a failure restored
    under the mesh's placements and replayed, and a mesh-less state
@@ -245,8 +251,8 @@ Phases, each fatal on failure:
    one more step of gemma2-9b at phase 16 (b)'s cut, zamba2-7b and
    xlstm-125m at phase 17 (b)'s, on the card under
    ``core.opcost.OpRecorder`` and ``FlopCounterMode``, the counters set
-   to 0 before and read after: exactly ``TRAIN_STEP_LAUNCHES`` /
-   ``RECURRENT_STEP_LAUNCHES``; the walk priced on ``H100_SXM`` (compute
+   to 0 before and read after: exactly :func:`trained_launches`; the
+   walk priced on ``H100_SXM`` (compute
    and memory terms, dominant term, ``useful_ratio``, the top five ops
    by bytes and by FLOPs) and its roofline time's share of the median
    step phases 16 (b) / 17 (b) measured without the modes; fatal if a
@@ -269,6 +275,24 @@ Phases, each fatal on failure:
    reduce-scatters an expert's hidden (each rank keeps its experts,
    :func:`expert_moves`) (:func:`roofline_cells_path`).  One
    ``{"roofline": ...}`` line.
+20. (after phase 19, before that ``kernels`` line) the other seven
+   architectures trained on the card (:func:`train_more_phase`): (b')
+   whisper-tiny, internvl2-2b, yi-6b, granite-8b, nemotron-4-15b,
+   arctic-480b and deepseek-v2-236b at their ``LM_TRAINED`` cuts (full
+   width; depth, experts, seq and batch as the table says), 4 AdamW steps
+   each at lr 3e-4, 12 where the stream permutes the vocabulary
+   (granite-8b, internvl2-2b: :func:`train_more_steps`), through
+   ``Trainer.train`` (:func:`train_path`): per step s,
+   tokens/s, loss (finite, falling), grad_norm, share of the bound
+   (whisper's encoder and cross-attention counted,
+   :func:`train_step_flops`), peak memory (under the card's) and init
+   seconds, exactly ``launch.train.step_launches`` a step, every
+   attention call forward and backward on the route
+   ``flash_attention.route`` names (whisper's f32 encoder and
+   cross-attention ``fma``, the rest ``wgmma``); (d') one train step of
+   the whole model at full width, f32, card against host
+   (:func:`whole_train_check`) for whisper-tiny, internvl2-2b,
+   arctic-480b and deepseek-v2-236b.  One ``{"train_archs": ...}`` line.
 
 Phase 3 also prints its 43-row feature table as one
 ``{"base_feature_table": ...}`` line.
@@ -287,14 +311,12 @@ launched any; and set to 0 before phase 14 and read after it, which
 fails if work removal or the benches launched any; and set to 0
 before each served model of phase 15 and read after it, which fails
 unless every kernel launched exactly twice a prefill's count (warm-up
-and timed request); and set to 0 before phase 16 (b)'s steps and read
-after them, which fails unless the attention kernels launched exactly
-``TRAIN_STEP_LAUNCHES`` a step; and set to 0 before each of phase 17
-(b)'s runs and read after it, which fails unless every model-layer
-kernel, forward and backward, launched exactly
-``RECURRENT_STEP_LAUNCHES`` a step; and set to 0 before each of phase 19
-(a)'s walked steps and read after it, which fails unless it launched
-exactly one step's count.  Without a
+and timed request); and set to 0 before phase 16 (b)'s steps, each of
+phase 17 (b)'s runs and each of phase 20 (b')'s and read after it,
+which fails unless every model-layer kernel, forward and backward,
+launched exactly ``launch.train.step_launches`` a step; and set to 0
+before each of phase 19 (a)'s walked steps and read after it, which
+fails unless it launched exactly one step's count.  Without a
 card (or without the repository beside this file) it exits non-zero and
 prints no result.
 """
@@ -407,7 +429,14 @@ REAL_ATTN_F32_TOL = dict(TOL["bfloat16"], row_rtol=1e-2)
 # deepseek-v2's Dk 192 / Dv 128 non-causal with Sq ≠ Skv, ragged against
 # the tiles, and head dims of 100 / 60, which no TMA tensor map describes
 # (rows not a multiple of 16 bytes): the bf16 backward's mma.sync route
-# (every other case takes its wgmma route; ATTN_BWD_ROUTES)
+# (every other case takes its wgmma route; ATTN_BWD_ROUTES); then the
+# shapes phase 20 trains: the dK/dV group sums over GQA groups of 4
+# (granite-8b), 6 (nemotron-4-15b) and 7 (arctic-480b) query heads at D
+# 128 and deepseek-v2's MLA causal at Dk 192 / Dv 128, heads cut where
+# they are independent (to keep the f64 reference cheap), S 4096; and
+# whisper-tiny's encoder (1500² non-causal), cross-attention (448 on
+# 1500 keys) and causal decoder (448), B 2, 6 × 64, each ragged against
+# the tiles
 ATTN_BWD_CASES = (
     ("gemma2-9b global", 1, 4096, 4096, 16, 8, 256, 256, True, None, 50.0,
      ATTN_Q_SCALE),
@@ -420,9 +449,34 @@ ATTN_BWD_CASES = (
      None, 1.0),
     ("Dk 100 / Dv 60", 1, 1000, 1000, 8, 2, 100, 60, True, 300, 30.0,
      ATTN_Q_SCALE),
+    ("granite-8b G=4", 1, 4096, 4096, 8, 2, 128, 128, True, None, None, 1.0),
+    ("nemotron-4-15b G=6", 1, 4096, 4096, 12, 2, 128, 128, True, None, None,
+     1.0),
+    ("arctic-480b G=7", 1, 4096, 4096, 14, 2, 128, 128, True, None, None,
+     1.0),
+    ("MLA causal", 1, 4096, 4096, 16, 16, 192, 128, True, None, None, 1.0),
+    ("whisper-tiny encoder", 2, 1500, 1500, 6, 6, 64, 64, False, None, None,
+     1.0),
+    ("whisper-tiny cross", 2, 448, 1500, 6, 6, 64, 64, False, None, None,
+     1.0),
+    ("whisper-tiny decoder", 2, 448, 448, 6, 6, 64, 64, True, None, None,
+     1.0),
 )
 #: the route each case's bf16 backward takes (the kernel's own count)
-ATTN_BWD_ROUTES = ("wgmma",) * 5 + ("mma_sync",)
+ATTN_BWD_ROUTES = ("wgmma",) * 5 + ("mma_sync",) + ("wgmma",) * 7
+#: phase 16 (a): the layers whose backward is timed, at their training
+#: step's microbatch (label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window,
+#: softcap, q scale, dtype): the main path's, gemma2-9b's global layer
+#: (the kernels line's row, its passes split), and two of phase 20's
+#: models: deepseek-v2's MLA (128 heads) and whisper-tiny's f32 encoder
+#: (8 sequences a microbatch, 1500 frames)
+ATTN_BWD_TIMED = (
+    ATTN_BWD_CASES[0] + ("bfloat16",),
+    ("deepseek-v2-236b MLA", 1, 4096, 4096, 128, 128, 192, 128, True, None,
+     None, 1.0, "bfloat16"),
+    ("whisper-tiny encoder", 8, 1500, 1500, 6, 6, 64, 64, False, None, None,
+     1.0, "float32"),
+)
 #: the bf16 backward's passes on its wgmma route by their kernel's name
 #: (``bwd_wg_query_kernel<MODE, NS>``: MODE 0 is Δ, 1 dQ)
 ATTN_BWD_PASS_KERNELS = (("delta", "bwd_wg_query_kernel<0"),
@@ -438,21 +492,50 @@ ATTN_BWD_PASS_KERNELS = (("delta", "bwd_wg_query_kernel<0"),
 ATTN_BWD_F32_REL = 1e-4
 ATTN_BWD_BF16_TOL = dict(rtol=1e-2, row_atol=2e-2, floor=1e-4)
 
-# phase 16 (b): gemma2-9b at full width trained on the card — depth cut to
-# 8 of its 42 layers (4 local + 4 global), train_4k's seq 4096, global
-# batch 4 of its 256 in the preset's 4 microbatches, bf16 params, f32
-# moments, remat "full", 6 AdamW steps (lr 1e-3, warmup 1) on the
-# synthetic stream,
-# checkpointing off (one checkpoint of this state is ~25 GB of .npy)
+# the trained models, arch → (depth or None: the published one, routed
+# experts or None: all of them, seq, global batch in the preset's
+# microbatches), each at full width, bf16 params, the preset's moments
+# (f32, bf16 for the MoE models), remat "full":
+# - phase 16 (b): gemma2-9b at 8 of its 42 layers (4 local + 4 global),
+#   train_4k's seq 4096, global batch 4 of its 256 in 4 microbatches
+# - phase 17 (b): zamba2-7b at phase 15's 9 layers (3 prefix Mamba-2
+#   blocks, one group of 6 and the shared attention) and xlstm-125m as
+#   published, batch 8 in 8 and in 1
+# - phase 20 (b'), the rest, every cut kept to what one 80 GB card holds
+#   of bf16 params + bf16 accumulated and microbatch gradients + moments
+#   beside the activations (training_state_bytes): whisper-tiny as
+#   published at its 448-token decoder context (train_4k's 4096 runs past
+#   it) with its 1500 f32 frames, batch 64 in 8; internvl2-2b as
+#   published, 4 in 2 (256 patch positions + 3840 tokens); yi-6b and
+#   granite-8b at 8 layers (6.06 / 8.05 B params as published: 79 / 105
+#   GiB of state), 4 in 4; nemotron-4-15b at 2 of 32 layers (its untied
+#   256000-word embedding and head are 3.15 B of its 3.93 B params: 51
+#   GiB of state, ~20 GiB of logits at one sequence a microbatch), 8 in
+#   8; arctic-480b at 2 of 35 layers with 16 of its 128 experts, top-2
+#   kept (one layer with all 128 is 14.07 B params, 131 GiB of state);
+#   deepseek-v2-236b at 2 of 60 (the dense first layer and one MoE layer,
+#   all 160 experts, top-6), 8 in 8 — each every block kind of its arch
+LM_TRAINED = {
+    "gemma2-9b": (8, None, 4096, 4),
+    "zamba2-7b": (9, None, 4096, 8),
+    "xlstm-125m": (None, None, 4096, 8),
+    "whisper-tiny": (None, None, 448, 64),
+    "internvl2-2b": (None, None, 4096, 4),
+    "yi-6b": (8, None, 4096, 4),
+    "granite-8b": (8, None, 4096, 4),
+    "nemotron-4-15b": (2, None, 4096, 8),
+    "arctic-480b": (2, 16, 4096, 8),
+    "deepseek-v2-236b": (2, None, 4096, 8),
+}
+#: GiB of the card each cut leaves beside its training state for
+#: activations, logits and the allocator
+TRAIN_ACTIVATIONS_GIB = 15
+# phase 16 (b): gemma2-9b trained 6 AdamW steps (lr 1e-3, warmup 1) on
+# the synthetic stream, checkpointing off (one checkpoint of this state
+# is ~25 GB of .npy)
 TRAIN_ARCH = "gemma2-9b"
-TRAIN_LAYERS = 8
-TRAIN_SEQ = 4096
-TRAIN_BATCH = 4
 TRAIN_STEPS = 6
-# hand-kernel launches of one step: each attention layer once per
-# microbatch forward, once more in remat's recompute, once backward
-TRAIN_STEP_LAUNCHES = {"flash_attention": TRAIN_LAYERS * 4 * 2,
-                       "flash_attention_bwd": TRAIN_LAYERS * 4}
+TRAIN_LR = 1e-3
 # (c) fault tolerance at the smoke width: seq 256, batch 4 in 2
 # microbatches, a checkpoint every 2 steps, a failure injected after the
 # fifth step (the trainer restores step 4 and replays), 8 steps
@@ -478,7 +561,7 @@ TRAIN_WHOLE_PARAM_REL = 1e-5
 # phase 18: the mesh.  (a) phase 16 (b)'s gemma2-9b run (TRAIN_*) for
 # MESH_STEPS steps without a mesh, then under make_host_mesh()'s 1 × 1
 # mesh (a one-rank NCCL group; parameters and moments DTensors): losses
-# within MESH_LOSS_REL, TRAIN_STEP_LAUNCHES a step in each
+# within MESH_LOSS_REL, trained_launches a step in each
 MESH_STEPS = 3
 MESH_LOSS_REL = 1e-5
 # (c) deepseek-v2-236b's MoE layer at full width (d_model 5120, 160
@@ -546,37 +629,29 @@ SLSTM_BWD_CASES = (("xlstm-125m", 8, 4096, 4, 192, False),
                    ("dh 256", 2, 512, 4, 256, False),
                    ("dh 4", 2, 512, 2, 4, False),
                    ("n floor", 2, 512, 2, 64, True))
-# (b): zamba2-7b at full width cut to phase 15's 9 layers (3 prefix
-# Mamba-2 blocks, one group of 6 and the shared attention, 1.137 B
-# params) and xlstm-125m as published (12 layers, 6 sLSTM blocks), each
-# at train_4k's seq 4096, global batch 8 in its preset's microbatches (8
-# and 1), bf16 params, f32 moments, remat "full", 4 AdamW steps
-RECURRENT_TRAIN = (("zamba2-7b", 9), ("xlstm-125m", None))
-RECURRENT_BATCH = 8
+# (b): zamba2-7b and xlstm-125m at their LM_TRAINED cuts, 4 AdamW steps
+RECURRENT_TRAIN = ("zamba2-7b", "xlstm-125m")
 RECURRENT_STEPS = 4
-# hand-kernel launches of one step: remat runs each group's forward
-# twice (the prefix blocks, outside it, once) and its backward once;
-# zamba2: 3 + 6·2 SSD forwards, 9 backwards, the shared attention 2 + 1,
-# per each of 8 microbatches; xlstm: 6·2 sLSTM forwards, 6 backwards
-RECURRENT_STEP_LAUNCHES = {
-    "zamba2-7b": {"mamba2_ssd": (3 + 6 * 2) * 8, "mamba2_ssd_bwd": 9 * 8,
-                  "flash_attention": 2 * 8, "flash_attention_bwd": 8,
-                  "slstm_cell": 0, "slstm_cell_bwd": 0},
-    "xlstm-125m": {"slstm_cell": 6 * 2, "slstm_cell_bwd": 6,
-                   "mamba2_ssd": 0, "mamba2_ssd_bwd": 0,
-                   "flash_attention": 0, "flash_attention_bwd": 0},
-}
-# and the routes the SSD backward's calls take a step: zamba2-7b's layer
-# (chunk 256 → 64, P = N = 64) only the chained scans
-RECURRENT_STEP_SSD_ROUTES = {
-    "zamba2-7b": {"chain": 9 * 8, "passes": 0},
-    "xlstm-125m": {"chain": 0, "passes": 0},
-}
-# and the attention forward's (bf16 at D = 112: every call on wgmma)
-RECURRENT_STEP_ATTN_ROUTES = {
-    arch: {"attention_wgmma": n["flash_attention"], "attention_mma_sync": 0,
-           "attention_fma": 0}
-    for arch, n in RECURRENT_STEP_LAUNCHES.items()}
+# phase 20: the other seven architectures trained on the card (b') at
+# their LM_TRAINED cuts, 4 AdamW steps each; (d') one step of the whole
+# model, card against host, for those whose step differs from gemma2-9b's
+# in more than group size and activation: whisper-tiny (the f32 routes
+# and the dtype promotion inside a step), internvl2-2b (the patch
+# positions' gradient through frontend_proj), arctic-480b and
+# deepseek-v2-236b (the router, the dispatch, the aux loss, MLA)
+TRAIN_MORE = ("whisper-tiny", "internvl2-2b", "yi-6b", "granite-8b",
+              "nemotron-4-15b", "arctic-480b", "deepseek-v2-236b")
+TRAIN_MORE_STEPS = 4
+# where the stream permutes the vocabulary (stream_permutes: granite-8b,
+# internvl2-2b) a step's loss stays within 0.03 of the first for five or
+# six steps at TRAIN_MORE_LR, then falls: 12 steps each
+TRAIN_PERMUTED_STEPS = 12
+# at the reference's default peak rate (OptimizerConfig.learning_rate):
+# at 1e-3 granite-8b's loss rises 11.62 → 12.27 over its first 4 steps
+# and is still above its first after 16
+TRAIN_MORE_LR = 3e-4
+TRAIN_MORE_WHOLE = ("internvl2-2b", "arctic-480b", "deepseek-v2-236b",
+                    "whisper-tiny")
 
 # phase 10: kernels each figure times (calibration + test), as the
 # reference's tags select them (tests/test_torch_paper_figures.py)
@@ -2674,28 +2749,65 @@ def whole_model_check(lm, tree_map, launch_counts, prefill_launches, cfg,
             "invariant_rel": invariant, "card_launches": launched}
 
 
+def frame_params(cfg) -> tuple:
+    """(encoder, cross) parameters an encoder-decoder applies to its
+    frames rather than to its decoder tokens, from its schema: the
+    frontend's projection and the encoder stack; every decoder layer's
+    cross-attention K and V projections.  (0, 0) for any other model."""
+    if cfg.encdec is None:
+        return 0, 0
+    from repro_torch.models.lm import model_schema
+
+    def size(tree, keep=lambda path: True, path=()):
+        if isinstance(tree, dict):
+            return sum(size(v, keep, path + (k,)) for k, v in tree.items())
+        return math.prod(tree.shape) if keep(path) else 0
+
+    sch = model_schema(cfg)
+    return (size(sch["encoder"]) + size(sch["frontend_proj"]),
+            size(sch["body"], lambda path: "cross" in path
+                 and path[-1] in ("wk", "wv")))
+
+
+def encdec_flops(cfg, batch, seq, split=False):
+    """An encoder-decoder's forward FLOPs over its frames, at ``batch``
+    decoder sequences of ``seq`` tokens: its encoder (2 × its
+    :func:`frame_params` a frame, and the non-causal scores) and the
+    cross-attention (its K/V projections a frame, the scores); 0 for
+    any other model.  With ``split``, (encoder, cross-attention)."""
+    enc = cross = 0
+    if cfg.encdec is not None:
+        a, T = cfg.attention, cfg.encdec.encoder_positions
+        dq = a.num_heads * a.head_dim
+        enc_params, cross_params = frame_params(cfg)
+        enc = 2 * batch * T * enc_params \
+            + cfg.encdec.num_encoder_layers * 4 * batch * T * T * dq
+        cross = 2 * batch * T * cross_params \
+            + cfg.num_layers * 4 * batch * seq * T * dq
+    return (enc, cross) if split else enc + cross
+
+
+def token_flops(counting, cfg, shape) -> float:
+    """``counting.model_flops`` (2 × active parameters a token forward, 6
+    × for a train step) over the parameters that run on the tokens: an
+    encoder-decoder's :func:`frame_params` run on its frames instead
+    (:func:`encdec_flops`)."""
+    return counting.model_flops(cfg, shape) * (
+        1 - sum(frame_params(cfg)) / counting.config_active_param_count(cfg))
+
+
 def served_prefill_flops(counting, InputShape, cfg, batch, prompt) -> float:
     """A served prefill's FLOPs: the reference's counting (2 × active
     parameters a token, plus its causal attention term) over the prompt
-    and a frontend's prepended positions; for an encoder-decoder also
-    its encoder over the frames (parameters, non-causal scores) and the
-    cross-attention (the frames' K/V projections, the scores)."""
+    and a frontend's prepended positions, an encoder-decoder's frame
+    parameters taken out (:func:`token_flops`), and its encoder and
+    cross-attention (:func:`encdec_flops`)."""
     from repro_torch.launch.serve import front_positions
     shape = InputShape("served", prompt + front_positions(cfg), batch,
                        "prefill")
-    flops = counting.model_flops(cfg, shape) \
-        + counting.attention_flops(cfg, shape)
-    if cfg.encdec is not None:
-        a, d, T = cfg.attention, cfg.d_model, cfg.encdec.encoder_positions
-        dq, dkv = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
-        mlp = (3 if cfg.activation.endswith("_glu") else 2) * d * cfg.d_ff
-        enc_layers = cfg.encdec.num_encoder_layers
-        flops += enc_layers * (2 * batch * T * (2 * d * dq + 2 * d * dkv
-                                                + mlp)
-                               + 4 * batch * T * T * dq)
-        flops += cfg.num_layers * (2 * batch * T * 2 * d * dkv
-                                   + 4 * batch * prompt * T * dq)
-    return flops
+    return token_flops(counting, cfg, shape) \
+        + counting.attention_flops(cfg, shape) \
+        + encdec_flops(cfg, batch, prompt)
 
 
 def decode_bytes(cfg, param_bytes: int, params: int, batch: int) -> int:
@@ -2917,13 +3029,9 @@ def pass_trace_main(kind: str) -> int:
     from repro_torch.kernels import mamba2_ssd as ssd
     dev = torch.device("cuda")
     if kind == "attention":
-        label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs = \
-            ATTN_BWD_CASES[0]
-        gen = torch.Generator(device=dev).manual_seed(16)
-        q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, Sq, Hq, Hkv, D,
-                              qs)
-        dout = torch.randn(B, Sq, Hq, Dv, generator=gen,
-                           device=dev).to(torch.bfloat16)
+        _, _, _, _, _, _, D, _, causal, window, cap, _, _ = \
+            ATTN_BWD_TIMED[0]
+        q, k, v, dout = timed_bwd_inputs(ATTN_BWD_TIMED[0], dev)
         scale = 1.0 / math.sqrt(D)
         _, lse = fa.flash_attention_lse_cuda(q, k, v, causal, window, cap,
                                              scale)
@@ -2958,27 +3066,23 @@ def ssd_bwd_pass_ms(backward, ssd, reps: int = 10) -> dict:
                    lambda: ssd.bwd_route_launches["chain"], reps)
 
 
-def check_attention_backward(ops, ref, fa, dev) -> dict:
+def check_attention_backward(ops, ref, fa, dev, *, cases=ATTN_BWD_CASES,
+                             routes=ATTN_BWD_ROUTES,
+                             timed=ATTN_BWD_TIMED) -> dict:
     """Phase 16 (a): the attention backward kernel (through
     ``ops.flash_attention`` under autograd: the forward kernel keeping
     lse, then the backward kernel) against the plain version's autograd
-    in float64 on the same inputs, for every ``ATTN_BWD_CASES`` case in
-    f32 (max |err| <= ``ATTN_BWD_F32_REL`` × max |g| of each of dq, dk,
-    dv) and bf16 (:func:`attention_excess` at ``ATTN_BWD_BF16_TOL``), a
-    second run bit for bit the first, and in bf16 through the route of
-    ``ATTN_BWD_ROUTES`` (the kernel's count); then gemma2-9b's global
-    layer in bf16 timed: the backward alone and each of its passes
-    (:func:`attention_bwd_pass_ms`), the forward with lse, forward + backward, the plain vjp, the
-    ``torch.compile``'d ``flex_attention`` forward alone and forward +
-    backward (their difference the library's backward), the bound and
-    the backward's TFLOP/s on the vjp's five products.  Launches here
-    count nowhere."""
-    import functools
-
+    in float64 on the same inputs, for every one of ``cases`` in f32
+    (max |err| <= ``ATTN_BWD_F32_REL`` × max |g| of each of dq, dk, dv)
+    and bf16 (:func:`attention_excess` at ``ATTN_BWD_BF16_TOL``), a
+    second run bit for bit the first, and in bf16 through the route
+    ``routes`` gives it (the kernel's count); then each of ``timed``'s
+    layers timed (:func:`time_backward_layer`, the first with its passes
+    split).  Launches here count nowhere."""
     import torch
     out = {"cases": {}}
     for (label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs), \
-            route in zip(ATTN_BWD_CASES, ATTN_BWD_ROUTES):
+            route in zip(cases, routes):
         kw = dict(causal=causal, window=window, softcap=cap)
         gen = torch.Generator(device=dev).manual_seed(16)
         base = (torch.randn(B, Sq, Hq, D, generator=gen, device=dev) * qs,
@@ -3034,23 +3138,44 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
                                  f"{taken}, want {want_routes}")
             out["cases"][tag] = dict(row, bitwise=same, routes=taken)
 
-    # the main path's layer, timed
-    label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, qs = \
-        ATTN_BWD_CASES[0]
+    out["layers"] = {case[0]: time_backward_layer(ops, ref, fa, case, dev,
+                                                  split=i == 0)
+                     for i, case in enumerate(timed)}
+    return out
+
+
+def timed_bwd_inputs(case, dev) -> tuple:
+    """q (× the case's q scale), k, v and dout of an ``ATTN_BWD_TIMED``
+    layer, unit normal from seed 16, in its dtype."""
+    import torch
+    _, B, Sq, Skv, Hq, Hkv, D, Dv, _, _, _, qs, dt = case
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, dout = (torch.randn(*shape, generator=gen, device=dev)
+                     for shape in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                                   (B, Skv, Hkv, Dv), (B, Sq, Hq, Dv)))
+    return tuple(t.to(getattr(torch, dt)) for t in (q * qs, k, v, dout))
+
+
+def time_backward_layer(ops, ref, fa, case, dev, split=False) -> dict:
+    """Phase 16 (a): the backward kernel alone at one of
+    ``ATTN_BWD_TIMED``'s layers (``flash_attention_bwd_cuda`` on the
+    forward's lse), forward + backward through ``ops.flash_attention``,
+    and ``torch.compile``'d ``flex_attention`` forward and forward +
+    backward (their difference the library's backward) where it takes
+    the shape (None where it raises), beside
+    :func:`attention_bwd_bound_ms` and the backward's TFLOP/s on the
+    vjp's five products.  With ``split`` (the main path's layer), also
+    each pass (:func:`attention_bwd_pass_ms`, in a fresh process), the
+    forward with lse and the plain vjp.  Launches here count nowhere."""
+    import functools
+
+    import torch
+    label, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, cap, _, dt = case
+    dtype = getattr(torch, dt)
     kw = dict(causal=causal, window=window, softcap=cap)
     scale = 1.0 / math.sqrt(D)
-    gen = torch.Generator(device=dev).manual_seed(16)
-    q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, Sq, Hq, Hkv, D, qs)
-    dout = torch.randn(B, Sq, Hq, Dv, generator=gen,
-                       device=dev).to(torch.bfloat16)
-    o, lse = fa.flash_attention_lse_cuda(q, k, v, causal, window, cap, scale)
-
-    def backward():
-        return fa.flash_attention_bwd_cuda(dout, q, k, v, lse, causal,
-                                           window, cap, scale)
-
-    passes = pass_ms_in_child("attention")
-
+    q, k, v, dout = timed_bwd_inputs(case, dev)
+    _, lse = fa.flash_attention_lse_cuda(q, k, v, causal, window, cap, scale)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
     def ours():
@@ -3058,102 +3183,199 @@ def check_attention_backward(ops, ref, fa, dev) -> dict:
             ops.flash_attention(*leaves, block_q=Sq, block_k=Skv, **kw),
             leaves, dout)
 
-    flex = flex_library(kw, Sq, dev)
-    lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-
-    def library():
-        return torch.autograd.grad(flex(*lib_leaves), lib_leaves, dout)
-
-    def library_forward():
-        with torch.no_grad():
-            return flex(q, k, v)
-
     bound, bound_by = attention_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, Dv,
-                                             causal, window, torch.bfloat16)
+                                             causal, window, dtype)
     five = (2 * B * Hq * visible_pairs(Sq, Skv, causal, window)
             * (3 * D + 2 * Dv))
-    t0 = time.perf_counter()
-    library()   # compiles
-    library_forward()
-    compile_s = time.perf_counter() - t0
-    timed = {"ms": time_ms(backward), "passes_ms": passes,
-             "forward_lse_ms": time_ms(fa.flash_attention_lse_cuda, q, k, v,
-                                       causal, window, cap, scale),
-             "fwd_bwd_ms": time_ms(ours),
-             "plain_ms": time_ms(functools.partial(ref.attention_bwd_ref,
-                                                   **kw), dout, q, k, v,
-                                 iters=3),
-             "library_ms": time_ms(library),
-             "library_fwd_ms": time_ms(library_forward),
-             "bound_ms": bound, "bound_by": bound_by,
-             "library": "torch.compile(flex_attention) forward + backward",
-             "shape": [B, Sq, Hq, Hkv, D], "options": kw}
-    timed["library_bwd_ms"] = timed["library_ms"] - timed["library_fwd_ms"]
-    timed["tflops"] = five / (timed["ms"] * 1e-3) / 1e12
-    log(f"attention backward {label} bf16: {timed['ms']:.4g} ms = "
-        f"{bound / timed['ms']:.1%} of its bound ({bound:.4g} ms by "
-        f"{bound_by}), {timed['tflops']:.4g} TFLOP/s on the five products' "
-        f"{five / 1e9:.4g} GFLOP; passes " + ", ".join(
-            f"{n} {t:.4g} ms" for n, t in passes.items()) +
-        f"; forward with lse {timed['forward_lse_ms']:.4g} ms, "
-        f"forward + backward {timed['fwd_bwd_ms']:.4g} ms against "
-        f"flex_attention's {timed['library_ms']:.4g} ms (its forward "
-        f"{timed['library_fwd_ms']:.4g}, so its backward "
-        f"{timed['library_bwd_ms']:.4g} ms; compiled in {compile_s:.1f} "
-        f"s); plain vjp {timed['plain_ms']:.4g} ms")
-    out["timed"] = timed
-    del flex, lib_leaves, leaves, o, lse
+    row = {"ms": time_ms(fa.flash_attention_bwd_cuda, dout, q, k, v, lse,
+                         causal, window, cap, scale),
+           "fwd_bwd_ms": time_ms(ours), "bound_ms": bound,
+           "bound_by": bound_by, "route": fa.route(dtype, D, Dv),
+           "shape": [B, Sq, Skv, Hq, Hkv, D, Dv], "dtype": dt,
+           "options": kw,
+           "library": "torch.compile(flex_attention) forward + backward"}
+    row["tflops"] = five / (row["ms"] * 1e-3) / 1e12
+    if split:
+        row["passes_ms"] = pass_ms_in_child("attention")
+        row["forward_lse_ms"] = time_ms(fa.flash_attention_lse_cuda, q, k,
+                                        v, causal, window, cap, scale)
+        row["plain_ms"] = time_ms(functools.partial(ref.attention_bwd_ref,
+                                                    **kw), dout, q, k, v,
+                                  iters=3)
+    lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    # a fresh compile: the earlier phases' flex_attention compiles fill
+    # dynamo's recompile limit, past which flex runs unfused
+    torch._dynamo.reset()
+    try:
+        flex = flex_library(kw, Sq, dev)
+        t0 = time.perf_counter()
+        torch.autograd.grad(flex(*lib_leaves), lib_leaves, dout)  # compiles
+        row["library_compile_s"] = time.perf_counter() - t0
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            flex(*lib_leaves), lib_leaves, dout))
+        with torch.no_grad():
+            row["library_fwd_ms"] = time_ms(flex, q, k, v)
+        row["library_bwd_ms"] = row["library_ms"] - row["library_fwd_ms"]
+    except Exception as exc:   # flex_attention refuses the shape
+        row.update(library_ms=None, library_fwd_ms=None,
+                   library_bwd_ms=None,
+                   library_error=f"{type(exc).__name__}: {exc}"[:300])
+    lib = row["library_ms"]
+    log(f"attention backward {label} {dt} ([{B}, {Sq}/{Skv}, {Hq}/{Hkv}, "
+        f"{D}/{Dv}] {kw}, route {row['route']}): {row['ms']:.4g} ms = "
+        f"{bound / row['ms']:.1%} of its bound ({bound:.4g} ms by "
+        f"{bound_by}), {row['tflops']:.4g} TFLOP/s on the five products' "
+        f"{five / 1e9:.4g} GFLOP; "
+        + ("passes " + ", ".join(f"{n} {t:.4g} ms"
+                                 for n, t in row["passes_ms"].items())
+           + f"; forward with lse {row['forward_lse_ms']:.4g} ms, plain vjp "
+           f"{row['plain_ms']:.4g} ms; " if split else "")
+        + f"forward + backward {row['fwd_bwd_ms']:.4g} ms against "
+        "flex_attention's "
+        + (f"{lib:.4g} ms (its forward {row['library_fwd_ms']:.4g}, so its "
+           f"backward {row['library_bwd_ms']:.4g} ms; compiled in "
+           f"{row['library_compile_s']:.1f} s)"
+           if lib is not None else f"(refused: {row['library_error']})"))
+    del leaves, lib_leaves, q, k, v, dout, lse
     torch.cuda.empty_cache()
-    return out
+    return row
 
 
-def train_run(make_run_config, InputShape, OptimizerConfig, configs, tmp,
-              *, arch, layers, batch) -> tuple:
-    """(cfg, run, shape) of phases 16 (b), 17 (b) and 19 (a): ``arch`` at
-    full width (cut to ``layers`` when not None), train_4k cut to seq
-    ``TRAIN_SEQ`` and global batch ``batch`` in its preset's
-    microbatches, lr 1e-3 warmup 1, no checkpoints."""
+def trained_config(configs, arch):
+    """``arch`` at full width cut as ``LM_TRAINED`` says: its depth, and
+    its routed experts with top-k kept."""
+    layers, experts, _, _ = LM_TRAINED[arch]
     cfg = configs.get_config(arch)
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
+    if experts is not None:
+        cfg = cfg.replace(moe=cfg.moe.replace(num_experts=experts))
+    return cfg
+
+
+def trained_launches(configs, arch, dtype=None) -> dict:
+    """The hand kernels' launches of one train step of ``arch`` at its
+    ``LM_TRAINED`` cut, in its preset's microbatches and remat
+    (``launch.train.step_launches``; with ``dtype``, of the calls on
+    operands of that dtype)."""
+    from repro_torch.launch.presets import make_run_config
+    from repro_torch.launch.train import step_launches
+    cfg = trained_config(configs, arch)
     run = make_run_config(arch, "train_4k", model_config=cfg)
-    shape = InputShape("train_4k_cut", TRAIN_SEQ, batch, "train")
+    return step_launches(cfg, run.microbatches, run.remat, dtype)
+
+
+def trained_routes(configs, arch) -> dict:
+    """The attention routes one train step of ``arch`` takes, as
+    :func:`attention_route_counts` reads them: each forward and backward
+    call on the route ``flash_attention.route`` names from its dtype and
+    head dims (bf16 wgmma or mma.sync; f32 the FMA route, which
+    ``bwd_routes`` does not count)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import route
+    a = trained_config(configs, arch).attention
+    d, dv = (a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim) \
+        if a.kind == "mla" else (a.head_dim, a.head_dim)
+    out = dict.fromkeys(("fwd_wgmma", "fwd_mma_sync", "fwd_fma",
+                         "bwd_wgmma", "bwd_mma_sync"), 0)
+    for dtype in ("bfloat16", "float32"):
+        n = trained_launches(configs, arch, dtype)
+        r = route(getattr(torch, dtype), d, dv)
+        out[f"fwd_{r}"] += n["flash_attention"]
+        if r != "fma":
+            out[f"bwd_{r}"] += n["flash_attention_bwd"]
+    return out
+
+
+def attention_route_counts(fa) -> dict:
+    """The attention kernels' own route counts: the forward's three and
+    the bf16 backward's two (:func:`trained_routes`' keys)."""
+    return {**{f"fwd_{r}": n for r, n in fa.routes().items()},
+            **{f"bwd_{r}": n for r, n in fa.bwd_routes().items()}}
+
+
+def training_state_bytes(cfg, run) -> int:
+    """Bytes of a train step's state at ``cfg``: the parameters, the
+    accumulated and one microbatch's gradients (each the parameters'
+    dtype) and AdamW's two moments in ``run.optimizer.moment_dtype``,
+    from the parameter shapes on ``meta``."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.param import tree_leaves
+    moment = torch.tensor([], dtype=getattr(
+        torch, run.optimizer.moment_dtype)).element_size()
+    return sum(p.numel() * (3 * p.element_size() + 2 * moment)
+               for p in tree_leaves(lm.abstract_params(cfg)))
+
+
+def train_step_flops(counting, cfg, shape) -> float:
+    """The work a train step needs: ``counting``'s 6·N·tokens over the
+    parameters that run on the tokens (:func:`token_flops`) and the
+    attention's forward and backward, and for an encoder-decoder three
+    times (forward and backward) its encoder and cross-attention over
+    the frames (:func:`encdec_flops`)."""
+    return token_flops(counting, cfg, shape) \
+        + counting.attention_flops(cfg, shape) \
+        + 3 * encdec_flops(cfg, shape.global_batch, shape.seq_len)
+
+
+def train_run(make_run_config, InputShape, OptimizerConfig, configs, tmp,
+              *, arch, lr=TRAIN_LR) -> tuple:
+    """(cfg, run, shape) of phases 16 (b), 17 (b), 19 (a) and 20 (b'):
+    ``arch`` at its ``LM_TRAINED`` cut (:func:`trained_config`), train_4k
+    cut to the table's seq and global batch in its preset's
+    microbatches, AdamW at peak ``lr`` after one warmup step, no
+    checkpoints."""
+    _, _, seq, batch = LM_TRAINED[arch]
+    cfg = trained_config(configs, arch)
+    run = make_run_config(arch, "train_4k", model_config=cfg)
+    shape = InputShape("train_4k_cut", seq, batch, "train")
     run = run.replace(shape=shape, checkpoint_every=0,
                       checkpoint_dir=str(tmp / f"train_ckpt_{arch}"),
-                      optimizer=OptimizerConfig(learning_rate=1e-3,
-                                                warmup_steps=1,
-                                                total_steps=100))
+                      optimizer=OptimizerConfig(
+                          learning_rate=lr, warmup_steps=1,
+                          total_steps=100,
+                          moment_dtype=run.optimizer.moment_dtype))
     return cfg, run, shape
 
 
 def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
                configs, counting, tree_leaves, counts, zero_counts, dev,
-               tmp, *, arch, layers, batch, steps, launches,
-               routes=None) -> dict:
-    """Phase 16 (b) and 17 (b): ``arch`` at full width (cut to ``layers``
-    when not None) trained for ``steps`` steps at seq ``TRAIN_SEQ`` and
-    global batch ``batch`` in its preset's microbatches through
-    ``Trainer.train`` on the card; the counters set to 0 before and read
-    after, each of ``launches``' kernels exactly its count a step, and
-    where ``routes`` (a read of route counts, their counts a step) is
-    given, each route exactly its count a step.  Per
-    step: wall s, tokens/s, loss, grad_norm, lr, and the step's share of
-    its bound — the work it needs (6·N·tokens + attention forward and
-    backward, ``models.counting``) and with remat's recompute (8·N·tokens
-    + 4/3 of attention), over 989 TFLOP/s.  Peak memory over the run."""
+               tmp, *, arch, steps, launches, routes=None,
+               lr=TRAIN_LR) -> dict:
+    """Phases 16 (b), 17 (b) and 20 (b'): ``arch`` at its ``LM_TRAINED``
+    cut trained for ``steps`` steps through ``Trainer.train`` on the
+    card; the counters set to 0 before and read after, each of
+    ``launches``' kernels exactly its count a step, and where ``routes``
+    (a read of route counts, their counts a step) is given, each route
+    exactly its count a step.  Per step: wall s, tokens/s, loss,
+    grad_norm, lr, and the step's share of its bound — the work it needs
+    (:func:`train_step_flops`) and with remat's recompute (8·N·tokens +
+    4/3 of attention, and of an encoder-decoder's cross-attention), over
+    989 TFLOP/s.  Peak memory over the run, under the card's.  The
+    losses must be finite and the last below the first."""
     import torch
     cfg, run, shape = train_run(make_run_config, InputShape,
                                 OptimizerConfig, configs, tmp, arch=arch,
-                                layers=layers, batch=batch)
-    flops = counting.model_flops(cfg, shape)
+                                lr=lr)
+    flops = token_flops(counting, cfg, shape)
     attn = counting.attention_flops(cfg, shape)
-    bound_ms = (flops + attn) / PEAK_BF16_FLOPS * 1e3
-    remat_bound_ms = (flops * 8 / 6 + attn * 4 / 3) / PEAK_BF16_FLOPS * 1e3
+    bound_ms = train_step_flops(counting, cfg, shape) / PEAK_BF16_FLOPS \
+        * 1e3
+    enc, cross = encdec_flops(cfg, shape.global_batch, shape.seq_len,
+                              split=True)
+    remat_bound_ms = (flops * 8 / 6 + attn * 4 / 3 + 3 * enc + 4 * cross) \
+        / PEAK_BF16_FLOPS * 1e3
+    state_bytes = training_state_bytes(cfg, run)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     trainer = Trainer(run, device=dev)
     state = trainer.init_state(run.seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
     params = sum(p.numel() for p in tree_leaves(state.params))
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
@@ -3166,8 +3388,9 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     want_routes = ({r: n * steps for r, n in routes[1].items()}
                    if routes else {})
     peak = torch.cuda.max_memory_allocated(dev)
+    card = torch.cuda.get_device_properties(dev).total_memory
     rows = [r for r in trainer.metrics_log if "loss" in r]
-    tokens = TRAIN_SEQ * batch
+    tokens = shape.seq_len * shape.global_batch
     for r in rows:
         r["tokens_per_s"] = tokens / r["wall_s"]
         r["share_of_bound"] = bound_ms / (r["wall_s"] * 1e3)
@@ -3177,10 +3400,14 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
             f"{r['share_of_bound']:.1%} of its bound ({bound_ms:.4g} ms; "
             f"{remat_bound_ms:.4g} ms with remat's recompute)")
     want = {k: v * steps for k, v in launches.items()}
-    log(f"{arch} ({cfg.num_layers} layers, {params / 1e9:.4g} B params, "
-        f"seq {TRAIN_SEQ}, batch {batch} in {run.microbatches} "
-        f"microbatches, remat {run.remat}): init {init_s:.1f} s, peak "
-        f"{peak / 2**30:.2f} GiB, launches {launched} (want {want})"
+    log(f"{arch} ({cfg.num_layers} layers"
+        + (f", {cfg.moe.num_experts} experts" if cfg.moe else "")
+        + f", {params / 1e9:.4g} B params, seq {shape.seq_len}, batch "
+        f"{shape.global_batch} in {run.microbatches} microbatches, remat "
+        f"{run.remat}, {run.optimizer.moment_dtype} moments): init "
+        f"{init_s:.1f} s (peak {init_peak / 2**30:.2f} GiB), state "
+        f"{state_bytes / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB of "
+        f"the card's {card / 2**30:.2f}, launches {launched} (want {want})"
         + (f", routes {taken} (want {want_routes})" if routes else ""))
     losses = [r["loss"] for r in rows]
     if len(rows) != steps or any(r.get("event") for r in
@@ -3196,16 +3423,21 @@ def train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     if taken != want_routes:
         raise SystemExit(f"{arch}: the steps took the routes {taken}, not "
                          f"{want_routes}")
+    if not peak < card:
+        raise SystemExit(f"{arch}: peak {peak} bytes, the card has {card}")
     del trainer, state
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.num_layers, "params": params,
-            "seq": TRAIN_SEQ, "batch": batch,
+            "experts": cfg.moe.num_experts if cfg.moe else None,
+            "seq": shape.seq_len, "batch": shape.global_batch,
             "microbatches": run.microbatches, "remat": run.remat,
             "moment_dtype": run.optimizer.moment_dtype, "steps": rows,
             "launches": launched, "launches_per_step": launches,
-            "routes": taken,
-            "peak_memory_bytes": peak, "bound_ms": bound_ms,
-            "remat_bound_ms": remat_bound_ms, "init_s": init_s}
+            "routes": taken, "state_bytes": state_bytes,
+            "init_peak_memory_bytes": init_peak,
+            "peak_memory_bytes": peak, "card_memory_bytes": card,
+            "bound_ms": bound_ms, "remat_bound_ms": remat_bound_ms,
+            "init_s": init_s, "lr": lr}
 
 
 def fault_tolerance_path(Trainer, InputShape, OptimizerConfig, RunConfig,
@@ -3266,99 +3498,140 @@ def fault_tolerance_path(Trainer, InputShape, OptimizerConfig, RunConfig,
 
 def whole_train_check(lm, steps, adamw, SyntheticLMDataset, RunConfig,
                       InputShape, OptimizerConfig, tree_map, tree_leaves,
-                      configs, counts, dev) -> dict:
-    """Phase 16 (d): one train step of the whole model at full width
-    (:func:`whole_model_config`: f32, a local and a global layer, the
-    window cut to 128 and the attention softcap to 2, so both bite at
-    seq 256), the same weights (drawn on the card, copied to the host)
-    and batch, on the card through the kernels and on the host through
-    their plain versions: loss, every gradient leaf and every parameter
-    after the AdamW step (``TRAIN_WHOLE_*``); and the card's AdamW alone
-    against the host's applied to the card's gradients, every parameter
-    within ``TRAIN_WHOLE_PARAM_REL`` × max |p| with no allowance."""
+                      configs, counts, dev, arch=TRAIN_ARCH,
+                      with_adamw=True) -> dict:
+    """Phases 16 (d) and 20 (d'): one train step of ``arch``'s whole
+    model at full width (:func:`whole_model_config`: f32, the smallest
+    depth with every block kind; gemma2's window cut to 128 and its
+    attention softcap to 2, so both bite at seq 256; the MoE models at
+    ``LM_WHOLE_EXPERTS`` experts), the same weights (drawn on the card,
+    copied to the host) and batch (with the frontend's f32 inputs), on
+    the card through the kernels and on the host through their plain
+    versions: the loss and every gradient leaf (``TRAIN_WHOLE_*``); with
+    ``with_adamw`` also every parameter after the AdamW step, and the
+    card's AdamW alone against the host's applied to the card's
+    gradients, every parameter within ``TRAIN_WHOLE_PARAM_REL`` × max
+    |p| with no allowance.  The card's step must launch exactly
+    ``launch.train.step_launches`` of one microbatch.  The leaves are
+    compared on the card, a host leaf at a time; the host keeps at most
+    five copies of the parameters at once."""
     import torch
-    cfg = whole_model_config(configs, TRAIN_ARCH)
-    run = RunConfig(model=cfg, shape=InputShape("whole", LM_WHOLE_PROMPT, 1,
-                                                "train"),
+
+    from repro_torch.launch.serve import front_positions
+    from repro_torch.launch.train import step_launches
+    cfg = whole_model_config(configs, arch)
+    # a frontend's prepended positions come on top of the prompt's tokens
+    seq = LM_WHOLE_PROMPT + front_positions(cfg)
+    run = RunConfig(model=cfg, shape=InputShape("whole", seq, 1, "train"),
                     optimizer=OptimizerConfig(warmup_steps=1))
     loss_fn = steps.make_loss_fn(run)
-    batch = SyntheticLMDataset(cfg, LM_WHOLE_PROMPT, 1, seed=16).batch_at(0)
+    batch = SyntheticLMDataset(cfg, seq, 1, seed=16).batch_at(0)
     gen = torch.Generator(device=dev).manual_seed(16)
     with torch.no_grad():
         card_params = lm.init(gen, cfg, dev)
         host_params = tree_map(lambda t: t.to("cpu", copy=True),
                                card_params)
         host_before = tree_map(lambda t: t.to("cpu", copy=True),
-                               card_params)
+                               card_params) if with_adamw else None
 
     def one_step(params, device):
         params = tree_map(lambda t: t.requires_grad_(), params)
-        b = {k: torch.from_numpy(v).to(device, dtype=torch.long)
+        b = {k: torch.from_numpy(v).to(device)
+             if v.dtype.kind == "f" else
+             torch.from_numpy(v).to(device, dtype=torch.long)
              for k, v in batch.items()}
         loss, _, grads = steps.value_and_grad(loss_fn, params, b)
-        opt = adamw.init_opt_state(params, run.optimizer)
-        _, _, metrics = adamw.apply_updates(params, grads, opt,
-                                            run.optimizer)
-        return float(loss), grads, params, float(metrics["lr"])
+        lr = None
+        if with_adamw:
+            opt = adamw.init_opt_state(params, run.optimizer)
+            _, _, metrics = adamw.apply_updates(params, grads, opt,
+                                                run.optimizer)
+            lr = float(metrics["lr"])
+        return float(loss), grads, params, lr
 
-    names = ("flash_attention", "flash_attention_bwd")
     before = counts()
+    t0 = time.perf_counter()
     card_loss, card_g, card_p, lr = one_step(card_params, dev)
     torch.cuda.synchronize()
-    launched = {k: counts()[k] - before[k] for k in names}
+    card_s = time.perf_counter() - t0
+    want = step_launches(cfg, 1, run.remat)
+    launched = {k: counts()[k] - before[k] for k in want}
     t0 = time.perf_counter()
     host_loss, host_g, host_p, _ = one_step(host_params, torch.device("cpu"))
     host_s = time.perf_counter() - t0
-    card_g = tree_map(lambda g: g.cpu(), card_g)
-    card_p = tree_map(lambda p: p.detach().cpu(), card_p)
-    adamw.apply_updates(host_before, card_g,
-                        adamw.init_opt_state(host_before, run.optimizer),
-                        run.optimizer)
     loss_rel = abs(card_loss - host_loss) / abs(host_loss)
-    grad_rel, param_worst, adamw_worst, flippable, total = 0.0, 0.0, 0.0, 0, 0
-    for cg, hg, cp, hp, ap in zip(*map(tree_leaves, (
-            card_g, host_g, card_p, host_p, host_before))):
-        hp = hp.detach()
+    grad_rel, flippable, total, worst_leaf, tols = 0.0, 0, 0, None, []
+    param_worst = adamw_worst = None
+    t0 = time.perf_counter()
+    for cg, hg, cp, hp in zip(*map(tree_leaves, (card_g, host_g, card_p,
+                                                 host_p))):
+        hg = hg.to(dev)
         gmax = float(hg.abs().max())
-        grad_rel = max(grad_rel, float((cg - hg).abs().max())
-                       / max(gmax, 1e-30))
-        small = (hg.abs() < TRAIN_WHOLE_GRAD_REL * gmax) & (hg != 0)
-        flippable += int(small.sum())
+        rel = float((cg - hg).abs().max()) / max(gmax, 1e-30)
+        if rel > grad_rel:
+            grad_rel, worst_leaf = rel, tuple(hg.shape)
         total += hg.numel()
-        pmax = float(hp.abs().max())
-        tol = TRAIN_WHOLE_PARAM_REL * pmax + torch.where(small, 2 * lr, 0.0)
-        param_worst = max(param_worst, float(((cp - hp).abs() / tol).max()))
-        adamw_worst = max(adamw_worst, float((cp - ap).abs().max())
-                          / (TRAIN_WHOLE_PARAM_REL * pmax))
-    del card_params, card_g, card_p, host_before
+        if with_adamw:
+            hp, cp = hp.detach().to(dev), cp.detach()
+            small = (hg.abs() < TRAIN_WHOLE_GRAD_REL * gmax) & (hg != 0)
+            flippable += int(small.sum())
+            tols.append(TRAIN_WHOLE_PARAM_REL * float(hp.abs().max()))
+            tol = tols[-1] + torch.where(small, 2 * lr, 0.0)
+            param_worst = max(param_worst or 0.0,
+                              float(((cp - hp).abs() / tol).max()))
+            del hp, small, tol
+        del hg
+    compare_s = time.perf_counter() - t0
+    del host_params, host_g, host_p, card_params
+    adamw_s = 0.0
+    if with_adamw:
+        # the host's AdamW on the card's gradients, against the card's
+        t0 = time.perf_counter()
+        card_g_host = tree_map(lambda g: g.cpu(), card_g)
+        del card_g
+        adamw.apply_updates(host_before, card_g_host,
+                            adamw.init_opt_state(host_before, run.optimizer),
+                            run.optimizer)
+        del card_g_host
+        adamw_worst = max(float((cp.detach() - ap.to(dev)).abs().max()) / tol
+                          for cp, ap, tol in zip(tree_leaves(card_p),
+                                                 tree_leaves(host_before),
+                                                 tols))
+        adamw_s = time.perf_counter() - t0
+    del card_p, host_before
     torch.cuda.empty_cache()
-    log(f"{TRAIN_ARCH} whole model train step ({cfg.num_layers} layers, "
-        f"f32, seq {LM_WHOLE_PROMPT}): card loss {card_loss:.8g}, host "
+    log(f"{arch} whole model train step ({cfg.num_layers} layers"
+        + (f", {cfg.moe.num_experts} experts" if cfg.moe else "")
+        + f", f32, seq {seq}): card loss {card_loss:.8g}, host "
         f"{host_loss:.8g} (rel {loss_rel:.3g}); worst gradient leaf "
-        f"{grad_rel:.3g} × its max |g|; parameters after AdamW worst "
-        f"{param_worst:.3g}× the tolerance ({flippable} of {total} "
-        f"elements with a nonzero |g| inside the gradient tolerance); the "
-        f"card's AdamW against the host's on the card's gradients worst "
-        f"{adamw_worst:.3g}× {TRAIN_WHOLE_PARAM_REL} × max |p|; card "
-        f"launches {launched}; host {host_s:.1f} s")
+        f"{grad_rel:.3g} × its max |g| (a leaf of shape {worst_leaf})"
+        + (f"; parameters after AdamW worst {param_worst:.3g}× the "
+           f"tolerance ({flippable} of {total} elements with a nonzero |g| "
+           f"inside the gradient tolerance); the card's AdamW against the "
+           f"host's on the card's gradients worst {adamw_worst:.3g}× "
+           f"{TRAIN_WHOLE_PARAM_REL} × max |p|" if with_adamw else "")
+        + f"; card launches {launched} (want {want}); card step "
+        f"{card_s:.1f} s, host step {host_s:.1f} s, compared in "
+        f"{compare_s:.1f} s" + (f", host AdamW and its comparison "
+                                 f"{adamw_s:.1f} s" if with_adamw else ""))
     if not loss_rel <= TRAIN_WHOLE_LOSS_REL \
-            or not grad_rel <= TRAIN_WHOLE_GRAD_REL or not param_worst <= 1 \
-            or not adamw_worst <= 1:
-        raise SystemExit(f"{TRAIN_ARCH} whole-model train step: card and "
+            or not grad_rel <= TRAIN_WHOLE_GRAD_REL \
+            or with_adamw and not (param_worst <= 1 and adamw_worst <= 1):
+        raise SystemExit(f"{arch} whole-model train step: card and "
                          f"host differ (loss {loss_rel:.3g}, gradients "
-                         f"{grad_rel:.3g}, parameters {param_worst:.3g}×, "
-                         f"AdamW {adamw_worst:.3g}×)")
-    want = {"flash_attention": 2 * cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers}
+                         f"{grad_rel:.3g}, parameters {param_worst}×, "
+                         f"AdamW {adamw_worst}×)")
     if launched != want:
-        raise SystemExit(f"whole-model train step launched {launched}, not "
-                         f"{want}")
-    return {"layers": cfg.num_layers, "seq": LM_WHOLE_PROMPT,
+        raise SystemExit(f"{arch} whole-model train step launched "
+                         f"{launched}, not {want}")
+    return {"layers": cfg.num_layers, "seq": seq,
+            "experts": cfg.moe.num_experts if cfg.moe else None,
             "loss_rel": loss_rel, "grad_rel": grad_rel,
             "param_worst": param_worst, "adamw_worst": adamw_worst,
-            "sign_free_elements": flippable,
+            "sign_free_elements": flippable if with_adamw else None,
             "elements": total, "card_launches": launched,
-            "host_s": host_s}
+            "card_s": card_s, "host_s": host_s, "compare_s": compare_s,
+            "adamw_s": adamw_s}
 
 
 def grad_excess(names, got, want) -> dict:
@@ -3459,21 +3732,18 @@ def mesh_train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
     ``make_host_mesh()`` (1 × 1, NCCL), from the same seed; the counters
     set to 0 before each run and read after it.  Fails unless the mesh's
     parameters and moments are DTensors, each run launched exactly
-    ``TRAIN_STEP_LAUNCHES`` a step (DTensor dispatch did not route around
+    :func:`trained_launches` a step (DTensor dispatch did not route around
     the kernels), and every loss is within ``MESH_LOSS_REL`` of the
     mesh-less run's.  Logs the step times side by side (the DTensor
     overhead) with the card's name and power limit."""
     import torch
     from torch.distributed.tensor import DTensor
-    cfg = configs.get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
-    run = make_run_config(TRAIN_ARCH, "train_4k", model_config=cfg)
-    run = run.replace(
-        shape=InputShape("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train"),
-        checkpoint_every=0, checkpoint_dir=str(tmp / "mesh_train_ckpt"),
-        optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
-                                  total_steps=100))
+    _, run, _ = train_run(make_run_config, InputShape, OptimizerConfig,
+                          configs, tmp, arch=TRAIN_ARCH)
+    run = run.replace(checkpoint_dir=str(tmp / "mesh_train_ckpt"))
     mesh = make_host_mesh()
-    want = {k: v * MESH_STEPS for k, v in TRAIN_STEP_LAUNCHES.items()}
+    step = trained_launches(configs, TRAIN_ARCH)
+    want = {k: v * MESH_STEPS for k, v in step.items()}
     out = {}
     for name, m in (("plain", None), ("mesh", mesh)):
         trainer = Trainer(run, mesh=m, device=dev)
@@ -3486,7 +3756,7 @@ def mesh_train_path(Trainer, make_run_config, InputShape, OptimizerConfig,
         zero_counts()
         state = trainer.train(state, MESH_STEPS, log_every=0)
         torch.cuda.synchronize()
-        launched = {k: counts()[k] for k in TRAIN_STEP_LAUNCHES}
+        launched = {k: counts()[k] for k in step}
         rows = [r for r in trainer.metrics_log if "loss" in r]
         out[name] = {"losses": [r["loss"] for r in rows],
                      "wall_s": [r["wall_s"] for r in rows],
@@ -3800,8 +4070,8 @@ def launch_flops(cfg, batch: int, seq: int) -> dict:
     return out
 
 
-def roofline_step_path(counts, zero_counts, dev, tmp, *, arch, layers,
-                       batch, launches, measured) -> dict:
+def roofline_step_path(counts, zero_counts, dev, tmp, *, arch, launches,
+                       measured) -> dict:
     """Phase 19 (a): one more step of ``arch`` at phase 16 (b)'s / 17
     (b)'s cut (:func:`train_run`) on the card under ``OpRecorder`` and,
     inside it, ``FlopCounterMode``; the counters set to 0 before and read
@@ -3827,8 +4097,8 @@ def roofline_step_path(counts, zero_counts, dev, tmp, *, arch, layers,
     from repro_torch.models import counting
     from repro_torch.runtime import Trainer
     cfg, run, shape = train_run(make_run_config, InputShape,
-                                OptimizerConfig, configs, tmp, arch=arch,
-                                layers=layers, batch=batch)
+                                OptimizerConfig, configs, tmp, arch=arch)
+    batch = shape.global_batch
     trainer = Trainer(run, device=dev)
     state = trainer.init_state(run.seed)
     torch.cuda.synchronize()
@@ -4138,13 +4408,12 @@ def roofline_phase(counts, zero_counts, measured, cells, tmp, dev, smi,
     t19 = time.perf_counter()
     walk_check = walk_check_in_child()
     walked = {}
-    for arch, layers, batch, launches in (
-            (TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEP_LAUNCHES),
-            *((arch, layers, RECURRENT_BATCH, RECURRENT_STEP_LAUNCHES[arch])
-              for arch, layers in RECURRENT_TRAIN)):
+    from repro_torch import configs
+    for arch in (TRAIN_ARCH, *RECURRENT_TRAIN):
         walked[arch] = roofline_step_path(
-            counts, zero_counts, dev, tmp, arch=arch, layers=layers,
-            batch=batch, launches=launches, measured=measured[arch])
+            counts, zero_counts, dev, tmp, arch=arch,
+            launches=trained_launches(configs, arch),
+            measured=measured[arch])
     log(f"phase 19 (a) took {time.perf_counter() - t19:.1f} s")
     t0 = time.perf_counter()
     priced = roofline_cells_path(cells, tmp, dev, bench_args)
@@ -4471,6 +4740,85 @@ def recurrent_whole_check(lm, steps, SyntheticLMDataset, RunConfig,
     return {"layers": cfg.num_layers, "seq": LM_WHOLE_PROMPT,
             "loss_rel": loss_rel, "grad_rel": grad_rel,
             "card_launches": launched, "host_s": host_s}
+
+
+def stream_permutes(cfg) -> bool:
+    """Whether the synthetic stream's map x → a·x + b mod V
+    (``data.SyntheticLMDataset``) permutes the vocabulary (granite-8b's
+    49152 and internvl2-2b's 92553 words).  Then its words are uniform,
+    and a batch's loss falls only as the model learns the map itself
+    from the pairs earlier batches showed it: on the card, at phase 20's
+    rate, it stays within 0.03 of the first step's for five or six
+    steps, then falls.  Where a divides V the map folds the vocabulary
+    onto a fifth of it, and its iterates onto fewer, which the first
+    steps learn."""
+    from repro_torch.data import SyntheticLMDataset
+    return math.gcd(SyntheticLMDataset.a, cfg.vocab_size) == 1
+
+
+def train_more_steps(cfg) -> int:
+    """Phase 20's steps at ``cfg``: ``TRAIN_PERMUTED_STEPS`` where the
+    stream permutes the vocabulary (:func:`stream_permutes`), else
+    ``TRAIN_MORE_STEPS``."""
+    return TRAIN_PERMUTED_STEPS if stream_permutes(cfg) \
+        else TRAIN_MORE_STEPS
+
+
+def train_more_phase(counts, zero_counts, dev, tmp, *, archs=TRAIN_MORE,
+                     whole=TRAIN_MORE_WHOLE, steps=None,
+                     lr=TRAIN_MORE_LR) -> dict:
+    """Phase 20: (b') each of ``archs`` at its ``LM_TRAINED`` cut
+    trained ``steps`` steps (by default :func:`train_more_steps`) through
+    ``Trainer.train``
+    (:func:`train_path`): exactly :func:`trained_launches` a step, every
+    attention call, forward and backward, on the route
+    :func:`trained_routes` names, at peak rate ``lr``, the losses
+    finite and the last below the first, peak memory under the card's,
+    memory freed between the models; (d') one step of the whole model,
+    card against host, for each of ``whole`` (:func:`whole_train_check`):
+    its loss and gradients; AdamW, the same code for every model, phase
+    16 (d) holds (its host side is most of a step of 2 B f32 parameters
+    on the host).  Returns what the ``{"train_archs": ...}`` line
+    prints."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import (InputShape, OptimizerConfig,
+                                     RunConfig)
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.launch.presets import make_run_config
+    from repro_torch.models import counting, lm
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import Trainer
+    t20 = time.perf_counter()
+    trained = {}
+    for arch in archs:
+        t0 = time.perf_counter()
+        trained[arch] = train_path(
+            Trainer, make_run_config, InputShape, OptimizerConfig, configs,
+            counting, tree_leaves, counts, zero_counts, dev, tmp, arch=arch,
+            steps=steps or train_more_steps(configs.get_config(arch)),
+            launches=trained_launches(configs, arch),
+            routes=(lambda: attention_route_counts(flash_attention),
+                    trained_routes(configs, arch)), lr=lr)
+        trained[arch]["seconds"] = time.perf_counter() - t0
+        log(f"phase 20 (b') {arch} took {trained[arch]['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    wholes = {}
+    for arch in whole:
+        t1 = time.perf_counter()
+        wholes[arch] = whole_train_check(
+            lm, train_steps, adamw, SyntheticLMDataset, RunConfig, InputShape,
+            OptimizerConfig, tree_map, tree_leaves, configs, counts, dev,
+            arch=arch, with_adamw=False)
+        wholes[arch]["seconds"] = time.perf_counter() - t1
+    log(f"phase 20 (d') took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return {"trained": trained, "whole_model": wholes,
+            "seconds": time.perf_counter() - t20}
 
 
 def main() -> int:
@@ -4840,11 +5188,11 @@ def main() -> int:
     training = train_path(Trainer, make_run_config, InputShape,
                           OptimizerConfig, configs, lm_counting, tree_leaves,
                           counts, zero_counts, dev, tmp, arch=TRAIN_ARCH,
-                          layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
-                          steps=TRAIN_STEPS, launches=TRAIN_STEP_LAUNCHES,
-                          routes=(lambda: attention_routes(dev), {
-                              "wgmma": TRAIN_STEP_LAUNCHES["flash_attention"],
-                              "mma_sync": 0, "fma": 0}))
+                          steps=TRAIN_STEPS,
+                          launches=trained_launches(configs, TRAIN_ARCH),
+                          routes=(lambda: attention_route_counts(
+                              flash_attention),
+                              trained_routes(configs, TRAIN_ARCH)))
     log(f"phase 16 (b) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fault = fault_tolerance_path(Trainer, InputShape, OptimizerConfig,
@@ -4867,23 +5215,25 @@ def main() -> int:
         forward_floor_ms=measured["slstm_cell"]["step_floor_ms"])
     log(f"phase 17 (a) took {time.perf_counter() - t17:.1f} s")
     t0 = time.perf_counter()
-    trained = {arch: train_path(
-        Trainer, make_run_config, InputShape, OptimizerConfig, configs,
-        lm_counting, tree_leaves, counts, zero_counts, dev, tmp, arch=arch,
-        layers=layers, batch=RECURRENT_BATCH, steps=RECURRENT_STEPS,
-        launches=RECURRENT_STEP_LAUNCHES[arch],
-        routes=(lambda: {**mamba2_ssd.bwd_route_launches,
-                         **{f"attention_{r}": n for r, n in
-                            flash_attention.routes().items()}},
-                {**RECURRENT_STEP_SSD_ROUTES[arch],
-                 **RECURRENT_STEP_ATTN_ROUTES[arch]}))
-        for arch, layers in RECURRENT_TRAIN}
+    trained = {}
+    for arch in RECURRENT_TRAIN:
+        step_want = trained_launches(configs, arch)
+        trained[arch] = train_path(
+            Trainer, make_run_config, InputShape, OptimizerConfig, configs,
+            lm_counting, tree_leaves, counts, zero_counts, dev, tmp,
+            arch=arch, steps=RECURRENT_STEPS, launches=step_want,
+            # zamba2-7b's SSD backward (chunk 256 → 64, P = N = 64) only
+            # on the chained scans
+            routes=(lambda: {**mamba2_ssd.bwd_route_launches,
+                             **attention_route_counts(flash_attention)},
+                    {"chain": step_want["mamba2_ssd_bwd"], "passes": 0,
+                     **trained_routes(configs, arch)}))
     log(f"phase 17 (b) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     wholes = {arch: recurrent_whole_check(
         lm, steps, SyntheticLMDataset, RunConfig, InputShape,
         OptimizerConfig, tree_map, tree_leaves, configs, counts, arch, dev)
-        for arch, _ in RECURRENT_TRAIN}
+        for arch in RECURRENT_TRAIN}
     log(f"phase 17 (c) took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"train_recurrent": {
         "backward": recurrent, "trained": trained, "whole_model": wholes,
@@ -4924,8 +5274,14 @@ def main() -> int:
     print(json.dumps({"roofline": roofline_phase(
         counts, zero_counts,
         {TRAIN_ARCH: training["steps"],
-         **{arch: trained[arch]["steps"] for arch, _ in RECURRENT_TRAIN}},
+         **{arch: trained[arch]["steps"] for arch in RECURRENT_TRAIN}},
         cells, tmp, dev, smi)}), flush=True)
+
+    # ---- 20. the other seven architectures trained --------------------------
+    train_archs = train_more_phase(counts, zero_counts, dev, tmp)
+    log(f"phase 20 took {train_archs['seconds']:.1f} s")
+    print(json.dumps({"train_archs": {**train_archs, "device": smi}}),
+          flush=True)
 
     sources = {"matmul_tiled": "src/repro/kernels/matmul_tiled.py:54",
                "stencil5": "src/repro/kernels/stencil5.py:43",
@@ -4937,7 +5293,7 @@ def main() -> int:
                "slstm_cell": "src/repro/kernels/slstm_cell.py:77"}
     # the backward kernel: launches from phase 16 (b), its error at the
     # main path's layer (gemma2-9b global, bf16), timed there
-    timed = backward["timed"]
+    timed = backward["layers"][ATTN_BWD_TIMED[0][0]]
     measured["flash_attention_bwd"] = {
         key: timed[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
@@ -4945,6 +5301,7 @@ def main() -> int:
         {key: timed[key] for key in (
             "library", "forward_lse_ms", "fwd_bwd_ms", "library_fwd_ms",
             "library_bwd_ms", "passes_ms", "tflops")}, pred_over_meas={})
+    measured["flash_attention_bwd"]["layers"] = backward["layers"]
     launches["flash_attention_bwd"] = training["launches"][
         "flash_attention_bwd"]
     main_case = backward["cases"][f"{ATTN_BWD_CASES[0][0]} bfloat16"]
@@ -4988,6 +5345,10 @@ def main() -> int:
         if name in ("mamba2_ssd", "slstm_cell", "flash_attention"):
             row["launches_train_recurrent"] = sum(  # phase 17 (b)
                 t["launches"][name] for t in trained.values())
+        if name in ("flash_attention", "flash_attention_bwd"):
+            row["launches_train_archs"] = sum(  # phase 20 (b')
+                t["launches"][name]
+                for t in train_archs["trained"].values())
         if name in base_pred:
             row["predicted_ms"]["base"] = base_pred[name]
             row["pred_over_meas"]["base"] = base_pred[name] / meas["ms"]

@@ -448,7 +448,11 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point (no
-// link against libcuda); 0 where the driver has none
+// link against libcuda); 0 where the driver has none.  The encoder fails
+// (invalid value) in a thread with no current context: one whose first
+// CUDA work this is, such as an autograd worker whose first node is the
+// attention backward.  So each thread makes the runtime bind its context
+// (cudaFree(0): no operation but that) before its first encode.
 inline EncodeTiled encoder() {
   static EncodeTiled fn = [] {
     void* ptr = nullptr;
@@ -459,7 +463,12 @@ inline EncodeTiled encoder() {
       ptr = nullptr;
     return reinterpret_cast<EncodeTiled>(ptr);
   }();
-  return fn;
+  thread_local const bool bound = [] {
+    cudaFree(nullptr);
+    cudaGetLastError();
+    return true;
+  }();
+  return bound ? fn : nullptr;
 }
 
 // The tensor map of a contiguous f32 operand of `rank` dimensions (dims

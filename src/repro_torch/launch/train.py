@@ -14,13 +14,66 @@ import argparse
 import sys
 import tempfile
 from pathlib import Path
+from typing import Dict, Optional
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import InputShape, OptimizerConfig
+from repro_torch.configs.base import InputShape, ModelConfig, OptimizerConfig
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.presets import make_run_config
+from repro_torch.launch.serve import BLOCK_LAUNCHES, KERNELS
+from repro_torch.models.blocks import effective_pattern, effective_prefix
 from repro_torch.runtime import Trainer
 from repro_torch.sharding import mesh_shape
+
+
+def _call_dtypes(cfg: ModelConfig, block: str, encoder: bool) -> Dict:
+    """{kernel: [operand dtype of each call]} one pass through ``block``
+    makes: attention in the activation dtype — but an encoder's layers
+    over the frames, and the cross-attention that meets their output, in
+    f32 (the frames are f32 as the data pipeline draws them, and
+    ``blockwise_attention`` promotes a mix to f32); the SSD and the sLSTM
+    always in f32."""
+    act = cfg.activation_dtype
+    out = {}
+    for name, n in BLOCK_LAUNCHES[block].items():
+        if name != "flash_attention":
+            out[name] = ["float32"] * n
+        elif encoder:
+            out[name] = ["float32"] * n
+        elif block == "xattn_layer":          # self-, then cross-attention
+            out[name] = [act, "float32"]
+        else:
+            out[name] = [act] * n
+    return out
+
+
+def step_launches(cfg: ModelConfig, microbatches: int, remat: str = "full",
+                  dtype: Optional[str] = None) -> Dict[str, int]:
+    """The hand kernels' launches one train step at ``cfg`` makes on the
+    card, forward (by launch counter, as ``launch.serve.KERNELS``) and
+    backward (``<kernel>_bwd``); with ``dtype``, only the calls whose
+    operands are of that dtype.  Under remat ``full`` or ``dots`` each
+    body group's kernels run twice forward (the forward and its
+    recompute) and once backward; the prefix blocks and an
+    encoder-decoder's encoder layers run outside remat, once each way;
+    zamba2's shared block runs once a group, inside it.  All of it once
+    a microbatch."""
+    twice = 2 if remat in ("full", "dots") else 1
+    passes = [(b, 1, False) for b in effective_prefix(cfg)]
+    group = list(effective_pattern(cfg))
+    if cfg.shared_attn_every:
+        group.append("attn_mlp")
+    passes += [(b, twice, False) for b in group] * cfg.num_groups
+    if cfg.encdec is not None:
+        passes += [("bidir_attn_mlp", 1, True)] \
+            * cfg.encdec.num_encoder_layers
+    out = {k: 0 for name in KERNELS for k in (name, f"{name}_bwd")}
+    for block, forward, encoder in passes:
+        for name, dts in _call_dtypes(cfg, block, encoder).items():
+            n = sum(dtype is None or dt == dtype for dt in dts)
+            out[name] += n * forward * microbatches
+            out[f"{name}_bwd"] += n * microbatches
+    return out
 
 
 def main(argv=None) -> int:

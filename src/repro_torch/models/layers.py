@@ -141,13 +141,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
     """Whisper-style sinusoidal embeddings. positions: [B,S] → [B,S,d]
-    ([1, S, d] where every row is the first: it broadcasts)."""
+    ([1, S, d] where every row is the first: it broadcasts), in float32,
+    computed in float64 and rounded once, so every device gives the same
+    table: the card's float32 ``exp`` differs from the host's in the last
+    place, and the card's table put a whole whisper-tiny step's
+    gradients 3.48e-3 of their largest off the host's, where this one
+    leaves 2.8e-4 (its encoder's scores reach the hundreds)."""
     half = d // 2
     freqs = torch.exp(-math.log(10_000.0) * torch.arange(
-        half, dtype=torch.float32, device=positions.device)
+        half, dtype=torch.float64, device=positions.device)
         / max(half - 1, 1))
-    ang = _table_rows(positions)[..., None].float() * freqs
-    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    ang = _table_rows(positions)[..., None].double() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
 
 
 # ---------------------------------------------------------------------------

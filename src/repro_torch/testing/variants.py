@@ -47,6 +47,28 @@ ATTN_SERVED_CASES = [
      dict(causal=True)),
     (("float32",), 2, 224, 1500, 6, 6, 64, 64, dict(causal=False)),
 ]
+# the trained models' backward shapes the cases above miss, each
+# (dtypes, B, Sq, Skv, Hq, Hkv, D, Dv, kw), at a small S: the dK/dV group
+# sums over GQA groups of 4, 6 and 7 query heads at D 128 (granite-8b's,
+# nemotron-4-15b's and arctic-480b's maps), deepseek-v2's MLA causal (Dk
+# 192 / Dv 128), and whisper-tiny's encoder (non-causal), cross-attention
+# (Sq ≠ Skv) and causal decoder at 6 × 64, ragged against the tiles
+ATTN_BWD_TRAINED_CASES = [
+    (("float32", "bfloat16"), 1, 320, 320, 8, 2, 128, 128,
+     dict(causal=True)),
+    (("float32", "bfloat16"), 1, 320, 320, 12, 2, 128, 128,
+     dict(causal=True)),
+    (("float32", "bfloat16"), 1, 320, 320, 14, 2, 128, 128,
+     dict(causal=True)),
+    (("float32", "bfloat16"), 1, 320, 320, 4, 4, 192, 128,
+     dict(causal=True)),
+    (("float32", "bfloat16"), 2, 300, 300, 6, 6, 64, 64,
+     dict(causal=False)),
+    (("float32", "bfloat16"), 2, 100, 300, 6, 6, 64, 64,
+     dict(causal=False)),
+    (("float32", "bfloat16"), 2, 100, 100, 6, 6, 64, 64,
+     dict(causal=True)),
+]
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64),
               (2, 64, 8, 16, 32, 16)]
 SLSTM_SHAPES = [(2, 24, 4, 16), (1, 48, 2, 32),

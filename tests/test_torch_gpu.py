@@ -9,6 +9,8 @@ jax) lets it run on a machine without jax::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -908,6 +910,69 @@ def test_flash_attention_backward_kernel_edges_on_card(cuda, dt, Sq, Skv, D,
     dout = torch.from_numpy(rn(53, B, Sq, Hq, Dv)).to(cuda, tdt)
     got, want = _attention_grads_on_card(q, k, v, dout, kw, Sq, Skv)
     _hold_gradients(got, want, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,B,Sq,Skv,Hq,Hkv,D,Dv,kw", [
+    (dt, *case[1:]) for case in variants.ATTN_BWD_TRAINED_CASES
+    for dt in case[0]])
+def test_flash_attention_backward_trained_shapes_on_card(cuda, dt, B, Sq,
+                                                         Skv, Hq, Hkv, D, Dv,
+                                                         kw):
+    """The trained models' backward shapes: GQA groups 4, 6 and 7 at D
+    128 (the dK/dV passes sum a kv head's gradient over its group),
+    deepseek-v2's MLA causal, whisper-tiny's encoder, cross-attention and
+    causal decoder; q × 8, dq, dk, dv against the plain version's
+    autograd in float64, the bf16 call on the route ``route`` names."""
+    tdt = DTYPES[dt]
+    q = torch.from_numpy(rn(80, B, Sq, Hq, D) * 8.0).to(cuda, tdt)
+    k = torch.from_numpy(rn(81, B, Skv, Hkv, D)).to(cuda, tdt)
+    v = torch.from_numpy(rn(82, B, Skv, Hkv, Dv)).to(cuda, tdt)
+    dout = torch.from_numpy(rn(83, B, Sq, Hq, Dv)).to(cuda, tdt)
+    routes = tfa.bwd_routes()
+    got, want = _attention_grads_on_card(q, k, v, dout, kw, Sq, Skv)
+    taken = {r: n - routes[r] for r, n in tfa.bwd_routes().items()}
+    route = tfa.route(tdt, D, Dv)
+    assert taken == {r: int(r == route) for r in taken}
+    _hold_gradients(got, want, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_wgmma_route_as_a_threads_first_cuda_work(cuda, direction):
+    """The wgmma routes encode TMA tensor maps, which fail in a thread
+    with no current context: each direction must run as the first CUDA
+    work of a new thread (as in an autograd worker whose first node is
+    the attention backward), after the main thread ran it, and match
+    the main thread's result bit for bit."""
+    q, k, v, dout = (torch.from_numpy(rn(90 + i, 1, 256, 4, 64)).to(
+        cuda, torch.bfloat16) for i in range(4))
+
+    def call():
+        if direction == "forward":
+            return (tfa.flash_attention_cuda(q, k, v, True, None, None,
+                                             0.125, 128, 128),)
+        _, lse = tfa.flash_attention_lse_cuda(q, k, v, True, None, None,
+                                              0.125)
+        return tfa.flash_attention_bwd_cuda(dout, q, k, v, lse, True, None,
+                                            None, 0.125)
+
+    want = call()
+    got, errors = [], []
+
+    def body():
+        try:
+            got.extend(call())
+            torch.cuda.synchronize()
+        except Exception as exc:   # raised again in the test's thread
+            errors.append(exc)
+
+    worker = threading.Thread(target=body)
+    worker.start()
+    worker.join()
+    assert not errors, errors
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.gpu

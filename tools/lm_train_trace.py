@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Where a training step's time goes, on one NVIDIA GPU.
 
-    python3 tools/lm_train_trace.py [--arch gemma2-9b|zamba2-7b|xlstm-125m]
-        [--num-layers N] [--seq-len 4096] [--batch B]
+    python3 tools/lm_train_trace.py [--arch A] [--num-layers N]
+        [--seq-len S] [--batch B]
 
 The port's language model at the architecture's published widths, cut
-to ``--num-layers``, random bf16 weights from seed 0, the preset's
-microbatches, moment dtype and remat ("full"), AdamW on the synthetic
-stream.  Without ``--num-layers`` and ``--batch`` the step is
-``chip_smoke.py``'s: phase 16 (b)'s for gemma2-9b (8 layers, batch 4),
-phase 17 (b)'s for zamba2-7b (9 layers, batch 8) and xlstm-125m (as
-published, batch 8).  One warm-up step, one timed on the host clock
-around ``torch.cuda.synchronize()``, one under ``torch.profiler``.
+as ``chip_smoke.LM_TRAINED`` says (depth, routed experts with top-k
+kept, seq, global batch: phases 16 (b), 17 (b) and 20 (b')), or to
+``--num-layers``, ``--seq-len`` and ``--batch``, random bf16 weights
+from seed 0, the preset's microbatches, moment dtype and remat
+("full"), AdamW on the synthetic stream.  One warm-up step, one timed
+on the host clock around ``torch.cuda.synchronize()``, one under
+``torch.profiler``.
 Every device kernel's time is put in a class: the sLSTM's forward and
 backward kernels, the SSD's (the backward's own passes: the chained
 scans' two, or the five passes' last three, whose recompute of the
@@ -57,20 +57,17 @@ CLASSES = (
 )
 
 
-#: chip_smoke.py's training runs: arch → (layers, or None for the
-#: published depth; global batch)
-CUTS = {"gemma2-9b": (8, 4), "zamba2-7b": (9, 8), "xlstm-125m": (None, 8)}
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma2-9b")
     ap.add_argument("--num-layers", type=int, default=None)
-    ap.add_argument("--seq-len", type=int, default=4096)
+    ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
     args = ap.parse_args(argv)
-    layers, batch = CUTS.get(args.arch, (None, 4))
-    layers = args.num_layers if args.num_layers is not None else layers
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    _, _, seq, batch = chip_smoke.LM_TRAINED[args.arch]
+    args.seq_len = args.seq_len if args.seq_len is not None else seq
     args.batch = args.batch if args.batch is not None else batch
 
     import torch
@@ -78,7 +75,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("lm_train_trace: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.configs import InputShape, get_config
+    from repro_torch.configs import InputShape
     from repro_torch.data import make_batch_iterator
     from repro_torch.launch.presets import make_run_config
     from repro_torch.launch.steps import make_train_step
@@ -86,10 +83,11 @@ def main(argv=None) -> int:
     from repro_torch.models.param import tree_map
     from repro_torch.optim import adamw
 
+    from repro_torch import configs
     dev = torch.device("cuda")
-    cfg = get_config(args.arch)
-    if layers is not None:
-        cfg = cfg.replace(num_layers=layers)
+    cfg = chip_smoke.trained_config(configs, args.arch)
+    if args.num_layers is not None:
+        cfg = cfg.replace(num_layers=args.num_layers)
     run = make_run_config(args.arch, "train_4k", model_config=cfg)
     run = run.replace(shape=InputShape("trace", args.seq_len, args.batch,
                                        "train"))
@@ -119,7 +117,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     print(json.dumps({"lm_train_trace": {
-        "arch": cfg.name, "layers": cfg.num_layers, "seq": args.seq_len,
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "experts": cfg.moe.num_experts if cfg.moe else None,
+        "seq": args.seq_len,
         "batch": args.batch, "microbatches": run.microbatches,
         "remat": run.remat, "step": trace, "device": smi}}), flush=True)
     print(smi, flush=True)

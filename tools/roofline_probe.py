@@ -58,16 +58,12 @@ def main() -> int:
     started = cs.start_dryruns(tmp)
     try:
         measured = {}
-        for arch, layers, batch, launches in (
-                (cs.TRAIN_ARCH, cs.TRAIN_LAYERS, cs.TRAIN_BATCH,
-                 cs.TRAIN_STEP_LAUNCHES),
-                *((a, n, cs.RECURRENT_BATCH, cs.RECURRENT_STEP_LAUNCHES[a])
-                  for a, n in cs.RECURRENT_TRAIN)):
+        for arch in (cs.TRAIN_ARCH, *cs.RECURRENT_TRAIN):
             measured[arch] = cs.train_path(
                 Trainer, make_run_config, InputShape, OptimizerConfig,
                 configs, counting, tree_leaves, counts, zero_counts, dev,
-                tmp, arch=arch, layers=layers, batch=batch,
-                steps=args.steps, launches=launches)["steps"]
+                tmp, arch=arch, steps=args.steps,
+                launches=cs.trained_launches(configs, arch))["steps"]
         cells = cs.collect_dryruns(started, tmp)
     finally:
         for _, proc in started:
